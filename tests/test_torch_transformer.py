@@ -1,0 +1,177 @@
+"""Port parity: tensor2robot_tpu_torch.layers vs the JAX package's layers.
+
+Each flax module is initialized from a fixed key, its params converted by
+utils/jax_params.py, and both run on the same numpy input; the flax
+attention runs the Pallas kernel in interpret mode (use_flash=True,
+interpret=True) while the port's runs its plain flash recurrence on CPU.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tensor2robot_tpu.layers.spatial_softmax import spatial_softmax as jax_spatial_softmax
+from tensor2robot_tpu.layers import transformer as jax_transformer
+from tensor2robot_tpu_torch.layers import spatial_softmax, transformer
+from tensor2robot_tpu_torch.utils.jax_params import flax_params_to_state_dict
+
+# Layer outputs after f32 matmuls taken in another order on each side.
+TOL = 1e-4
+FEATURES, HEADS, HEAD_DIM, SEQ = 32, 2, 16, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
+@pytest.fixture(scope="module")
+def x():
+    return np.random.RandomState(0).randn(2, SEQ, FEATURES).astype(np.float32)
+
+
+def _flax_and_port(flax_module, port_module, x, seed=0):
+    variables = flax_module.init(jax.random.PRNGKey(seed), x)
+    expected = np.asarray(flax_module.apply(variables, x))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    port_module.load_state_dict(flax_params_to_state_dict(params))
+    with torch.no_grad():
+        got = port_module(torch.from_numpy(x)).numpy()
+    return got, expected
+
+
+ATTENTION_CASES = {
+    "flash_causal": dict(causal=True, use_flash=True),
+    "flash_full": dict(causal=False, use_flash=True),
+    "flash_window5": dict(causal=True, use_flash=True, window=5),
+    "flash_gqa": dict(causal=True, use_flash=True, num_kv_heads=1),
+    "einsum_causal": dict(causal=True, use_flash=False),
+    "einsum_window3": dict(causal=True, use_flash=False, window=3),
+}
+
+
+class TestMultiHeadAttention:
+    @pytest.mark.parametrize(
+        "kw", list(ATTENTION_CASES.values()), ids=list(ATTENTION_CASES)
+    )
+    def test_matches_flax(self, x, kw):
+        jax_kw = dict(kw, interpret=True)
+        flax_kv = jax_kw.pop("num_kv_heads", None)
+        got, expected = _flax_and_port(
+            jax_transformer.MultiHeadAttention(
+                num_heads=HEADS, head_dim=HEAD_DIM, num_kv_heads=flax_kv,
+                **jax_kw,
+            ),
+            transformer.MultiHeadAttention(FEATURES, HEADS, HEAD_DIM, **kw),
+            x,
+        )
+        np.testing.assert_allclose(got, expected, rtol=TOL, atol=TOL)
+
+    def test_auto_policy_takes_einsum_below_threshold(self, x, monkeypatch):
+        """use_flash=None is the einsum path below FLASH_AUTO_SEQ."""
+        from tensor2robot_tpu_torch.ops import flash_attention as flash
+
+        calls = []
+        monkeypatch.setattr(
+            flash, "flash_attention", lambda *a, **k: calls.append(1)
+        )
+        mha = transformer.MultiHeadAttention(FEATURES, HEADS, HEAD_DIM)
+        with torch.no_grad():
+            mha(torch.from_numpy(x))
+        assert calls == []
+
+    def test_bad_kv_heads(self):
+        with pytest.raises(ValueError, match="divisible"):
+            transformer.MultiHeadAttention(FEATURES, 3, HEAD_DIM, num_kv_heads=2)
+
+
+class TestBlocks:
+    @pytest.mark.parametrize("use_flash", [True, False])
+    def test_block_matches_flax(self, x, use_flash):
+        got, expected = _flax_and_port(
+            jax_transformer.TransformerBlock(
+                num_heads=HEADS, head_dim=HEAD_DIM, use_flash=use_flash,
+                interpret=True,
+            ),
+            transformer.TransformerBlock(
+                FEATURES, HEADS, HEAD_DIM, use_flash=use_flash
+            ),
+            x,
+        )
+        np.testing.assert_allclose(got, expected, rtol=TOL, atol=TOL)
+
+    @pytest.mark.parametrize("window", [None, 4])
+    def test_encoder_matches_flax(self, x, window):
+        got, expected = _flax_and_port(
+            jax_transformer.TransformerEncoder(
+                num_layers=2, num_heads=HEADS, head_dim=HEAD_DIM,
+                max_seq_len=SEQ, use_flash=True, interpret=True, window=window,
+            ),
+            transformer.TransformerEncoder(
+                FEATURES, 2, HEADS, HEAD_DIM, max_seq_len=SEQ, use_flash=True,
+                window=window,
+            ),
+            x,
+            seed=1,
+        )
+        np.testing.assert_allclose(got, expected, rtol=TOL, atol=TOL)
+
+    def test_encoder_rejects_long_sequences(self):
+        encoder = transformer.TransformerEncoder(FEATURES, 1, HEADS, HEAD_DIM, max_seq_len=4)
+        with pytest.raises(ValueError, match="max_seq_len"):
+            encoder(torch.zeros(1, 5, FEATURES))
+
+    @pytest.mark.parametrize(
+        "kw,item",
+        [
+            (dict(decode=True), "A2"),
+            (dict(mesh=object()), "A14"),
+            (dict(pipeline_stages=2), "A14"),
+            (dict(num_experts=2), "A13"),
+        ],
+        ids=["decode", "mesh", "pipeline", "moe"],
+    )
+    def test_unported_paths_name_their_roadmap_item(self, kw, item):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            transformer.TransformerEncoder(FEATURES, 1, HEADS, HEAD_DIM, **kw)
+
+
+class TestSpatialSoftmax:
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 4), (3, 5, 7, 2), (1, 1, 6, 3)])
+    def test_matches_jax(self, shape):
+        feats = np.random.RandomState(2).randn(*shape).astype(np.float32)
+        want_points, want_maps = jax_spatial_softmax(feats)
+        points, maps = spatial_softmax(torch.from_numpy(feats))
+        np.testing.assert_allclose(points.numpy(), np.asarray(want_points), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(maps.numpy(), np.asarray(want_maps), rtol=1e-5, atol=1e-6)
+
+    def test_output_order_is_all_x_then_all_y(self):
+        feats = torch.full((1, 3, 3, 2), -1e4)
+        feats[0, 0, 2, 0] = 0.0  # feature 0 peaks at (row 0, col 2)
+        feats[0, 2, 0, 1] = 0.0  # feature 1 peaks at (row 2, col 0)
+        points, _ = spatial_softmax(feats)
+        np.testing.assert_allclose(points.numpy(), [[1.0, -1.0, -1.0, 1.0]], atol=1e-6)
+
+
+class TestJaxParams:
+    def test_layouts(self):
+        params = {
+            "Conv_0": {"kernel": np.zeros((3, 3, 4, 8)), "bias": np.zeros(8)},
+            "dense": {"kernel": np.zeros((5, 6))},
+            "ln": {"scale": np.ones(6), "bias": np.zeros(6)},
+            "pos_embedding": np.zeros((10, 6)),
+        }
+        state = flax_params_to_state_dict(params)
+        assert state["Conv_0.weight"].shape == (8, 4, 3, 3)
+        assert state["Conv_0.bias"].shape == (8,)
+        assert state["dense.weight"].shape == (6, 5)
+        assert state["ln.weight"].shape == (6,)
+        assert state["pos_embedding"].shape == (10, 6)
+
+    def test_rejects_unknown_kernel_rank(self):
+        with pytest.raises(ValueError, match="rank 3"):
+            flax_params_to_state_dict({"x": {"kernel": np.zeros((2, 2, 2))}})
