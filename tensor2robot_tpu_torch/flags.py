@@ -4,8 +4,8 @@ Every flag is declared once (name, kind, default, doc, owning module) and
 every read goes through a typed getter that parses and validates the same
 way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
-configures both packages alike; only the policy server's gates are
-declared here.
+configures both packages alike; only the gates of the ported modules
+(the policy server, the trainer's infeed) are declared here.
 """
 
 from __future__ import annotations
@@ -63,6 +63,14 @@ def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
     _REGISTRY[name] = FlagSpec(name, kind, default, doc, owner, choices, minimum)
 
 
+_declare(
+    "T2R_INFEED_DEPTH",
+    _INT,
+    2,
+    "Device-prefetch depth: batches kept in flight ahead of the consumer.",
+    "tensor2robot_tpu_torch/train/infeed.py",
+    minimum=1,
+)
 _declare(
     "T2R_SERVE_BUCKETS",
     _STR,

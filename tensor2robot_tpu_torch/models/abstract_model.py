@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.preprocessors import (
     AbstractPreprocessor,
     NoOpPreprocessor,
@@ -50,13 +51,26 @@ class ModelInterface(abc.ABC):
 
 class AbstractT2RModel(ModelInterface):
     """Base model: subclass and implement the spec getters, `init_network`,
-    `inference_network_fn` and `model_train_fn`."""
+    `inference_network_fn` and `model_train_fn`.
+
+    Attributes:
+      use_avg_model_params: the trainer keeps an EMA of the parameters;
+        checkpoints hold both and eval and serving select the EMA
+        (the JAX package's swapping-saver parity).
+      avg_model_params_decay: that EMA's decay.
+    """
 
     def __init__(
         self,
         preprocessor_cls: Optional[Callable[..., AbstractPreprocessor]] = None,
+        create_optimizer_fn: Optional[Callable[[], Any]] = None,
+        use_avg_model_params: bool = False,
+        avg_model_params_decay: float = 0.9999,
     ):
         self._preprocessor_cls = preprocessor_cls
+        self._create_optimizer_fn = create_optimizer_fn
+        self.use_avg_model_params = use_avg_model_params
+        self.avg_model_params_decay = avg_model_params_decay
 
     @property
     def preprocessor(self) -> AbstractPreprocessor:
@@ -106,6 +120,14 @@ class AbstractT2RModel(ModelInterface):
     def create_export_outputs_fn(self, features, inference_outputs):
         """Selects the serving outputs; defaults to all inference outputs."""
         return inference_outputs
+
+    def create_optimizer(self):
+        """The optimizer factory (models/optimizers.py) the trainer binds
+        to the network's parameters; Adam at its defaults unless
+        `create_optimizer_fn` was given."""
+        if self._create_optimizer_fn is not None:
+            return self._create_optimizer_fn()
+        return optimizers.create_adam_optimizer()
 
     def packed_inference(self, network, features, mode, labels=None):
         """validate_and_pack features/labels against the model specs, run

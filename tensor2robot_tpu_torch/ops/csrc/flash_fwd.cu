@@ -1,20 +1,26 @@
-// Flash-attention forward (normalized output) for Hopper, sm_90a.
+// Flash-attention forward for Hopper, sm_90a: two kernels of one body.
 //
-// Replaces `_flash_kernel` of tensor2robot_tpu/ops/flash_attention.py
-// (body `_flash_body`, launched by `_flash_attention_fwd_impl` through
-// pl.pallas_call): o = softmax(q k^T * scale) v over [B, S, H, D], causal
-// and causal-sliding-window masks in GLOBAL positions (q_offset, k_offset),
-// online softmax in f32 with the finite cap -1e30, a fully masked tile
-// contributes exactly 0, the row sum is floored at 1e-30 (a row that sees
-// no key comes out 0), and the result is cast to the input dtype.
+// Replaces, from tensor2robot_tpu/ops/flash_attention.py:
+//   * `_flash_kernel` (body `_flash_body`, launched by
+//     `_flash_attention_fwd_impl` through pl.pallas_call): the NORMALIZED
+//     output o = softmax(q k^T * scale) v, cast to the input dtype, with
+//     the row sum floored at 1e-30 (a row that sees no key comes out 0).
+//     Exported as t2r_flash_fwd; the forward used when no gradient is taken.
+//   * `_flash_tile_kernel` (launched by `flash_attention_tile`): the same
+//     recurrence emitting the UNNORMALIZED f32 accumulator o with the row
+//     stats l (sum) and m (max) in [B, H, Sq] f32 — the training forward's
+//     residuals (lse = m + log l). Exported as t2r_flash_fwd_tile.
+// Both take [B, S, H, D] by strides, causal and causal-sliding-window masks
+// in GLOBAL positions (q_offset, k_offset), online softmax in f32 with the
+// finite cap -1e30, and a fully masked tile contributing exactly 0.
 //
-// What bounds it on an H100. At the transformer-BC serving shape
-// (B=8, S=1024, H=8, D=32, causal, f32) the work is ~4.3 GFLOP of f32 FMA
-// against 33.5 MB of q/k/v/o: 64 us at the 67 TFLOP/s f32 peak versus
-// 10 us at 3.35 TB/s, so the kernel is bound by operations. f32 inputs are
-// computed in full f32 FMA (no TF32: the JAX package asks for
-// Precision.HIGHEST on f32, so TF32 would miss its 2e-5 tolerance); bf16
-// inputs are widened to f32 on load, as the Pallas body does.
+// What bounds them on an H100. At the transformer-BC shape (B=8, S=1024,
+// H=8, D=32, causal, f32) the work is ~4.3 GFLOP of f32 FMA against
+// 33.5 MB of q/k/v/o: 64 us at the 67 TFLOP/s f32 peak versus 10 us at
+// 3.35 TB/s, so they are bound by operations. f32 inputs are computed in
+// full f32 FMA (no TF32: the JAX package asks for Precision.HIGHEST on f32,
+// so TF32 would miss its 2e-5 tolerance); bf16 inputs are widened to f32 on
+// load, as the Pallas body does.
 //
 // Design, simple and right first:
 //   * one thread block per (q-tile of 64 rows, head, batch); one thread
@@ -30,23 +36,14 @@
 //     in place: no [B*H, S, D] transpose-fold;
 //   * ragged tails (S not a multiple of the tile) are masked in the kernel,
 //     so any length runs here (no block-divisor fallback).
-// wgmma/TMA tiles are later work; this kernel is the correctness baseline.
+// wgmma/TMA tiles are later work; these kernels are the correctness baseline.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-// One library per head dim, built with -DT2R_HEAD_DIM=32|64|128, so a
-// caller builds only the head dim it runs and the builds run in parallel.
-#ifndef T2R_HEAD_DIM
-#error "compile with -DT2R_HEAD_DIM=32, 64 or 128"
-#endif
-static_assert(T2R_HEAD_DIM == 32 || T2R_HEAD_DIM == 64 || T2R_HEAD_DIM == 128,
-              "T2R_HEAD_DIM must be 32, 64 or 128");
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBlockQ = 64;
+using namespace t2r;
+
 constexpr int kChunk = 16;
 
 struct Params {
@@ -54,6 +51,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* l;  // [B, H, Sq] row sums (tile kernel only)
+  float* m;  // [B, H, Sq] row maxima (tile kernel only)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -63,30 +62,10 @@ struct Params {
   int causal, window, q_offset, k_offset;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Python's floor division for b > 0 (C++ '/' truncates toward zero).
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
+// kTile = false: normalized output of type T (B2). kTile = true: the raw
+// f32 accumulator and the row stats (B1).
+template <typename T, int D, int BK, bool kTile>
+__global__ void __launch_bounds__(kBlockRows) flash_fwd_kernel(const Params p) {
   __shared__ __align__(16) float k_tile[BK * D];
   __shared__ __align__(16) float v_tile[BK * D];
 
@@ -94,7 +73,7 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int row = q_block * kBlockQ + tid;
+  const int row = q_block * kBlockRows + tid;
   const bool row_valid = row < p.sq;
 
   const T* k_base = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -118,8 +97,8 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
 
   // Visible k-tiles: exact per tile, as _k_block_bounds, with the causal
   // bound taken from the tile's last REAL row (ragged tail).
-  const int rows = min(kBlockQ, p.sq - q_block * kBlockQ);
-  const int q0 = p.q_offset + q_block * kBlockQ;
+  const int rows = min(kBlockRows, p.sq - q_block * kBlockRows);
+  const int q0 = p.q_offset + q_block * kBlockRows;
   const int q_pos = p.q_offset + row;
   const int num_kb = (p.sk + BK - 1) / BK;
   int j_lo = 0;
@@ -134,7 +113,7 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
   for (int j = j_lo; j < j_hi; ++j) {
     const int key0 = j * BK;
     __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < BK * D; idx += kBlockQ) {
+    for (int idx = tid; idx < BK * D; idx += kBlockRows) {
       const int c = idx / D;
       const int d = idx - c * D;
       const int key = key0 + c;
@@ -164,11 +143,9 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
 #pragma unroll
         for (int d = 0; d < D; ++d) dot = fmaf(q[d], k_row[d], dot);
         const int key = key0 + c0 + c;
-        const int k_pos = p.k_offset + key;
-        bool visible = key < p.sk;
-        if (p.causal) visible = visible && (q_pos >= k_pos);
-        if (p.window > 0) visible = visible && (q_pos - k_pos < p.window);
-        s[c] = visible ? dot : kNegInf;
+        const bool ok = visible(key < p.sk, q_pos, p.k_offset + key,
+                                p.causal, p.window);
+        s[c] = ok ? dot : kNegInf;
         m_blk = fmaxf(m_blk, s[c]);
       }
       const float m_new = fmaxf(m, m_blk);
@@ -196,7 +173,16 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
     }
   }
 
-  if (row_valid) {
+  if (!row_valid) return;
+  if constexpr (kTile) {
+    float* o_row = static_cast<float*>(p.o) + b * p.o_sb +
+                   static_cast<long long>(row) * p.o_ss + h * p.o_sh;
+#pragma unroll
+    for (int d = 0; d < D; ++d) o_row[d] = acc[d];
+    const long long stat = (static_cast<long long>(b) * gridDim.y + h) * p.sq + row;
+    p.l[stat] = l;
+    p.m[stat] = m;
+  } else {
     const float l_safe = fmaxf(l, 1e-30f);
     T* o_row = static_cast<T*>(p.o) + b * p.o_sb +
                static_cast<long long>(row) * p.o_ss + h * p.o_sh;
@@ -205,20 +191,34 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kTile>
 cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
-  constexpr int BK = D <= 64 ? 64 : 32;
-  const dim3 grid((p.sq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_kernel<T, D, BK><<<grid, kBlockQ, 0, stream>>>(p);
+  const dim3 grid((p.sq + kBlockRows - 1) / kBlockRows, heads, batch);
+  flash_fwd_kernel<T, D, staged_tile<D>(), kTile>
+      <<<grid, kBlockRows, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kTile>
+int dispatch(const Params& p, int batch, int heads, int head_dim, int dtype,
+             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim != T2R_HEAD_DIM) return cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float, T2R_HEAD_DIM, kTile>(p, batch, heads, s);
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, T2R_HEAD_DIM, kTile>(p, batch, heads, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). dtype: 0 = float32,
+// Plain C entry points (loaded with ctypes). dtype: 0 = float32,
 // 1 = bfloat16; head_dim must be this library's T2R_HEAD_DIM. Strides are
 // in elements; the head dim must be contiguous. window <= 0 means no
-// window. Returns the cudaError_t of the launch.
+// window. Each returns the cudaError_t of its launch.
+
+// B2: o (input dtype) = normalized attention.
 extern "C" int t2r_flash_fwd(
     const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int sk, int head_dim, int dtype, long long q_sb,
@@ -226,14 +226,25 @@ extern "C" int t2r_flash_fwd(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale, int causal,
     int window, int q_offset, int k_offset, void* stream) {
-  const Params p{q,    k,    v,    o,    q_sb, q_ss,  q_sh,   k_sb,
-                 k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,  o_ss,   o_sh,
-                 sq,   sk,   scale, causal, window, q_offset, k_offset};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != T2R_HEAD_DIM) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, T2R_HEAD_DIM>(p, batch, heads, s);
-  if (dtype == 1) {
-    return launch<__nv_bfloat16, T2R_HEAD_DIM>(p, batch, heads, s);
-  }
-  return cudaErrorInvalidValue;
+  const Params p{q,    k,    v,    o,    nullptr, nullptr, q_sb,  q_ss,
+                 q_sh, k_sb, k_ss, k_sh, v_sb,    v_ss,    v_sh,  o_sb,
+                 o_ss, o_sh, sq,   sk,   scale,   causal,  window, q_offset,
+                 k_offset};
+  return dispatch<false>(p, batch, heads, head_dim, dtype, stream);
+}
+
+// B1: o (f32, unnormalized), l and m (f32, contiguous [B, H, Sq]).
+extern "C" int t2r_flash_fwd_tile(
+    const void* q, const void* k, const void* v, float* o, float* l,
+    float* m, int batch, int heads, int sq, int sk, int head_dim, int dtype,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    float scale, int causal, int window, int q_offset, int k_offset,
+    void* stream) {
+  const Params p{q,    k,    v,    o,    l,     m,      q_sb,   q_ss,
+                 q_sh, k_sb, k_ss, k_sh, v_sb,  v_ss,   v_sh,   o_sb,
+                 o_ss, o_sh, sq,   sk,   scale, causal, window, q_offset,
+                 k_offset};
+  return dispatch<true>(p, batch, heads, head_dim, dtype, stream);
 }

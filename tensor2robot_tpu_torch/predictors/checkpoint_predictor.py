@@ -1,20 +1,17 @@
 """CheckpointPredictor: serve straight from training checkpoints.
 
-Rebuilds the network from model code and loads the newest checkpoint in a
-model directory — the robot-side view of a learner that checkpoints but
-has not exported. Port of tensor2robot_tpu/predictors/checkpoint_predictor.py.
-
-A checkpoint is a torch state dict saved as `<model_dir>/<step>.pt`
-(`save_checkpoint` writes one atomically, so a reader never sees a torn
-file under a final name). Weights can also come from `init_randomly`
-(a seeded generator) or `load_state_dict` (e.g. flax params converted by
-utils/jax_params.py).
+Rebuilds the network from model code and polls the trainer's checkpoint
+directory, `<model_dir>/checkpoints/` (train/state.py), for new steps —
+the robot-side view of a learner that checkpoints but has not exported.
+Port of tensor2robot_tpu/predictors/checkpoint_predictor.py: it serves the
+EMA parameters when `use_ema` asks for them, by default when the model
+keeps them (`use_avg_model_params`). Weights can also come from
+`init_randomly` (a seeded generator) or `load_state_dict` (e.g. flax
+params converted by utils/jax_params.py).
 """
 
 from __future__ import annotations
 
-import os
-import re
 import threading
 import time
 from typing import Any, Dict, Mapping, Optional, Union
@@ -31,34 +28,8 @@ from tensor2robot_tpu_torch.specs import (
     filter_required_flat_tensor_spec,
     flatten_spec_structure,
 )
+from tensor2robot_tpu_torch.train import state as state_lib
 from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-_CHECKPOINT = re.compile(r"^(\d+)\.pt$")
-
-
-def latest_checkpoint_step(model_dir: str) -> Optional[int]:
-    """The largest step with a `<step>.pt` file in model_dir (None if none)."""
-    if not os.path.isdir(model_dir):
-        return None
-    steps = [
-        int(match.group(1))
-        for match in map(_CHECKPOINT.match, os.listdir(model_dir))
-        if match
-    ]
-    return max(steps) if steps else None
-
-
-def save_checkpoint(
-    model_dir: str, step: int, state_dict: Mapping[str, torch.Tensor]
-) -> str:
-    """Writes `<model_dir>/<step>.pt` through a temporary name and an atomic
-    rename; returns the final path."""
-    os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, f"{int(step)}.pt")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(dict(state_dict), tmp)
-    os.replace(tmp, path)
-    return path
 
 
 class CheckpointPredictor(AbstractPredictor):
@@ -70,13 +41,17 @@ class CheckpointPredictor(AbstractPredictor):
         t2r_model,
         checkpoint_dir: Optional[str] = None,
         timeout: int = 600,
+        use_ema: Optional[bool] = None,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
     ):
         """Args:
         t2r_model: the model whose predict path to serve.
-        checkpoint_dir: the directory of `<step>.pt` checkpoints. Optional
-          when weights come from init_randomly or load_state_dict.
+        checkpoint_dir: the trainer's model_dir (its checkpoints/ subdir
+          is polled). Optional when weights come from init_randomly or
+          load_state_dict.
         timeout: seconds restore() waits for a first checkpoint.
+        use_ema: serve averaged params; defaults to the model's
+          use_avg_model_params.
         device: where the network runs; 'cuda' raises without a card.
         """
         self._model = t2r_model
@@ -87,6 +62,10 @@ class CheckpointPredictor(AbstractPredictor):
         )
         self._checkpoint_dir = checkpoint_dir
         self._timeout = timeout
+        self._use_ema = (
+            use_ema if use_ema is not None
+            else getattr(t2r_model, "use_avg_model_params", False)
+        )
         self._lock = threading.Lock()
         self._network: Optional[torch.nn.Module] = None
         self._version = -1
@@ -108,14 +87,16 @@ class CheckpointPredictor(AbstractPredictor):
             raise ValueError("CheckpointPredictor needs checkpoint_dir to restore.")
         start = time.monotonic()
         while True:
-            step = latest_checkpoint_step(self._checkpoint_dir)
+            step = state_lib.latest_checkpoint_step(self._checkpoint_dir)
             if step is not None:
                 if step != self._version:
-                    path = os.path.join(self._checkpoint_dir, f"{step}.pt")
-                    state = torch.load(
-                        path, map_location=self._device, weights_only=True
+                    checkpoint = state_lib.load_checkpoint(
+                        self._checkpoint_dir, step
                     )
-                    self.load_state_dict(state, version=step)
+                    params = checkpoint["params"]
+                    if self._use_ema and checkpoint["ema_params"] is not None:
+                        params = {**params, **checkpoint["ema_params"]}
+                    self.load_state_dict(params, version=step)
                 return True
             if time.monotonic() - start > self._timeout:
                 return False
@@ -181,4 +162,4 @@ class CheckpointPredictor(AbstractPredictor):
     def model_path(self) -> Optional[str]:
         if self._checkpoint_dir is None or self._version < 0:
             return None
-        return os.path.join(self._checkpoint_dir, f"{self._version}.pt")
+        return state_lib.checkpoint_path(self._checkpoint_dir, self._version)

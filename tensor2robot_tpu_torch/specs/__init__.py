@@ -13,6 +13,7 @@ from tensor2robot_tpu_torch.specs.utils import (
     copy_tensorspec,
     filter_required_flat_tensor_spec,
     flatten_spec_structure,
+    make_constant_numpy,
     make_random_numpy,
     validate_and_flatten,
     validate_and_pack,

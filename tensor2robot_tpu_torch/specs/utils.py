@@ -275,3 +275,21 @@ def make_random_numpy(
             raise ValueError(f"Unsupported random dtype {dtype} for {key!r}")
         out[key] = value
     return out
+
+
+def make_constant_numpy(
+    structure: SpecStructure,
+    constant_value: float = 0.0,
+    batch_size: Optional[int] = 2,
+    sequence_length: int = 3,
+) -> TensorSpecStruct:
+    """Spec-conforming constant numpy tensors; byte-identical to the JAX
+    package's make_constant_numpy."""
+    flat = flatten_spec_structure(structure)
+    out = TensorSpecStruct()
+    for key, spec in flat.items():
+        if not isinstance(spec, ExtendedTensorSpec):
+            continue
+        shape = _resolve_shape(spec, batch_size, sequence_length)
+        out[key] = np.full(shape, constant_value, dtype=numpy_dtype(spec.dtype))
+    return out

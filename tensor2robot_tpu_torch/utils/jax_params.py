@@ -1,4 +1,5 @@
-"""Converts a flax params tree into the port's `state_dict`.
+"""Converts a flax params tree (and an optax Adam state) into the port's
+state dicts.
 
 The port names its modules as the flax modules are named (Conv_0, embed,
 encoder.block_0.attention.qkv, ...), so a params tree given as nested
@@ -49,4 +50,38 @@ def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
             state[target] = torch.tensor(array)
 
     walk(params, "")
+    return state
+
+
+def optax_adam_state_to_optimizer_state(
+    mu: cabc.Mapping,
+    nu: cabc.Mapping,
+    count: int,
+    optimizer: torch.optim.Optimizer,
+    network: torch.nn.Module,
+) -> Dict:
+    """The optax Adam state (the `mu` and `nu` trees of ScaleByAdamState,
+    laid out like the params, and its update `count`) as a state dict for
+    `optimizer`, the port's Adam bound to `network`'s parameters
+    (models/optimizers.py): mu -> exp_avg, nu -> exp_avg_sq, count ->
+    each parameter's step and the param groups' schedule count. The moment
+    trees map leaf by leaf under the same layout rules as the params."""
+    moments = flax_params_to_state_dict(mu), flax_params_to_state_dict(nu)
+    index = {
+        id(p): i
+        for i, p in enumerate(
+            p for group in optimizer.param_groups for p in group["params"]
+        )
+    }
+    state = optimizer.state_dict()
+    state["state"] = {
+        index[id(p)]: {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moments[0][name].to(p.dtype),
+            "exp_avg_sq": moments[1][name].to(p.dtype),
+        }
+        for name, p in network.named_parameters()
+    }
+    for group in state["param_groups"]:
+        group["count"] = int(count)
     return state

@@ -331,7 +331,7 @@ class TestCheckpoints:
             for s in (1, 2)
         ]
         save_checkpoint(str(tmp_path), 3, nets[0].state_dict())
-        (tmp_path / "9.pt.123.tmp").write_bytes(b"torn")
+        (tmp_path / "checkpoints" / "9.pt.123.tmp").write_bytes(b"torn")
         assert latest_checkpoint_step(str(tmp_path)) == 3
         pred = CheckpointPredictor(model, checkpoint_dir=str(tmp_path), device="cpu")
         request = {k: v[None] for k, v in episodes[0].items()}
@@ -342,7 +342,7 @@ class TestCheckpoints:
             assert server.hot_swap(wait=True)
             second = server.call(episodes[0])
         assert (first.model_version, second.model_version) == (3, 7)
-        assert pred.model_path.endswith("7.pt")
+        assert pred.model_path == str(tmp_path / "checkpoints" / "7.pt")
         reference = CheckpointPredictor(model, device="cpu")
         reference.load_state_dict(nets[1].state_dict(), version=7)
         np.testing.assert_allclose(
