@@ -16,7 +16,8 @@ namespace t2r {
 
 // The finite cap of a masked logit (the JAX package's _NEG_INF).
 constexpr float kNegInf = -1e30f;
-// Rows (or keys) owned by one thread block: one thread each.
+// Rows (or keys) owned by one thread block: one thread each in the
+// forward, 16 per warp in the backward.
 constexpr int kBlockRows = 64;
 
 // Length of a staged tile: the forward's and dq's k-tile, dkv's q-tile

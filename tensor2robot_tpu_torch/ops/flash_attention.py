@@ -15,12 +15,15 @@ Functions of one contract, each kernel beside its plain PyTorch version:
   * `flash_attention_bwd_plain` / `flash_bwd_dq_kernel` (B3) and
     `flash_bwd_dkv_kernel` (B4) (csrc/flash_bwd.cu, ports of
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`) — dq, dk, dv in
-    f32 from the forward's lse = m + log(l) and delta = rowsum(dO * O).
+    f32 from the forward's lse = m + log(l) and delta = rowsum(dO * O);
+    both run their products on the tensor cores in split f32 (3xTF32
+    mma.sync), deterministic (no atomics).
 
 The plain versions walk the kernels' own tiles (BLOCK_Q rows or keys per
 thread block, `block_k_for(D)` per staged tile), so a kernel and its plain
-version differ by rounding only; the kernels take their softmax steps per
-16-key chunk of a tile, which changes only the rounding too.
+version differ by rounding only; the forward kernels take their softmax
+steps per 16-key chunk of a tile, and the backward kernels their products
+as three TF32 products, which changes only the rounding too.
 
 `flash_attention` dispatches: with grad enabled and any of q/k/v requiring
 grad it runs `FlashAttentionFunction` (B1 forward, B3+B4 backward, as the
@@ -64,7 +67,6 @@ BLOCK_Q = 64
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADER = _CSRC / "flash_common.cuh"
 # One shared library per source and head dim.
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -388,11 +390,14 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def build_library(head_dim: int, source: str = "flash_fwd") -> Path:
-    """Compiles csrc/<source>.cu for sm_90a and one head dim into
-    build/kernels/ (once per source, header and flag set; the file name
-    carries their hash) and returns the shared library's path. The
-    compiler's register/spill report is kept beside it as <name>.log."""
+def _flags(head_dim: int) -> Tuple[str, ...]:
+    return _NVCC_FLAGS + (f"-DT2R_HEAD_DIM={head_dim}",)
+
+
+def library_path(head_dim: int, source: str = "flash_fwd") -> Path:
+    """Where build_library puts csrc/<source>.cu built for one head dim:
+    the file name carries a hash of the source, every header under csrc/
+    (by name and content) and the flags, so any change rebuilds."""
     if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, "
@@ -400,12 +405,21 @@ def build_library(head_dim: int, source: str = "flash_fwd") -> Path:
         )
     if source not in KERNEL_SOURCES:
         raise ValueError(f"unknown kernel source {source!r}")
+    digest = hashlib.sha256((_CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(_flags(head_dim)).encode())
+    return _BUILD_DIR / f"{source}_d{head_dim}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(head_dim: int, source: str = "flash_fwd") -> Path:
+    """Compiles csrc/<source>.cu for sm_90a and one head dim into
+    build/kernels/ (once per library_path) and returns the shared
+    library's path. The compiler's register/spill report is kept beside
+    it as <name>.log."""
+    target = library_path(head_dim, source)
     path = _CSRC / f"{source}.cu"
-    flags = _NVCC_FLAGS + (f"-DT2R_HEAD_DIM={head_dim}",)
-    digest = hashlib.sha256(
-        path.read_bytes() + _HEADER.read_bytes() + " ".join(flags).encode()
-    ).hexdigest()[:16]
-    target = _BUILD_DIR / f"{source}_d{head_dim}-{digest}.so"
+    flags = _flags(head_dim)
     if target.exists():
         return target
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -7,6 +7,8 @@ tests/test_flash_attention.py: offsets, windows, rectangular tiles, bf16
 and fully masked rows. Inputs come from a numpy seed and cross as numpy.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -216,6 +218,27 @@ class TestKernelWrapper:
         monkeypatch.setattr(flash, "_BUILD_DIR", tmp_path / "build")
         with pytest.raises(RuntimeError, match="nvcc not found"):
             flash.build_library(32)
+
+    def test_every_header_is_in_the_library_path(self, monkeypatch, tmp_path):
+        """A change to any header under csrc/, or a new one, gives another
+        library path, so a cached build is never taken for a changed
+        source."""
+        csrc = tmp_path / "csrc"
+        shutil.copytree(flash._CSRC, csrc)
+        monkeypatch.setattr(flash, "_CSRC", csrc)
+        monkeypatch.setattr(flash, "_BUILD_DIR", tmp_path / "build")
+        paths = [flash.library_path(32, "flash_bwd")]
+        assert paths[0] == flash.library_path(32, "flash_bwd")
+        assert paths[0].parent == tmp_path / "build"
+        (csrc / "flash_mma.cuh").write_text(
+            (csrc / "flash_mma.cuh").read_text() + "\n// changed\n"
+        )
+        paths.append(flash.library_path(32, "flash_bwd"))
+        (csrc / "flash_extra.cuh").write_text("#pragma once\n")
+        paths.append(flash.library_path(32, "flash_bwd"))
+        paths.append(flash.library_path(64, "flash_bwd"))
+        assert len(set(paths)) == 4
+        assert all(p.name.startswith("flash_bwd_d") for p in paths)
 
     def test_auto_dispatch_threshold_is_the_jax_constant(self):
         assert flash.FLASH_AUTO_SEQ == jax_flash.FLASH_AUTO_SEQ
