@@ -15,8 +15,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                 window, a q offset, a k offset with fully masked rows, a
                 ragged non-causal D=64 and a bf16 D=128): B2 (normalized
                 forward), B1 (unnormalized forward with row stats l, m),
-                B3 (dq) and B4 (dk, dv) from the same lse and delta; B3
-                and B4 launch twice and must give the same bits. Times
+                B3 (dq) and B4 (dk, dv) from the same lse and delta, all
+                four running their products on the tensor cores as
+                split-f32 (3xTF32) mma.sync; B3 and B4 launch twice and
+                must give the same bits. Times
                 each kernel, its plain version and one PyTorch call that
                 computes the same function (a yardstick the port never
                 calls; the backward yardstick's own error against the

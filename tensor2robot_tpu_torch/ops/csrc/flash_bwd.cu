@@ -61,9 +61,6 @@
 //   * Ragged tails: rows past Sq and keys past Sk are staged as zeros and
 //     masked, and lse/delta are never read out of range.
 
-#include <cstdint>
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -101,54 +98,6 @@ struct Params {
   int async_ok;
 };
 
-// Copies rows [r0, r0 + kRows) of one (b, h) slice of a [S, D] strided
-// view (row stride ss elements, head dim contiguous) into the f32 tile
-// [kRows][D + kPad]; rows at or past `limit` become 0.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage_rows(float* tile, const T* base,
-                                           long long ss, int r0, int limit,
-                                           bool async_ok) {
-  constexpr int LD = D + kPad;
-  if constexpr (std::is_same<T, float>::value) {
-    if (async_ok) {
-      constexpr int kChunks = D / 4;
-      for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
-        const int r = idx / kChunks;
-        const int c = idx - r * kChunks;
-        const int row = r0 + r;
-        const bool ok = row < limit;
-        const T* src = ok ? base + static_cast<long long>(row) * ss + 4 * c : base;
-        cp_async16(tile + r * LD + 4 * c, src, ok);
-      }
-      return;
-    }
-  }
-  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const int row = r0 + r;
-    tile[r * LD + d] =
-        row < limit ? to_float(base[static_cast<long long>(row) * ss + d]) : 0.f;
-  }
-}
-
-// Whether any pair of the rows at positions [r_lo, r_hi] and the keys at
-// [c_lo, c_hi] is visible (a tile test; visible() decides each pair).
-__device__ __forceinline__ bool any_visible(int r_lo, int r_hi, int c_lo,
-                                            int c_hi, int causal, int window) {
-  if (causal && r_hi < c_lo) return false;
-  if (window > 0 && r_lo - c_hi >= window) return false;
-  return true;
-}
-
-// Whether every such pair is visible (then no pair needs its own test).
-__device__ __forceinline__ bool all_visible(int r_lo, int r_hi, int c_lo,
-                                            int c_hi, int causal, int window) {
-  if (causal && r_lo < c_hi) return false;
-  if (window > 0 && r_hi - c_lo >= window) return false;
-  return true;
-}
-
 template <int D, int BK>
 __host__ __device__ constexpr int dq_smem_bytes() {
   // q and dO of the block, then two stages of (k, v).
@@ -181,8 +130,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   const T* v_base = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const bool async_ok = p.async_ok;
 
-  stage_rows<T, D, kBlockRows>(s_q, q_base, p.q_ss, row0, p.sq, async_ok);
-  stage_rows<T, D, kBlockRows>(s_do, do_base, p.do_ss, row0, p.sq, async_ok);
+  stage_rows<T, D, kBlockRows, kThreads>(s_q, q_base, p.q_ss, row0, p.sq,
+                                         async_ok);
+  stage_rows<T, D, kBlockRows, kThreads>(s_do, do_base, p.do_ss, row0, p.sq,
+                                         async_ok);
   cp_async_commit();
 
   // This thread's two rows, g and g + 8 of the warp's 16.
@@ -213,8 +164,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   for (int n = 0; n < KD; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   if (j_lo < j_hi) {
-    stage_rows<T, D, BK>(s_kv, k_base, p.k_ss, j_lo * BK, p.sk, async_ok);
-    stage_rows<T, D, BK>(s_kv + BK * LD, v_base, p.v_ss, j_lo * BK, p.sk, async_ok);
+    stage_rows<T, D, BK, kThreads>(s_kv, k_base, p.k_ss, j_lo * BK, p.sk,
+                                   async_ok);
+    stage_rows<T, D, BK, kThreads>(s_kv + BK * LD, v_base, p.v_ss, j_lo * BK,
+                                   p.sk, async_ok);
   }
   cp_async_commit();
 
@@ -226,9 +179,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
     const float* s_v = s_k + BK * LD;
     if (j + 1 < j_hi) {
       float* next = s_kv + ((j + 1 - j_lo) & 1) * 2 * BK * LD;
-      stage_rows<T, D, BK>(next, k_base, p.k_ss, (j + 1) * BK, p.sk, async_ok);
-      stage_rows<T, D, BK>(next + BK * LD, v_base, p.v_ss, (j + 1) * BK, p.sk,
-                           async_ok);
+      stage_rows<T, D, BK, kThreads>(next, k_base, p.k_ss, (j + 1) * BK, p.sk,
+                                     async_ok);
+      stage_rows<T, D, BK, kThreads>(next + BK * LD, v_base, p.v_ss,
+                                     (j + 1) * BK, p.sk, async_ok);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -346,8 +300,9 @@ __device__ __forceinline__ void stage_q_tile(float* stage, const T* q_base,
                                              const float* delta, int sq, int r0,
                                              bool async_ok) {
   constexpr int LD = D + kPad;
-  stage_rows<T, D, BQ>(stage, q_base, q_ss, r0, sq, async_ok);
-  stage_rows<T, D, BQ>(stage + BQ * LD, do_base, do_ss, r0, sq, async_ok);
+  stage_rows<T, D, BQ, kThreads>(stage, q_base, q_ss, r0, sq, async_ok);
+  stage_rows<T, D, BQ, kThreads>(stage + BQ * LD, do_base, do_ss, r0, sq,
+                                 async_ok);
   float* s_lse = stage + 2 * BQ * LD;
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     const int row = r0 + r;
@@ -387,8 +342,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   const float* delta = p.delta + stat;
   const bool async_ok = p.async_ok;
 
-  stage_rows<T, D, kBlockRows>(s_k, k_base, p.k_ss, key_block0, p.sk, async_ok);
-  stage_rows<T, D, kBlockRows>(s_v, v_base, p.v_ss, key_block0, p.sk, async_ok);
+  stage_rows<T, D, kBlockRows, kThreads>(s_k, k_base, p.k_ss, key_block0,
+                                         p.sk, async_ok);
+  stage_rows<T, D, kBlockRows, kThreads>(s_v, v_base, p.v_ss, key_block0,
+                                         p.sk, async_ok);
   cp_async_commit();
 
   // Visible q-tiles, the forward's relation transposed (:561-577) and
@@ -567,12 +524,6 @@ cudaError_t launch(const Params& p, bool dkv, int batch, int heads,
   }
   return launch_kernel(flash_bwd_dq_kernel<T, D, kTile>,
                        dq_smem_bytes<D, kTile>(), grid, p, stream);
-}
-
-// Whether a [B, S, H, D] f32 view's rows all start on 16 bytes.
-bool rows_on_16_bytes(const void* ptr, long long sb, long long ss, long long sh) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 4 == 0 &&
-         ss % 4 == 0 && sh % 4 == 0;
 }
 
 int dispatch(Params& p, bool dkv, int batch, int heads, int head_dim,

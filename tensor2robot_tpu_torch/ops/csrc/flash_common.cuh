@@ -1,5 +1,6 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the masking cap, the tile sizes, dtype conversion and floor division.
+// the masking cap, the tile sizes, dtype conversion, floor division and
+// the visibility tests.
 // Each library is built with -DT2R_HEAD_DIM=32|64|128.
 #pragma once
 
@@ -16,13 +17,12 @@ namespace t2r {
 
 // The finite cap of a masked logit (the JAX package's _NEG_INF).
 constexpr float kNegInf = -1e30f;
-// Rows (or keys) owned by one thread block: one thread each in the
-// forward, 16 per warp in the backward.
+// Rows (or keys) owned by one thread block of 4 warps, 16 per warp.
 constexpr int kBlockRows = 64;
 
 // Length of a staged tile: the forward's and dq's k-tile, dkv's q-tile
-// (ops/flash_attention.py: block_k_for). Bounded by the registers that a
-// thread's rows take at the head dim.
+// (ops/flash_attention.py: block_k_for): the plain versions walk the same
+// tiles, so a kernel and its plain version skip the same ones.
 template <int D>
 constexpr int staged_tile() {
   return D <= 64 ? 64 : 32;
@@ -58,6 +58,23 @@ __device__ __forceinline__ bool visible(bool in_range, int q_pos, int k_pos,
   if (causal) ok = ok && (q_pos >= k_pos);
   if (window > 0) ok = ok && (q_pos - k_pos < window);
   return ok;
+}
+
+// Whether any pair of the rows at positions [r_lo, r_hi] and the keys at
+// [c_lo, c_hi] is visible (a tile test; visible() decides each pair).
+__device__ __forceinline__ bool any_visible(int r_lo, int r_hi, int c_lo,
+                                            int c_hi, int causal, int window) {
+  if (causal && r_hi < c_lo) return false;
+  if (window > 0 && r_lo - c_hi >= window) return false;
+  return true;
+}
+
+// Whether every such pair is visible (then no pair needs its own test).
+__device__ __forceinline__ bool all_visible(int r_lo, int r_hi, int c_lo,
+                                            int c_hi, int causal, int window) {
+  if (causal && r_lo < c_hi) return false;
+  if (window > 0 && r_hi - c_lo >= window) return false;
+  return true;
 }
 
 }  // namespace t2r

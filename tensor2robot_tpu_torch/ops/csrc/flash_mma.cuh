@@ -1,6 +1,7 @@
-// Warp-level tensor-core pieces of the flash backward (flash_bwd.cu): the
-// split-f32 (3xTF32) m16n8k8 product, its operand fragments, and the
-// cp.async copies that stage tiles into shared memory.
+// Warp-level tensor-core pieces of the flash kernels (flash_fwd.cu,
+// flash_bwd.cu): the split-f32 (3xTF32) m16n8k8 product, its operand
+// fragments, and the cp.async copies that stage tiles into shared memory.
+// tests/test_torch_flash_fragments.py mirrors the fragment maps in numpy.
 //
 // Split f32. Each f32 operand x is cut into hi = tf32(x) and
 // lo = tf32(x - hi), both rounded to nearest with ties away from zero
@@ -19,6 +20,9 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace t2r {
 
@@ -79,7 +83,7 @@ __device__ __forceinline__ FragB load_b_nk(const float* tile, int ld, int g, int
 }
 
 // B(k, n) = tile[k][n] with the permuted k of acc_as_a: rows 2t and 2t+1,
-// column g, as K in dQ = dS K.
+// column g, as K in dQ = dS K or V in O += P V.
 __device__ __forceinline__ FragB load_b_kn(const float* tile, int ld, int g, int t) {
   return make_b(tile[2 * t * ld + g], tile[(2 * t + 1) * ld + g]);
 }
@@ -142,6 +146,45 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies rows [r0, r0 + kRows) of one (b, h) slice of a [S, D] strided
+// view (row stride ss elements, head dim contiguous) into the f32 tile
+// [kRows][D + kPad] with the block's kThreads threads; rows at or past
+// `limit` become 0. f32 rows on 16 bytes (async_ok) go by cp.async, the
+// caller commits the group; anything else by plain loads.
+template <typename T, int D, int kRows, int kThreads>
+__device__ __forceinline__ void stage_rows(float* tile, const T* base,
+                                           long long ss, int r0, int limit,
+                                           bool async_ok) {
+  constexpr int LD = D + kPad;
+  if constexpr (std::is_same<T, float>::value) {
+    if (async_ok) {
+      constexpr int kChunks = D / 4;
+      for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+        const int r = idx / kChunks;
+        const int c = idx - r * kChunks;
+        const int row = r0 + r;
+        const bool ok = row < limit;
+        const T* src = ok ? base + static_cast<long long>(row) * ss + 4 * c : base;
+        cp_async16(tile + r * LD + 4 * c, src, ok);
+      }
+      return;
+    }
+  }
+  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int row = r0 + r;
+    tile[r * LD + d] =
+        row < limit ? to_float(base[static_cast<long long>(row) * ss + d]) : 0.f;
+  }
+}
+
+// Whether a [B, S, H, D] f32 view's rows all start on 16 bytes.
+inline bool rows_on_16_bytes(const void* ptr, long long sb, long long ss, long long sh) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 4 == 0 &&
+         ss % 4 == 0 && sh % 4 == 0;
 }
 
 }  // namespace t2r

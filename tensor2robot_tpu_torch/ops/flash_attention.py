@@ -15,15 +15,16 @@ Functions of one contract, each kernel beside its plain PyTorch version:
   * `flash_attention_bwd_plain` / `flash_bwd_dq_kernel` (B3) and
     `flash_bwd_dkv_kernel` (B4) (csrc/flash_bwd.cu, ports of
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`) — dq, dk, dv in
-    f32 from the forward's lse = m + log(l) and delta = rowsum(dO * O);
-    both run their products on the tensor cores in split f32 (3xTF32
-    mma.sync), deterministic (no atomics).
+    f32 from the forward's lse = m + log(l) and delta = rowsum(dO * O),
+    deterministic (no atomics).
 
-The plain versions walk the kernels' own tiles (BLOCK_Q rows or keys per
-thread block, `block_k_for(D)` per staged tile), so a kernel and its plain
-version differ by rounding only; the forward kernels take their softmax
-steps per 16-key chunk of a tile, and the backward kernels their products
-as three TF32 products, which changes only the rounding too.
+All four kernels run their products on the tensor cores in split f32
+(3xTF32 mma.sync, csrc/flash_mma.cuh), which keeps f32 accuracy. The plain
+versions walk the kernels' own tiles (BLOCK_Q rows or keys per thread
+block, `block_k_for(D)` per staged tile), so a kernel and its plain version
+differ by rounding only; the forward kernels take their softmax steps per
+32-key chunk of a tile, and every product as three TF32 products, which
+changes only the rounding too.
 
 `flash_attention` dispatches: with grad enabled and any of q/k/v requiring
 grad it runs `FlashAttentionFunction` (B1 forward, B3+B4 backward, as the
