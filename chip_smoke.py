@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
   1. build    — compiles the hand-written CUDA kernels from the checkout's
                 sources (ops/csrc/flash_fwd.cu and flash_bwd.cu, one nvcc
-                per source and head dim, all at once, for sm_90a) and
-                prints each kernel's registers and spills.
+                per source and head dim 16, 32, 64, 128, all at once, for
+                sm_90a) and prints each kernel's registers and spills.
   2. kernels  — holds each flash kernel against its plain PyTorch version
-                on the card, on seven cases around the transformer-BC
+                on the card, on nine cases around the transformer-BC
                 shape (B=8, S=1024, H=8, D=32; causal f32 and bf16, a
                 window, a q offset, a k offset with fully masked rows, a
-                ragged non-causal D=64 and a bf16 D=128): B2 (normalized
+                ragged non-causal D=64, a bf16 D=128, the model's default
+                D=16, and D=24 zero-padded to the built 32): B2 (normalized
                 forward), B1 (unnormalized forward with row stats l, m),
                 B3 (dq) and B4 (dk, dv) from the same lse and delta, all
                 four running their products on the tensor cores as
                 split-f32 (3xTF32) mma.sync; B3 and B4 launch twice and
-                must give the same bits. Times
+                must give the same bits; a second derivative through
+                FlashAttentionFunction must raise on the card. Times
                 each kernel, its plain version and one PyTorch call that
                 computes the same function (a yardstick the port never
                 calls; the backward yardstick's own error against the
@@ -42,6 +44,26 @@ Phases, each fatal on failure (exit code 1, no result line):
                 within tolerance to the same weights served with the plain
                 (einsum) attention, and B2 launched once per layer per
                 served batch.
+  5. critic   — the QT-Opt Grasping44 critic at the flagship's full width
+                (472x472 crops of uint8 512x640x3 sources, num_convs
+                (6, 6, 3), width 64, batch 64, momentum, EMA 0.9999,
+                seeded random weights; the shape of bench.py's
+                qtopt_critic_train_mfu_bs64_472px cell, but in float32
+                without its bf16 model wrapper): first one batch of 2
+                (center crop) through the same weights on the card and
+                on the CPU with every relu and pool pinned to the card's
+                choices (loss, every gradient and every batch-norm
+                statistic, and a TF32 control that must fail), then
+                train_eval_model for 20 steps with random
+                crops and distortions from per-step card generators,
+                checkpoints at 10 and 20 and one EMA eval batch after
+                each, then a restore of 20.pt that must equal the live
+                state bit for bit (parameters, batch-norm buffers, EMA,
+                optimizer state) and evaluate to the same bits. Then the train step's time,
+                steps/s, peak memory, a torch.profiler breakdown and the
+                achieved TFLOP/s against an analytic flop count. The
+                critic runs no kernel of the port (its convolutions are
+                cuDNN's, its pools and batch norms plain torch).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -64,7 +86,7 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "training", "serving")
+PHASES = ("build", "kernels", "training", "serving", "critic")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -117,6 +139,26 @@ SAVE_EVERY = 10
 EVAL_STEPS = 2
 LOG_EVERY = 5
 TIMED_STEPS = 10
+# The critic phase: the flagship configuration in float32 (the shape of
+# bench.py's qtopt_critic_train_mfu_bs64_472px cell, which runs the
+# forward in bf16 through the model wrapper; this phase does not) and the
+# batch of the card-vs-CPU check. Its limits are the BC gradient check's
+# (LOSS_TOL, GRAD_TOL), except the float32 gradients': at initialization
+# the batch norms, on the batch's statistics, amplify rounding, and
+# cuDNN's float32 conv algorithms round more than the CPU's convs, so
+# with every relu and pool pinned the card's float32 gradients lie
+# 1.392e-2 of their max from float64 and the CPU's 5.155e-4 (H100 80GB
+# HBM3 at 700 W, PERF.md §6; with PyTorch's own CUDA convs the card reads
+# 4.807e-4). CRITIC_F32_GRAD_TOL is 3.6 times the card's reading; TF32
+# convs land at 3.0 times it.
+CRITIC = dict(image_size=(472, 472), num_convs=(6, 6, 3), width=64)
+CRITIC_BATCH = 64
+CRITIC_CHECK_BATCH = 2
+CRITIC_F32_GRAD_TOL = 5e-2
+# A gradient that is 0 in exact arithmetic is rounding noise in float32;
+# it is held to ZERO_GRAD of the model's largest gradient.
+ZERO_GRAD = 1e-6
+CRITIC_EVAL_STEPS = 1
 
 
 def log(message: str) -> None:
@@ -266,6 +308,10 @@ def phase_kernels():
          dict(causal=False)),
         ("bf16_causal_d128", (2, 1024, 1024, 2, 128), torch.bfloat16,
          dict(causal=True)),
+        ("slice_f32_causal_d16", (b, s, s, 2 * h, 16), torch.float32,
+         dict(causal=True)),
+        ("f32_window_padded_d24", (2, 777, 777, 4, 24), torch.float32,
+         dict(causal=True, window=200)),
     ]
     errors = {}
     for name, (cb, sq, sk, ch, cd), dtype, kw in cases:
@@ -321,7 +367,32 @@ def phase_kernels():
         log(f"[kernels] {name}: max_abs_err " + ", ".join(
             f"{kernel} {err:.3e}" for kernel, err in errs.items()
         ) + "; dq, dk, dv bitwise equal over two launches")
+    check_second_derivative_raises()
     return errors, time_kernels(errors["slice_f32_causal"])
+
+
+def check_second_derivative_raises() -> None:
+    """B3 and B4 give gradients with no graph: a second derivative through
+    FlashAttentionFunction on the card must raise, not drop the term."""
+    import torch
+
+    from tensor2robot_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((1, 128, 2, 16), generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    (g,) = torch.autograd.grad(((out + q) ** 2).sum(), q, create_graph=True)
+    try:
+        torch.autograd.grad(g.sum(), q)
+    except RuntimeError as err:
+        if "once-differentiable" not in str(err):
+            raise
+        log("[kernels] a second derivative through FlashAttentionFunction "
+            "raises on the card")
+        return
+    raise AssertionError("a second derivative through flash attention "
+                         "did not raise on the card")
 
 
 def time_kernels(errors) -> list:
@@ -789,6 +860,351 @@ def profile_predict(predictor, requests) -> None:
     device_profile(f"predict bucket {BUCKETS[-1]}", lambda: predictor.predict(batch))
 
 
+def critic_model():
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom,
+    )
+
+    return Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+        batch_size=CRITIC_BATCH, **CRITIC
+    )
+
+
+def critic_train_flops(image_size, batch_size, num_convs=(6, 6, 3), width=64):
+    """Flops of one Grasping44 train step: the conv and dense products
+    (2 flops a multiply-add) of the forward, times 3 for forward and
+    backward. The same count as bench.py's _analytic_train_flops, kept
+    here because this script imports nothing of the JAX side."""
+    h, w = image_size
+    flops = 0.0
+
+    def conv(h, w, cin, cout, k, stride=1):
+        nonlocal flops
+        h, w = -(-h // stride), -(-w // stride)
+        flops += 2.0 * batch_size * h * w * cout * k * k * cin
+        return h, w
+
+    h, w = conv(h, w, 3, width, 6, 2)
+    h, w = -(-h // 3), -(-w // 3)
+    for _ in range(num_convs[0]):
+        h, w = conv(h, w, width, width, 5)
+    h, w = -(-h // 3), -(-w // 3)
+    for _ in range(num_convs[1]):
+        h, w = conv(h, w, width, width, 3)
+    h, w = -(-h // 2), -(-w // 2)
+    for _ in range(num_convs[2]):
+        h, w = h - 2, w - 2
+        flops += 2.0 * batch_size * h * w * width * 9 * width
+    flops += 2.0 * batch_size * (
+        10 * 256 + 256 * width + h * w * width * 64 + 64 * 64 + 64
+    )
+    return flops * 3.0
+
+
+def _share(got, ref, tol) -> float:
+    """|got - ref| over its allowance tol * max|ref| + 1e-7."""
+    allowance = tol * ref.abs().max().item() + 1e-7
+    return (got - ref).abs().max().item() / allowance
+
+
+def check_critic_on_cpu() -> None:
+    """One full-width batch of CRITIC_CHECK_BATCH (center crop, no
+    distortion) through the same weights on the card and on the CPU.
+
+    A relu passes or stops a unit's gradient by the sign of its input and
+    a max pool sends a window's gradient to its largest inputs: both
+    choices jump, and two float32 runs whose activations differ in the
+    last bits take a few of them the other way, which moves the weight
+    gradients by percents of their max (PERF.md §6). So the card's
+    float32 runs record their choices and every other run here is pinned
+    to them (research/qtopt/routing.py). Held: the float32 loss
+    (LOSS_TOL), batch-norm statistics (GRAD_TOL) and gradients
+    (CRITIC_F32_GRAD_TOL; those 0 in exact arithmetic to ZERO_GRAD of the
+    largest), and the float64 gradients (GRAD_TOL). The same card run
+    with TF32 convs and matmuls must fail the float32 gradient limit, or
+    the limit could not tell a wrong float32 path."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.research.qtopt.routing import (
+        critic_gradients,
+        pinned_routing,
+        record_routing,
+        worst_gap,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = critic_model()
+    base = {k: v.cpu() for k, v in Trainer(model, device=DEVICE).init_state(
+        torch.Generator().manual_seed(0)).network.state_dict().items()}
+    generator = DefaultRandomInputGenerator(batch_size=CRITIC_CHECK_BATCH, seed=0)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), "cpu")
+
+    def pinned(routing, device, dtype, tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with pinned_routing(routing.to(device)):
+                return critic_gradients(model, base, batch, dtype, device)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    failures = []
+
+    def held(card, cpu, index, tol, zero=()):
+        """Each tensor of card[index] within tol of cpu's; the names in
+        `zero` are left to zero_to_rounding."""
+        share, name = max((_share(v, cpu[index][n], tol), n)
+                          for n, v in card[index].items() if n not in zero)
+        if not share <= 1.0:
+            failures.append(f"{name} at {share:.3f} of its allowance ({tol})")
+        return (f"worst {name} at {share:.3f} of its allowance ({tol}) over "
+                f"{len(card[index]) - len(zero)}")
+
+    def zero_to_rounding(card, exact):
+        """The gradients that are 0 in exact arithmetic (a bias before a
+        batch norm on batch statistics: its float64 gradient is below
+        ZERO_GRAD of the largest), each held to |g| <= that on the card."""
+        floor = ZERO_GRAD * max(g.abs().max().item() for g in exact.values())
+        zero = {n for n, g in exact.items() if g.abs().max().item() <= floor}
+        worst = max((card[1][n].abs().max().item() for n in zero), default=0.0)
+        if not worst <= floor:
+            failures.append(f"a gradient that is 0 in exact arithmetic reads "
+                            f"{worst} on the card (limit {floor})")
+        return zero, (f"{len(zero)} gradients 0 in exact arithmetic, on the "
+                      f"card at most {worst:.2e} (limit {floor:.2e})")
+
+    def control(card, cpu, tol, zero):
+        """The TF32 run must fail the float32 limit."""
+        share, name = max((_share(g, cpu[1][n], tol), n)
+                          for n, g in card[1].items() if n not in zero)
+        if not share > 1.0:
+            failures.append(
+                f"a TF32 run passes the float32 limit {tol} ({name} at "
+                f"{share:.3f} of it): the check cannot tell it from float32")
+        return f"TF32 control {name} at {share:.1f} of the allowance"
+
+    def loss(card, cpu, label):
+        err = abs(card[0] - cpu[0]) / abs(cpu[0])
+        if not err <= LOSS_TOL:
+            failures.append(f"{label} loss {card[0]} on the card vs {cpu[0]}")
+        return f"loss {card[0]:.7f} vs {cpu[0]:.7f} (rel {err:.2e})"
+
+    on_card = torch.device(DEVICE).type == "cuda"
+    with record_routing() as routing:
+        card32 = critic_gradients(model, base, batch, torch.float32, DEVICE)
+    with record_routing() as cpu_own:
+        critic_gradients(model, base, batch, torch.float32, "cpu")
+    flips = routing.differences(cpu_own)
+    cpu32 = pinned(routing, "cpu", torch.float32)
+    card64 = pinned(routing, DEVICE, torch.float64)
+    cpu64 = pinned(routing, "cpu", torch.float64)
+    zero, zero_text = zero_to_rounding(card32, cpu64[1])
+    train = [loss(card32, cpu32, "float32"),
+             "batch-norm statistics " + held(card32, cpu32, 2, GRAD_TOL),
+             "gradients " + held(card32, cpu32, 1, CRITIC_F32_GRAD_TOL, zero),
+             zero_text]
+    if on_card:
+        train.append(control(pinned(routing, DEVICE, torch.float32, tf32=True),
+                             cpu32, CRITIC_F32_GRAD_TOL, zero))
+    train += ["float64 " + loss(card64, cpu64, "float64"),
+              "float64 gradients " + held(card64, cpu64, 1, GRAD_TOL)]
+    exact = ", ".join(f"{who} {gap:.3e} ({name})" for who, (gap, name) in (
+        ("card", worst_gap(card32[1], cpu64[1])),
+        ("CPU", worst_gap(cpu32[1], cpu64[1]))))
+
+    log(f"[critic] card vs CPU, batch {CRITIC_CHECK_BATCH} at full width, "
+        f"every relu and pool pinned to the card's float32 choices (the CPU's "
+        f"own float32 run takes {flips[0]} relu units and {flips[1]} pool "
+        f"windows the other way): " + "; ".join(train)
+        + f"; float32 gradients vs the pinned float64 on the CPU, worst of "
+        f"each max: {exact}")
+    if failures:
+        raise AssertionError("critic card vs CPU: " + "; ".join(failures))
+
+
+def same_train_state(live, restored) -> str:
+    """Raises unless two TrainStates hold the same step and the same bits
+    in every network parameter and buffer, EMA parameter and optimizer
+    state tensor; returns what was compared."""
+    import torch
+
+    def tensors(state):
+        optimizer = state.optimizer.state_dict()
+        out = {f"network.{k}": v for k, v in state.network.state_dict().items()}
+        out.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+        out.update({f"optimizer.{i}.{k}": v
+                    for i, slots in optimizer["state"].items()
+                    for k, v in slots.items() if torch.is_tensor(v)})
+        return out, optimizer["param_groups"]
+
+    (a, groups_a), (b, groups_b) = tensors(live), tensors(restored)
+    if live.step != restored.step or groups_a != groups_b or set(a) != set(b):
+        raise AssertionError(
+            f"restored state differs: step {restored.step} vs {live.step}, "
+            f"keys {sorted(set(a) ^ set(b))[:5]}")
+    for key in a:
+        if a[key].dtype != b[key].dtype or not torch.equal(a[key], b[key].to(a[key].device)):
+            raise AssertionError(f"restored {key} differs from the live one")
+    kinds = {k.split(".")[0] for k in a}
+    counts = {kind: sum(k.startswith(kind + ".") for k in a) for kind in sorted(kinds)}
+    return ", ".join(f"{n} {kind} tensors" for kind, n in counts.items())
+
+
+def phase_critic(model_dir: str) -> None:
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train import train_eval as train_eval_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        evaluate,
+        restore_or_init_state,
+        train_eval_model,
+    )
+
+    check_critic_on_cpu()
+    torch.cuda.empty_cache()
+
+    model = critic_model()
+    reset_launches()
+    # train_eval_model keeps its TrainState to itself: catch the object
+    # its restore_or_init_state returns, which its steps then update in
+    # place, to hold the restored checkpoint against the live state.
+    live = []
+
+    def catch_state(*args, **kwargs):
+        live.append(restore_or_init_state(*args, **kwargs))
+        return live[-1]
+
+    train_eval_lib.restore_or_init_state = catch_state
+    t0 = time.monotonic()
+    try:
+        final_eval = train_eval_model(
+            model,
+            DefaultRandomInputGenerator(batch_size=CRITIC_BATCH, seed=0),
+            DefaultRandomInputGenerator(batch_size=CRITIC_BATCH, seed=1000),
+            model_dir=model_dir, max_train_steps=TRAIN_STEPS,
+            save_checkpoints_steps=SAVE_EVERY, eval_steps=CRITIC_EVAL_STEPS,
+            log_every_steps=LOG_EVERY, seed=0, device=DEVICE,
+        )
+        torch.cuda.synchronize()
+    finally:
+        train_eval_lib.restore_or_init_state = restore_or_init_state
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the critic launched flash kernels: {launches}")
+    steps = state_lib.checkpoint_steps(model_dir)
+    if steps != [SAVE_EVERY, TRAIN_STEPS]:
+        raise AssertionError(f"critic checkpoints {steps}")
+    records = read_metrics(os.path.join(model_dir, "train"))
+    logged = [r["step"] for r in records]
+    if logged != list(range(LOG_EVERY, TRAIN_STEPS + 1, LOG_EVERY)):
+        raise AssertionError(f"critic metrics logged at steps {logged}")
+    losses = [r["loss"] for r in records]
+    evals = [r for r in read_metrics(os.path.join(model_dir, "eval"))]
+    if (not all(math.isfinite(x) for x in losses)
+            or set(final_eval) != {"loss", "accuracy", "q_mean"}
+            or not all(math.isfinite(v) for v in final_eval.values())
+            or [r["step"] for r in evals] != [SAVE_EVERY, TRAIN_STEPS]):
+        raise AssertionError(
+            f"critic losses {losses}, evals {evals}, final {final_eval}")
+    # The restore of the last checkpoint is the live state, bit for bit,
+    # and evaluates to the same bits.
+    trainer = Trainer(model, device=DEVICE)
+    restored = restore_or_init_state(model_dir, trainer)
+    compared = same_train_state(live[0], restored)
+    eval_generator = DefaultRandomInputGenerator(batch_size=CRITIC_BATCH, seed=1000)
+    eval_generator.set_specification_from_model(model, "eval")
+    again = evaluate(trainer, restored, iter(eval_generator.create_dataset("eval")),
+                     eval_steps=CRITIC_EVAL_STEPS, use_ema=True)
+    if restored.step != TRAIN_STEPS or again != final_eval:
+        raise AssertionError(
+            f"restored step {restored.step} evaluates to {again}, the live "
+            f"run to {final_eval}")
+    # The EMA of 20 steps at 0.9999 is ~the initial weights, so the eval
+    # above hardly depends on training: the raw parameters' train-mode
+    # loss on a fixed batch does, and must differ from the initial one's.
+    generator = DefaultRandomInputGenerator(batch_size=CRITIC_BATCH, seed=7)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+    initial = trainer.init_state(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        raw = {name: trainer.forward_loss(state.network, batch)[0].item()
+               for name, state in (("live", live[0]), ("restored", restored),
+                                   ("initial", initial))}
+    if raw["live"] != raw["restored"] or raw["live"] == raw["initial"]:
+        raise AssertionError(f"raw-parameter train-mode losses {raw}")
+    log(f"[critic] train_eval_model on {card_line()}: {TRAIN_STEPS} steps of "
+        f"batch {CRITIC_BATCH} at {CRITIC['image_size']}, checkpoints {steps}, "
+        f"in {wall:.1f}s (host data, evals and checkpoints included); losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; EMA evals "
+        f"{[round(r['loss'], 6) for r in evals]}; restore of "
+        f"{TRAIN_STEPS}.pt equal to the live state bit for bit ({compared}), "
+        f"its EMA eval {again} equal to the live one, its raw parameters' "
+        f"train-mode loss {raw['restored']!r} equal to the live one "
+        f"(initial weights: {raw['initial']!r}); flash launches {launches}")
+    time_critic_step(model_dir)
+
+
+def time_critic_step(model_dir: str) -> None:
+    """Median of synced critic train steps on one device batch (the crop
+    and distortion included, as in the step), peak memory, achieved
+    TFLOP/s and a torch.profiler breakdown."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+    )
+
+    model = critic_model()
+    trainer = Trainer(model, device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    generator = DefaultRandomInputGenerator(batch_size=CRITIC_BATCH, seed=7)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+    for _ in range(3):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(times)[len(times) // 2]
+    flops = critic_train_flops(CRITIC["image_size"], CRITIC_BATCH,
+                               CRITIC["num_convs"], CRITIC["width"])
+    achieved = flops / (median / 1e3)
+    log(f"[critic] train step (batch {CRITIC_BATCH}, on-device batch) on "
+        f"{card_line()}: median {median:.3f} ms over {TIMED_STEPS} synced "
+        f"steps (min {min(times):.3f}, max {max(times):.3f}) = "
+        f"{1e3 / median:.3f} steps/s; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB; {flops / 1e12:.4f} TFLOP a step (analytic) "
+        f"-> {achieved / 1e12:.2f} TFLOP/s, {100 * achieved / F32_ROUTES[SIMT_F32]:.1f}% "
+        f"of the f32 peak outside the tensor cores (TF32 off)")
+    device_profile("critic train step", lambda: trainer.train_step(state, batch),
+                   rows=15)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -836,6 +1252,8 @@ def main() -> int:
                 if "training" not in phases:
                     raise ValueError("serving restores the training checkpoint")
                 launches["flash_fwd"] = phase_serving(model_dir)
+            if "critic" in phases:
+                phase_critic(os.path.join(model_dir, "critic"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

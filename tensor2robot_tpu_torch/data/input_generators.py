@@ -8,7 +8,7 @@ the same seed gives byte-identical batches. Generators yield host numpy
 batches; the trainer copies them to the card (train/infeed.py).
 
 The record-reading generators (TFRecord shards, weighted mixtures) are not
-ported yet (ROADMAP.md A4).
+ported yet (ROADMAP.md A1a, the data slice).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ every read goes through a typed getter that parses and validates the same
 way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
-(the policy server, the trainer's infeed) are declared here.
+(the policy server, the trainer's infeed, the max pool's backward and the
+Grasping44 stem) are declared here.
 """
 
 from __future__ import annotations
@@ -72,6 +73,15 @@ _declare(
     minimum=1,
 )
 _declare(
+    "T2R_POOL_BACKWARD",
+    _ENUM,
+    "auto",
+    "Max-pool backward: native routes a tied window's gradient to one "
+    "element (max_pool2d's), auto and scatterfree split it equally.",
+    "tensor2robot_tpu_torch/ops/pooling.py",
+    choices=("auto", "native", "scatterfree"),
+)
+_declare(
     "T2R_SERVE_BUCKETS",
     _STR,
     None,
@@ -124,6 +134,16 @@ _declare(
     "thread).",
     _SERVER,
     minimum=0,
+)
+
+_declare(
+    "T2R_STEM_S2D",
+    _ENUM,
+    "auto",
+    "Space-to-depth lowering of the Grasping44 stem; auto resolves off, "
+    "and 1 is not ported.",
+    "tensor2robot_tpu_torch/research/qtopt/networks.py",
+    choices=("auto", "0", "1"),
 )
 
 

@@ -9,9 +9,9 @@ pos_embedding, block_<i>, ln_final), so utils/jax_params.py maps a flax
 params tree onto these modules one to one.
 
 Not ported yet, and rejected with NotImplementedError naming their
-ROADMAP.md item: KV-cache decode (A2), mixture-of-experts feed-forwards
-(A13), and the mesh paths — sequence-parallel ring/ulysses attention and
-pipelining (A14).
+ROADMAP.md item: KV-cache decode (A6), mixture-of-experts feed-forwards
+(A8), and the mesh paths — sequence-parallel ring/ulysses attention and
+pipelining (A9).
 """
 
 from __future__ import annotations
@@ -36,17 +36,17 @@ def _reject_unported(
 ) -> None:
     if decode:
         raise NotImplementedError(
-            "KV-cache decode is not ported yet (ROADMAP.md A2)"
+            "KV-cache decode is not ported yet (ROADMAP.md A6)"
         )
     if mesh is not None or pipeline_stages > 1:
         raise NotImplementedError(
             "mesh paths (sequence-parallel attention, pipelining) are not "
-            "ported yet (ROADMAP.md A14)"
+            "ported yet (ROADMAP.md A9)"
         )
     if num_experts > 1:
         raise NotImplementedError(
             "mixture-of-experts feed-forwards are not ported yet "
-            "(ROADMAP.md A13)"
+            "(ROADMAP.md A8)"
         )
 
 

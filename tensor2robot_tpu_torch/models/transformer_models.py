@@ -3,7 +3,7 @@
 Port of tensor2robot_tpu/models/transformer_models.py: a per-step conv
 embed, a causal transformer over the episode and a per-step action head.
 Per-step image + proprioception in, per-step action out. The streaming
-(KV-cache decode) policy is not ported yet (ROADMAP.md A2).
+(KV-cache decode) policy is not ported yet (ROADMAP.md A6).
 """
 
 from __future__ import annotations

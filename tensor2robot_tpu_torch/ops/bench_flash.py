@@ -2,15 +2,16 @@
 more kernel source trees, side by side on one CUDA card.
 
     python3 -m tensor2robot_tpu_torch.ops.bench_flash \\
-        [--csrc DIR ...] [--rounds 2] [--iters 50]
+        [--csrc DIR ...] [--head-dim D ...] [--rounds 2] [--iters 50]
 
 Each --csrc is a directory laid out as ops/csrc/ (flash_fwd.cu,
 flash_bwd.cu and their headers), e.g. the csrc/ of another checkout
 unpacked under build/; the default is this checkout's. Every tree's two
-sources are built for D = 32 into build/bench/<n>/, then all trees are
-timed in turns (A, B, ..., then in reverse, `--rounds` times) at the
-transformer-BC shape (B=8, S=1024, H=8, D=32, causal, f32, q/k/v as views
-of a fused projection), beside PyTorch calls for the same functions that
+sources are built for each --head-dim (default 32) into build/bench/<n>/,
+then all trees are timed in turns (A, B, ..., then in reverse, `--rounds`
+times) at the transformer-BC shape (B=8, S=1024, H*D=256, so H=8 at
+D=32 and the same work at every D; causal, f32, q/k/v as views of a
+fused projection), beside PyTorch calls for the same functions that
 the port never makes: the memory-efficient attention forward without its
 log-sum-exp (B2; the kernel scaled_dot_product_attention takes for f32,
 which chip_smoke.py times itself), with it (B1), and its backward (B3 and
@@ -30,7 +31,7 @@ import torch
 
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 
-SHAPE = (8, 1024, 8, 32)  # B, S, H, D
+BATCH, SEQ, WIDTH = 8, 1024, 256  # B, S, H * D
 ROOT = Path(__file__).resolve().parents[2]
 # In the order they are timed.
 KERNELS = {
@@ -64,33 +65,38 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _kernels(csrc: Path, build: Path) -> dict:
-    """B2, B1, B3 and B4 bound to the libraries built from `csrc`."""
+def _kernels(csrc: Path, build: Path, dims) -> dict:
+    """B2, B1, B3 and B4 bound to the libraries built from `csrc` for each
+    head dim of `dims`."""
     fa._CSRC, fa._BUILD_DIR = csrc, build
     fa._library.cache_clear()
     kernels = {name: cls() for name, cls in KERNELS.items()}
-    for kernel in kernels.values():
-        kernel._function(SHAPE[3])
-    for source in fa.KERNEL_SOURCES:
-        log = fa.library_path(SHAPE[3], source).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {csrc} {source}: {line.strip()}", flush=True)
+    for dim in dims:
+        for kernel in kernels.values():
+            kernel._function(dim)
+        for source in fa.KERNEL_SOURCES:
+            log = fa.library_path(dim, source).with_suffix(".log")
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {csrc} {source} D={dim}: {line.strip()}",
+                          flush=True)
     return kernels
 
 
-def _build(trees) -> bool:
-    """One nvcc per tree and source, all at once, each in its own process
-    (the build paths are module state)."""
+def _build(trees, dims) -> bool:
+    """One nvcc per tree, source and head dim, all at once, each in its own
+    process (the build paths are module state)."""
     code = ("import sys; from pathlib import Path; "
             "from tensor2robot_tpu_torch.ops import flash_attention as fa; "
             "fa._CSRC, fa._BUILD_DIR = Path(sys.argv[1]), Path(sys.argv[2]); "
-            f"fa.build_library({SHAPE[3]}, sys.argv[3])")
+            "fa.build_library(int(sys.argv[4]), sys.argv[3])")
     builds = [
         subprocess.Popen([sys.executable, "-c", code, str(tree),
-                          str(ROOT / "build" / "bench" / str(n)), source],
+                          str(ROOT / "build" / "bench" / str(n)), source,
+                          str(dim)],
                          cwd=ROOT)
         for n, tree in enumerate(trees) for source in fa.KERNEL_SOURCES
+        for dim in dims
     ]
     return all(proc.wait() == 0 for proc in builds)
 
@@ -98,6 +104,8 @@ def _build(trees) -> bool:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--csrc", action="append", type=Path)
+    parser.add_argument("--head-dim", action="append", type=int,
+                        choices=fa.KERNEL_HEAD_DIMS)
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--iters", type=int, default=50)
     args = parser.parse_args()
@@ -106,13 +114,22 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     trees = [p.resolve() for p in (args.csrc or [fa._CSRC])]
-    if not _build(trees):
+    dims = args.head_dim or [32]
+    if not _build(trees, dims):
         print("bench_flash: a build failed")
         return 1
-    kernels = [_kernels(tree, ROOT / "build" / "bench" / str(n))
+    kernels = [_kernels(tree, ROOT / "build" / "bench" / str(n), dims)
                for n, tree in enumerate(trees)]
+    card = _card()
+    for dim in dims:
+        _bench(kernels, trees, (BATCH, SEQ, WIDTH // dim, dim), card, args)
+    return 0
 
-    b, s, h, d = SHAPE
+
+def _bench(kernels, trees, shape, card, args) -> None:
+    """Every tree's four kernels at one shape, in turns, and the
+    yardsticks."""
+    b, s, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(1)
     fused = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
     q, k, v = (t.view(b, s, h, d) for t in fused.split(h * d, dim=-1))
@@ -143,8 +160,7 @@ def main() -> int:
                             offset, 0.0, [True, True, True, False], True),
     }
 
-    card = _card()
-    print(f"[bench] {card}; B=8 S=1024 H=8 D=32 causal f32", flush=True)
+    print(f"[bench] {card}; B={b} S={s} H={h} D={d} causal f32", flush=True)
     for n, tree_kernels in enumerate(kernels):
         errs = []
         for name, (inputs, ref) in calls.items():
@@ -153,7 +169,7 @@ def main() -> int:
             errs.append(f"{name} " + "/".join(
                 f"{(g - r).abs().max().item():.3e}" for g, r in zip(got, ref)
             ))
-        print(f"[bench] tree {n} {trees[n]}: max_abs_err " + ", ".join(errs),
+        print(f"[bench] D={d} tree {n} {trees[n]}: max_abs_err " + ", ".join(errs),
               flush=True)
     order = list(range(len(kernels)))
     for r in range(args.rounds):
@@ -166,14 +182,13 @@ def main() -> int:
                 )
                 for name, (inputs, _) in calls.items()
             }
-            print(f"[bench] round {r} tree {n} on {card}: " + ", ".join(
+            print(f"[bench] D={d} round {r} tree {n} on {card}: " + ", ".join(
                 f"{name} {ms:.4f} ms" for name, ms in times.items()
             ) + f", B3+B4 {times['B3'] + times['B4']:.4f} ms", flush=True)
-        print(f"[bench] round {r} yardsticks on {card}: " + ", ".join(
+        print(f"[bench] D={d} round {r} yardsticks on {card}: " + ", ".join(
             f"{name} {_time_ms(fn, args.iters):.4f} ms"
             for name, fn in yardsticks.items()
         ), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,17 +1,22 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the masking cap, the tile sizes, dtype conversion, floor division and
 // the visibility tests.
-// Each library is built with -DT2R_HEAD_DIM=32|64|128.
+// Each library is built with -DT2R_HEAD_DIM=16|32|64|128 (the wrappers pad
+// any other head dim up to 128 to the next of them with zero columns).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #ifndef T2R_HEAD_DIM
-#error "compile with -DT2R_HEAD_DIM=32, 64 or 128"
+#error "compile with -DT2R_HEAD_DIM=16, 32, 64 or 128"
 #endif
-static_assert(T2R_HEAD_DIM == 32 || T2R_HEAD_DIM == 64 || T2R_HEAD_DIM == 128,
-              "T2R_HEAD_DIM must be 32, 64 or 128");
+// Every size is a whole number of m16n8k8 k-steps (D / 8: two at D = 16)
+// and of 16-byte cp.async chunks (D / 4), and rows padded to D + 4 words
+// stay on 16 bytes.
+static_assert(T2R_HEAD_DIM == 16 || T2R_HEAD_DIM == 32 || T2R_HEAD_DIM == 64 ||
+                  T2R_HEAD_DIM == 128,
+              "T2R_HEAD_DIM must be 16, 32, 64 or 128");
 
 namespace t2r {
 

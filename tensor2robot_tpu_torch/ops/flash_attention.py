@@ -65,7 +65,10 @@ FLASH_AUTO_SEQ = 4096
 # kernels (csrc/flash_common.cuh: kBlockRows); the plain versions walk the
 # same tiles so both skip the same ones.
 BLOCK_Q = 64
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# The head dims the kernels are built for; the wrappers zero-pad any other
+# head dim up to MAX_HEAD_DIM to the next of them (kernel_head_dim).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source and head dim.
@@ -79,8 +82,48 @@ _NVCC_FLAGS = (
 
 def block_k_for(head_dim: int) -> int:
     """Length of a staged tile at a head dim (csrc/flash_common.cuh:
-    staged_tile): the forward's and dq's k-tile, dkv's q-tile."""
+    staged_tile): the forward's and dq's k-tile, dkv's q-tile. A head dim
+    and the built size it is padded to (kernel_head_dim) give the same
+    length, so a padded launch walks the plain version's tiles."""
     return 64 if head_dim <= 64 else 32
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The built head dim a head dim runs at: the smallest of
+    KERNEL_HEAD_DIMS that holds it. Raises ValueError above MAX_HEAD_DIM."""
+    for size in KERNEL_HEAD_DIMS:
+        if 1 <= head_dim <= size:
+            return size
+    raise ValueError(
+        f"flash attention takes head dims 1..{MAX_HEAD_DIM} (the kernels' "
+        f"largest built size), got {head_dim}"
+    )
+
+
+def call_padded(fn, q, k, v, *rest, scale=None, **kwargs):
+    """Calls `fn(q, k, v, *rest, scale=..., **kwargs)` at the built head
+    dim: q, k, v and a dout among `rest` (any [B, S, H, D] tensor) are
+    zero-padded along D to kernel_head_dim(D), and D columns of each
+    [B, S, H, D] output are sliced back off. `scale` stays 1/sqrt(D) of
+    the true D. Zero columns add nothing to q k^T, give zero output
+    columns, and leave delta = rowsum(dO * O) and the row stats (lse,
+    l, m; [B, H, S]) as they are. `fn` is a kernel or, in a test, its
+    plain version."""
+    dim = q.shape[-1]
+    scale = dim ** -0.5 if scale is None else scale
+    width = kernel_head_dim(dim)
+    if width == dim:
+        return fn(q, k, v, *rest, scale=scale, **kwargs)
+
+    def pad(t):
+        if t.ndim != 4:
+            return t
+        return torch.nn.functional.pad(t, (0, width - dim))
+
+    out = fn(*(pad(t) for t in (q, k, v, *rest)), scale=scale, **kwargs)
+    if isinstance(out, tuple):
+        return tuple(t[..., :dim] if t.ndim == 4 else t for t in out)
+    return out[..., :dim]
 
 
 def _check_window(window: Optional[int], causal: bool) -> None:
@@ -542,8 +585,11 @@ class FlashForwardKernel(_CudaKernel):
             )
         _check_window(window, causal)
         _check_shapes(q, k, v)
+        return call_padded(self._run, q, k, v, scale=scale, causal=causal,
+                           q_offset=q_offset, k_offset=k_offset, window=window)
+
+    def _run(self, q, k, v, scale, causal, q_offset, k_offset, window):
         q, k, v = self._inputs([("q", q), ("k", k), ("v", v)])
-        scale = scale if scale is not None else q.shape[-1] ** -0.5
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         self._launch(
             q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -564,8 +610,11 @@ class FlashTileKernel(_CudaKernel):
                  k_offset=0, window=None):
         _check_window(window, causal)
         _check_shapes(q, k, v)
+        return call_padded(self._run, q, k, v, scale=scale, causal=causal,
+                           q_offset=q_offset, k_offset=k_offset, window=window)
+
+    def _run(self, q, k, v, scale, causal, q_offset, k_offset, window):
         q, k, v = self._inputs([("q", q), ("k", k), ("v", v)])
-        scale = scale if scale is not None else q.shape[-1] ** -0.5
         batch, s_q, heads, _ = q.shape
         o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         l = torch.empty((batch, heads, s_q), dtype=torch.float32, device=q.device)
@@ -589,11 +638,16 @@ class FlashBwdDqKernel(_CudaKernel):
                  q_offset=0, k_offset=0, window=None) -> torch.Tensor:
         _check_window(window, causal)
         _check_bwd_shapes(q, k, v, dout, lse, delta)
+        return call_padded(self._run, q, k, v, dout, lse, delta, scale=scale,
+                           causal=causal, q_offset=q_offset,
+                           k_offset=k_offset, window=window)
+
+    def _run(self, q, k, v, dout, lse, delta, scale, causal, q_offset,
+             k_offset, window):
         q, k, v, dout, lse, delta = self._inputs(
             [("q", q), ("k", k), ("v", v), ("dout", dout)],
             [("lse", lse), ("delta", delta)],
         )
-        scale = scale if scale is not None else q.shape[-1] ** -0.5
         dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         self._launch(
             q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -615,11 +669,16 @@ class FlashBwdDkvKernel(_CudaKernel):
                  q_offset=0, k_offset=0, window=None):
         _check_window(window, causal)
         _check_bwd_shapes(q, k, v, dout, lse, delta)
+        return call_padded(self._run, q, k, v, dout, lse, delta, scale=scale,
+                           causal=causal, q_offset=q_offset,
+                           k_offset=k_offset, window=window)
+
+    def _run(self, q, k, v, dout, lse, delta, scale, causal, q_offset,
+             k_offset, window):
         q, k, v, dout, lse, delta = self._inputs(
             [("q", q), ("k", k), ("v", v), ("dout", dout)],
             [("lse", lse), ("delta", delta)],
         )
-        scale = scale if scale is not None else q.shape[-1] ** -0.5
         dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.empty_like(dk)
         self._launch(
@@ -646,8 +705,11 @@ KERNELS = {
 
 
 def _on_cuda(q: torch.Tensor) -> bool:
+    """Whether q takes the kernels (CUDA) or their plain versions (CPU).
+    Both refuse what the kernels refuse: a head dim past MAX_HEAD_DIM."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+    kernel_head_dim(q.shape[-1])
     return q.device.type == "cuda"
 
 
@@ -672,11 +734,39 @@ def flash_attention_bwd_tile(q, k, v, dout, lse, delta, causal=False,
     return dq, dk, dv
 
 
+class _NoSecondDerivative(torch.autograd.Function):
+    """Passes a gradient of FlashAttentionFunction through, on a graph
+    node whose inputs are the attention's inputs and whose backward
+    raises. torch's @once_differentiable hangs its error node off detached
+    copies of the gradients, so torch.autograd.grad(..., inputs) never
+    reaches it and drops the attention term silently; this node lies on
+    the path to the inputs."""
+
+    @staticmethod
+    def forward(ctx, grad, *inputs):
+        del inputs
+        return grad.clone()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "flash attention is once-differentiable: its backward (B3, B4 "
+            "or their plain versions) gives gradients with no graph, so a "
+            "second derivative through it is not supported; use the einsum "
+            "path (use_flash=False)"
+        )
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its explicit backward, the JAX package's
     custom VJP (`_fwd`/`_bwd`): forward through B1, normalized here with l
     floored at 1e-30, saving (q, k, v, out, lse = m + log l); backward
-    through delta, B3 and B4, with grads cast to the input dtypes."""
+    through delta, B3 and B4, with grads cast to the input dtypes.
+
+    The backward is once-differentiable on both devices (CPU tensors take
+    this Function too, with the plain versions): under create_graph its
+    gradients come through _NoSecondDerivative, so a second derivative
+    through attention raises instead of losing the attention term."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, k_offset, window):
@@ -694,12 +784,17 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_tile(
-            q, k, v, dout, lse, flash_attention_bwd_delta(dout, out),
-            **ctx.args,
-        )
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None)
+        with torch.no_grad():
+            dq, dk, dv = flash_attention_bwd_tile(
+                q, k, v, dout, lse, flash_attention_bwd_delta(dout, out),
+                **ctx.args,
+            )
+        grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+        if torch.is_grad_enabled():  # create_graph=True
+            grads = tuple(
+                _NoSecondDerivative.apply(g, q, k, v, dout) for g in grads
+            )
+        return grads + (None,) * 5
 
 
 def flash_attention(

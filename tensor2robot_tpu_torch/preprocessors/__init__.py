@@ -3,4 +3,5 @@
 from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
     AbstractPreprocessor,
     NoOpPreprocessor,
+    SpecTransformationPreprocessor,
 )

@@ -20,6 +20,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from tensor2robot_tpu_torch.specs import (
+    ExtendedTensorSpec,
     TensorSpecStruct,
     validate_and_flatten,
     validate_and_pack,
@@ -125,3 +126,48 @@ class NoOpPreprocessor(AbstractPreprocessor):
 
     def _preprocess_fn(self, features, labels, mode, generator):
         return features, labels
+
+
+class SpecTransformationPreprocessor(NoOpPreprocessor):
+    """Convenience base: identity transform with rewritten *in* specs.
+
+    Override `_transform_in_feature_specification` (and/or the label
+    variant) to declare a different on-disk representation, e.g. a uint8
+    jpeg source for a float32 model input, then implement `_preprocess_fn`
+    for the value conversion. Port of the JAX package's class of the same
+    name.
+    """
+
+    def get_in_feature_specification(self, mode: str) -> TensorSpecStruct:
+        return self._transform_in_feature_specification(
+            self._model.get_feature_specification(mode).copy(), mode
+        )
+
+    def get_in_label_specification(self, mode: str) -> TensorSpecStruct:
+        return self._transform_in_label_specification(
+            self._model.get_label_specification(mode).copy(), mode
+        )
+
+    def _transform_in_feature_specification(
+        self, spec: TensorSpecStruct, mode: str
+    ) -> TensorSpecStruct:
+        return spec
+
+    def _transform_in_label_specification(
+        self, spec: TensorSpecStruct, mode: str
+    ) -> TensorSpecStruct:
+        return spec
+
+    def get_decode_rois(self, mode: str):
+        """Decode-time crops (the JAX package's data/roi.py) are not
+        ported yet (ROADMAP.md A1a): the port always decodes full frames
+        and crops in the preprocessor."""
+        del mode
+        return None
+
+    @staticmethod
+    def update_spec(spec_struct: TensorSpecStruct, key: str, **overrides) -> None:
+        """Rewrites the spec at `key` in place with `overrides`."""
+        spec_struct[key] = ExtendedTensorSpec.from_spec(
+            spec_struct[key], **overrides
+        )

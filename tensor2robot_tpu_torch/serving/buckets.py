@@ -9,7 +9,7 @@ traffic).
 Resolution order for the ladder: explicit constructor argument >
 `T2R_SERVE_BUCKETS` > `(1,)`. Port of tensor2robot_tpu/serving/buckets.py;
 the ladder and warmup batches an export publishes wait for the export
-slice (ROADMAP.md A3).
+slice (ROADMAP.md A2).
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ called only from the dispatcher (and from `_prewarm` at start): a predict
 on the submit path would serialize clients behind the model. Export-side
 features — AOT restore tiers, compile caches, quantized regimes and the
 multi-policy `exported_policy_loader` — wait for the export slice
-(ROADMAP.md A3).
+(ROADMAP.md A2).
 """
 
 from __future__ import annotations
@@ -118,9 +118,17 @@ class ServeFuture:
         self._event = threading.Event()
         self._response: Optional[ServeResponse] = None
         self._error: Optional[BaseException] = None
+        self._callbacks: List = []
+        self._cb_lock = threading.Lock()
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def error(self) -> Optional[BaseException]:
+        """The failure, if the future completed with one (None while
+        pending or on success), so a completion callback can branch
+        without re-raising."""
+        return self._error if self._event.is_set() else None
 
     def result(self, timeout: Optional[float] = None) -> ServeResponse:
         if not self._event.wait(timeout):
@@ -131,13 +139,39 @@ class ServeFuture:
             raise self._error
         return self._response
 
+    def add_done_callback(self, fn) -> None:
+        """Calls `fn(future)` when the future completes, at once (on the
+        caller's thread) if it already has. Otherwise it runs on the
+        completing thread (the dispatcher), so it must be cheap and must
+        not block; one that raises is logged and the dispatcher serves
+        on."""
+        with self._cb_lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def _complete(self) -> None:
+        # Set and drain under the lock, so a callback is either queued
+        # before completion (and run here) or run by add_done_callback.
+        with self._cb_lock:
+            self._event.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001 — a client's callback
+                logging.exception(
+                    "done callback of request %d raised", self.request_id
+                )
+
     def _set_response(self, response: ServeResponse) -> None:
         self._response = response
-        self._event.set()
+        self._complete()
 
     def _set_error(self, error: BaseException) -> None:
         self._error = error
-        self._event.set()
+        self._complete()
 
 
 class _Request:

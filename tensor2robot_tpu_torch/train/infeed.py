@@ -6,7 +6,7 @@ memory and from there to the device with non_blocking copies on a side
 stream, so the transfer of batch N+1 runs while step N computes; the
 consumer's stream waits on the copy's event before it reads the batch.
 Multi-step batch stacking (iterations_per_loop) is not ported
-(ROADMAP.md A9).
+(ROADMAP.md A4).
 """
 
 from __future__ import annotations

@@ -8,12 +8,14 @@ both raw and averaged parameters; serving and eval select the EMA.
 
 Checkpoints live where the JAX trainer keeps them, under
 `<model_dir>/checkpoints/`, one file `<step>.pt` per saved step holding
-{step, params, ema_params, optimizer}. Each is written under a temporary
+{step, params, ema_params, optimizer}; `params` is the network's state
+dict, buffers (batch-norm statistics) included, and `ema_params` covers
+the parameters only. Each is written under a temporary
 name and renamed into place, so a reader never sees a torn file under a
 final name; the directory is pruned to the newest `keep_checkpoint_max`.
 
 The flat (one concatenated vector) EMA layout of the JAX package's
-flatten_optimizer_update regime is not ported (ROADMAP.md A14).
+flatten_optimizer_update regime is not ported (ROADMAP.md A9).
 """
 
 from __future__ import annotations

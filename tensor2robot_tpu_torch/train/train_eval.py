@@ -4,6 +4,12 @@ Port of tensor2robot_tpu/train/train_eval.py on one device. `Trainer` is
 the counterpart of the JAX package's CompiledModel: the model's hooks as
 train, eval and predict steps over a TrainState, in the same order
 (preprocess, packed inference, model_train_fn, backward, optimizer, EMA).
+Each train step preprocesses with its own generator on the device,
+seeded from (seed, step) as the JAX step folds the step into its key, so
+random crops and distortions differ per step and repeat on a resume.
+Batch-norm running statistics are buffers of the network: they change in
+a train-mode forward, ride in the checkpoint's `params`, and are not
+averaged (the EMA covers parameters only, as the JAX export_variables).
 PyTorch runs eagerly, so nothing is compiled; on the card the transformer's
 attention runs the flash kernels (B1 forward and B3+B4 backward under
 autograd, B2 under inference_mode in eval and predict).
@@ -15,13 +21,14 @@ metrics.jsonl`, checkpoints every `save_checkpoints_steps` and evaluates
 each named eval set into `<model_dir>/eval[_<name>]/metrics.jsonl`.
 
 Regimes not ported raise NotImplementedError naming their ROADMAP.md item:
-mesh / plan / weight-update sharding / flattened optimizer update (A14),
-remat, gradient accumulation and multi-step loops (A9), hooks and
-exporters (A12, A3).
+mesh / plan / weight-update sharding / flattened optimizer update (A9),
+remat, gradient accumulation and multi-step loops (A4), hooks and
+exporters (A5, A2).
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import os
 import time
@@ -51,18 +58,18 @@ def _reject_unported(
             or flatten_optimizer_update):
         raise NotImplementedError(
             "mesh, plan, shard_weight_update and flatten_optimizer_update "
-            "are not ported yet (ROADMAP.md A14)"
+            "are not ported yet (ROADMAP.md A9)"
         )
     if remat or grad_accum_steps > 1 or iterations_per_loop > 1:
         raise NotImplementedError(
             "remat, grad_accum_steps > 1 and iterations_per_loop > 1 are "
-            "not ported yet (ROADMAP.md A9)"
+            "not ported yet (ROADMAP.md A4)"
         )
     if hook_builders:
-        raise NotImplementedError("hook_builders are not ported yet (ROADMAP.md A12)")
+        raise NotImplementedError("hook_builders are not ported yet (ROADMAP.md A5)")
     if create_exporters_fn is not None:
         raise NotImplementedError(
-            "create_exporters_fn is not ported yet (ROADMAP.md A3)"
+            "create_exporters_fn is not ported yet (ROADMAP.md A2)"
         )
 
 
@@ -74,13 +81,28 @@ def _batch_labels(batch):
         return None
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step `step`'s preprocessing (random crops,
+    distortions), on `device`: seeded from (seed, step) alone, as the JAX
+    trainer draws step `step`'s rng_pre from fold_in(rng, step). A resumed
+    run draws what the uninterrupted run drew at the same step. (The JAX
+    trainer also splits off an rng_net for the network; no network of the
+    port draws random numbers, so none is made.)"""
+    digest = hashlib.blake2b(f"{seed}:{step}:pre".encode(), digest_size=8)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int.from_bytes(digest.digest(), "little"))
+    return generator
+
+
 class Trainer:
-    """The model's hooks as steps over a TrainState on one device."""
+    """The model's hooks as steps over a TrainState on one device. Train
+    steps preprocess with `step_generator(seed, step)`."""
 
     def __init__(
         self,
         model,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
+        seed: int = 0,
         mesh=None,
         plan=None,
         remat: bool = False,
@@ -96,6 +118,7 @@ class Trainer:
         )
         self.model = model
         self.device = resolve_device(device)
+        self.seed = seed
         self.preprocessor = model.preprocessor
         self.optimizer_factory = model.create_optimizer()
         self._ema_network: Optional[torch.nn.Module] = None
@@ -118,10 +141,13 @@ class Trainer:
         return TrainState(step=0, network=network, optimizer=optimizer,
                           ema_params=ema)
 
-    def forward_loss(self, network, batch):
-        """(loss, train metrics) of a device batch in train mode."""
+    def forward_loss(self, network, batch, generator=None):
+        """(loss, train metrics) of a device batch in train mode;
+        preprocessing draws from `generator` (None: no random crop or
+        distortion)."""
         features, labels = self.preprocessor.preprocess(
-            batch["features"], _batch_labels(batch), mode=MODE_TRAIN
+            batch["features"], _batch_labels(batch), mode=MODE_TRAIN,
+            generator=generator,
         )
         f, l, outputs, _ = self.model.packed_inference(
             network, features, MODE_TRAIN, labels=labels
@@ -132,7 +158,10 @@ class Trainer:
         """One update of `state` in place from a device batch; returns the
         step's metrics as device scalars (no host sync)."""
         state.network.train()
-        loss, train_metrics = self.forward_loss(state.network, batch)
+        loss, train_metrics = self.forward_loss(
+            state.network, batch,
+            step_generator(self.seed, state.step, self.device),
+        )
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -301,7 +330,7 @@ def train_eval_model(
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     trainer = Trainer(
-        t2r_model, device=device, mesh=mesh, plan=plan,
+        t2r_model, device=device, seed=seed, mesh=mesh, plan=plan,
         remat=remat, grad_accum_steps=grad_accum_steps,
         shard_weight_update=shard_weight_update,
         flatten_optimizer_update=flatten_optimizer_update,

@@ -1,14 +1,19 @@
-"""Converts a flax params tree (and an optax Adam state) into the port's
+"""Converts flax variables (and an optax Adam state) into the port's
 state dicts.
 
 The port names its modules as the flax modules are named (Conv_0, embed,
-encoder.block_0.attention.qkv, ...), so a params tree given as nested
-dicts of numpy arrays maps leaf by leaf:
+encoder.block_0.attention.qkv, grasping44.conv2.BatchNorm_0, ...), so a
+params tree given as nested dicts of numpy arrays maps leaf by leaf:
 
   * Conv `kernel` HWIO -> `weight` OIHW
   * Dense `kernel` [in, out] -> Linear `weight` [out, in]
-  * LayerNorm `scale` -> `weight`; every `bias` as is
+  * LayerNorm and BatchNorm `scale` -> `weight`; every `bias` as is
   * any other leaf (e.g. `pos_embedding`) as is
+
+and a `batch_stats` tree (BatchNorm `mean`, `var`) maps onto the buffers
+of the same names (layers/batch_norm.py). `load_flax_variables` loads a
+whole variables dict into a network and names every key that does not
+match, in either direction.
 """
 
 from __future__ import annotations
@@ -51,6 +56,50 @@ def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+def flax_variables_to_state_dict(
+    variables: cabc.Mapping,
+) -> Dict[str, torch.Tensor]:
+    """A flax variables dict ({'params': ..., 'batch_stats': ...}) as one
+    state dict: params by flax_params_to_state_dict's rules, batch_stats
+    leaves under their own names. Any other collection raises, by name."""
+    unknown = sorted(set(variables) - {"params", "batch_stats"})
+    if unknown:
+        raise ValueError(f"no torch layout rule for the collections {unknown}")
+    state = flax_params_to_state_dict(variables.get("params", {}))
+
+    def walk(node: cabc.Mapping, prefix: str) -> None:
+        for key, value in node.items():
+            path = f"{prefix}.{key}" if prefix else key
+            if isinstance(value, cabc.Mapping):
+                walk(value, path)
+            else:
+                state[path] = torch.tensor(np.asarray(value))
+
+    walk(variables.get("batch_stats", {}), "")
+    return state
+
+
+def load_flax_variables(network: torch.nn.Module, variables: cabc.Mapping) -> None:
+    """Loads a flax variables dict into `network` in place. Raises
+    ValueError naming every converted key the network lacks, every key of
+    the network's state dict that the variables lack, and every shape
+    that differs; nothing is skipped."""
+    state = flax_variables_to_state_dict(variables)
+    own = network.state_dict()
+    problems = [f"not in the network: {k}" for k in sorted(set(state) - set(own))]
+    problems += [f"not in the variables: {k}" for k in sorted(set(own) - set(state))]
+    problems += [
+        f"shape of {k}: {tuple(state[k].shape)} vs the network's {tuple(v.shape)}"
+        for k, v in own.items() if k in state and state[k].shape != v.shape
+    ]
+    if problems:
+        raise ValueError("flax variables do not match the network:\n  "
+                         + "\n  ".join(problems))
+    network.load_state_dict(
+        {k: v.to(own[k].dtype) for k, v in state.items()}, strict=True
+    )
 
 
 def optax_adam_state_to_optimizer_state(

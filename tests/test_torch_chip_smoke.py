@@ -1,11 +1,12 @@
-"""chip_smoke.py's training and serving phases, rehearsed on the CPU.
+"""chip_smoke.py's training, serving and critic phases, rehearsed on the CPU.
 
 The phases run here at a tiny width on the CPU (DEVICE = "cpu"), where
 flash attention takes the kernels' plain versions; those are wrapped to
 count as their kernels would, so the phases' launch checks (B1, B3, B4
 once per layer per train step, B2 once per layer per eval or served
-batch) are exercised as on the card. The kernel phase needs the card and
-runs only there.
+batch, none in the critic) are exercised as on the card. The critic runs
+at 96x96 with num_convs (2, 2, 1), width 8 and batch 4. The kernel phase
+needs the card and runs only there.
 """
 
 import importlib.util
@@ -38,6 +39,9 @@ def chip_smoke(monkeypatch):
     monkeypatch.setattr(module, "SLICE", dict(batch=2, seq=16, heads=2, head_dim=16))
     monkeypatch.setattr(module, "NUM_LAYERS", 2)
     monkeypatch.setattr(module, "TIMED_STEPS", 2)
+    monkeypatch.setattr(module, "CRITIC",
+                        dict(image_size=(96, 96), num_convs=(2, 2, 1), width=8))
+    monkeypatch.setattr(module, "CRITIC_BATCH", 4)
     monkeypatch.setattr(
         module, "full_width_model",
         lambda use_flash: TransformerBCModel(
@@ -92,3 +96,19 @@ def test_serving_needs_the_training_phase(chip_smoke, monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
     monkeypatch.setattr("sys.argv", ["chip_smoke.py", "--phases", "nope"])
     assert chip_smoke.main() == 2
+
+
+def test_critic_phase(chip_smoke, tmp_path, capsys):
+    chip_smoke.phase_critic(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[critic] card vs CPU, batch 2 at full width",
+                 "[critic] train_eval_model on CPU rehearsal: 20 steps of batch 4",
+                 "EMA eval", "equal to the live one",
+                 "[critic] train step (batch 4, on-device batch)"):
+        assert line in out, line
+    assert chip_smoke.critic_train_flops((472, 472), 64) == pytest.approx(
+        1.69e12, rel=0.01)
+
+
+def test_phases_list_the_critic(chip_smoke):
+    assert chip_smoke.PHASES == ("build", "kernels", "training", "serving", "critic")

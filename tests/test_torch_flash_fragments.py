@@ -232,6 +232,26 @@ class TestLayouts:
         np.testing.assert_allclose(_c_matrix(o), 0.5 * q @ k.T @ v, rtol=1e-12)
 
 
+    def test_dq_products_at_d16_through_the_maps(self):
+        """flash_bwd.cu's dq at D = 16: S = Q K^T over KD = 2 k-steps of
+        load_a/load_b_nk, then dQ = S K through acc_as_a and load_b_kn
+        over KD = 2 n-tiles of 8 columns (the same maps B4 uses for
+        dK = dS^T Q and dV = P^T dO)."""
+        rng = np.random.RandomState(1)
+        q, k = rng.randn(16, 16), rng.randn(8, 16)
+        s = np.zeros((32, 4))
+        for ks in range(2):
+            s = mma(s, load_a(q[:, 8 * ks:8 * ks + 8], 0.25),
+                    load_b_nk(k[:, 8 * ks:8 * ks + 8]))
+        np.testing.assert_allclose(_c_matrix(s), 0.25 * q @ k.T, rtol=1e-13)
+        dq = np.concatenate([
+            _c_matrix(mma(np.zeros((32, 4)), acc_as_a(s),
+                          load_b_kn(k[:, 8 * d:8 * d + 8])))
+            for d in range(2)
+        ], axis=1)
+        np.testing.assert_allclose(dq, 0.25 * q @ k.T @ k, rtol=1e-12)
+
+
 # (name, q position of the warp's first row, k position of the first key,
 # causal, window): no mask; a causal diagonal inside the second chunk; rows
 # 0..7 seeing no key (dead) and rows 8..15 part of the first chunk; a
@@ -267,6 +287,23 @@ class TestForwardChunk:
         if k_pos0 > q_pos0:
             assert dead[:k_pos0 - q_pos0].all() and not dead[k_pos0 - q_pos0:].any()
         assert np.all(o[dead] == 0.0) and np.all(l[dead] == 0.0)
+
+    @pytest.mark.parametrize(
+        "q_pos0,k_pos0,causal,window", [c[1:] for c in WARP_CASES],
+        ids=[c[0] for c in WARP_CASES],
+    )
+    def test_warp_equals_the_plain_recurrence_at_d16(self, q_pos0, k_pos0,
+                                                      causal, window):
+        """D = 16, the smallest built size: two k-steps of S = Q K^T and
+        two 8-wide n-tiles of O per chunk."""
+        q, k, v = _operands(3, dim=16)
+        args = (q, k, v, 16 ** -0.5, q_pos0, k_pos0, causal, window)
+        o, l, m = warp_forward(*args)
+        ref_o, ref_l, ref_m = plain_forward(*args)
+        assert o.shape == (16, 16)
+        np.testing.assert_allclose(o, ref_o, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(l, ref_l, rtol=1e-12, atol=1e-12)
+        np.testing.assert_array_equal(m == NEG_INF, ref_m == NEG_INF)
 
     def test_a_lane_local_maximum_gives_a_wrong_output(self):
         """Without the quad reduction each lane scales its own columns by

@@ -297,13 +297,13 @@ class TestUnportedArguments:
     @pytest.mark.parametrize(
         "kw,item",
         [
-            (dict(mesh=object()), "A14"), (dict(plan=object()), "A14"),
-            (dict(shard_weight_update=True), "A14"),
-            (dict(flatten_optimizer_update=True), "A14"),
-            (dict(remat=True), "A9"), (dict(grad_accum_steps=2), "A9"),
-            (dict(iterations_per_loop=2), "A9"),
-            (dict(hook_builders=[object()]), "A12"),
-            (dict(create_exporters_fn=lambda m: []), "A3"),
+            (dict(mesh=object()), "A9"), (dict(plan=object()), "A9"),
+            (dict(shard_weight_update=True), "A9"),
+            (dict(flatten_optimizer_update=True), "A9"),
+            (dict(remat=True), "A4"), (dict(grad_accum_steps=2), "A4"),
+            (dict(iterations_per_loop=2), "A4"),
+            (dict(hook_builders=[object()]), "A5"),
+            (dict(create_exporters_fn=lambda m: []), "A2"),
         ],
         ids=lambda x: x if isinstance(x, str) else next(iter(x)),
     )

@@ -128,10 +128,10 @@ class TestBlocks:
     @pytest.mark.parametrize(
         "kw,item",
         [
-            (dict(decode=True), "A2"),
-            (dict(mesh=object()), "A14"),
-            (dict(pipeline_stages=2), "A14"),
-            (dict(num_experts=2), "A13"),
+            (dict(decode=True), "A6"),
+            (dict(mesh=object()), "A9"),
+            (dict(pipeline_stages=2), "A9"),
+            (dict(num_experts=2), "A8"),
         ],
         ids=["decode", "mesh", "pipeline", "moe"],
     )
