@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,data]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -64,6 +64,23 @@ Phases, each fatal on failure (exit code 1, no result line):
                 achieved TFLOP/s against an analytic flop count. The
                 critic runs no kernel of the port (its convolutions are
                 cuDNN's, its pools and batch norms plain torch).
+  6. data     — the data stack: builds the native TFRecord codec and the
+                JPEG codec (libjpeg where the host has jpeglib.h, else
+                nvJPEG; the line names it) with g++, writes 512 train
+                records in 4 shards and 64 eval records of the critic's
+                in-spec (512x640 q95 JPEGs of seeded camera-like frames),
+                holds FastSpecParser against SpecParser bit for bit (the
+                golden record, train records with and without ROI, the eval
+                shard), ROI decode against the full decode's crop, TFRecord
+                write/read and CRCs, and the codec's q95 round trip of the
+                seeded frames against its bound; times RecordDataset alone
+                (thread and process backends, ROI on and off, batch 64);
+                then train_eval_model trains the full-width critic for 20
+                steps from the records (random ROI in train, center in
+                eval) with checkpoints at 10 and 20 and EMA evals, and a
+                fed step's time and the card's busy share are printed
+                beside the critic phase's step on a batch already on the
+                card.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -86,7 +103,7 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "training", "serving", "critic")
+PHASES = ("build", "kernels", "training", "serving", "critic", "data")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -159,6 +176,29 @@ CRITIC_F32_GRAD_TOL = 5e-2
 # it is held to ZERO_GRAD of the model's largest gradient.
 ZERO_GRAD = 1e-6
 CRITIC_EVAL_STEPS = 1
+# The data phase: full-width JPEG records of the critic's in-spec (train
+# records, train shards, eval records), timed batches of RecordDataset
+# alone, and the steps profiled when fed from records.
+DATA_RECORDS = (512, 4, 64)
+DATA_BATCHES = 32
+PROFILED_FED_STEPS = 5
+GOLDEN_RECORDS = os.path.join(ROOT, "tests", "golden", "qtopt_train.tfrecord")
+# A codec's q95 round trip of ROUNDTRIP_FRAMES seeded 512x640 frames
+# (camera_like_frames, seed 0), (mean, max) absolute error against the
+# sources. libjpeg's is measured on the CPU by
+# tests/test_torch_data_codec.py (mean 3.3526853, max 149). nvJPEG's encoder and decoder differ from libjpeg's (chroma
+# down- and upsampling, IDCT), so it is held to libjpeg's mean + 50% and
+# max + 32 levels: the first margin, 25%, was set before nvJPEG's first
+# reading on the card (mean 4.2566, max 160: 1.27x libjpeg's mean; PERF.md
+# §6). A channel swap or a wrong subsampling reads a mean above 20.
+ROUNDTRIP_FRAMES = 8
+LIBJPEG_ROUNDTRIP = (3.3526853, 149)
+ROUNDTRIP = {
+    "libjpeg": LIBJPEG_ROUNDTRIP,
+    "nvjpeg": (LIBJPEG_ROUNDTRIP[0] * 1.5, LIBJPEG_ROUNDTRIP[1] + 32),
+}
+# Numbers one phase measures for another to print beside its own.
+MEASURED = {}
 
 
 def log(message: str) -> None:
@@ -686,10 +726,10 @@ def time_train_step(model_dir: str) -> None:
     device_profile("train step", lambda: trainer.train_step(state, batch), rows=20)
 
 
-def device_profile(label: str, fn, rows: int = 10) -> None:
+def device_profile(label: str, fn, rows: int = 10):
     """Device time by op and device busy share of one call's wall time,
-    from torch.profiler. Diagnostic only: a profiler that cannot trace the
-    card is reported, not fatal."""
+    from torch.profiler; returns (wall ms, busy ms). Diagnostic only: a
+    profiler that cannot trace the card is reported, not fatal (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -706,7 +746,7 @@ def device_profile(label: str, fn, rows: int = 10) -> None:
             wall_ms = (time.monotonic() - t0) * 1e3
     except RuntimeError as err:
         log(f"[profile] {label}: not measured: {err}")
-        return
+        return None
     # Device-side events only (kernels, copies): host ops also carry the
     # device time of what they launched, so summing every row counts it
     # twice, and a user annotation's device span covers its kernels and
@@ -735,6 +775,7 @@ def device_profile(label: str, fn, rows: int = 10) -> None:
         by_name.items(), key=lambda item: item[1][0], reverse=True
     )[:rows]:
         log(f"[profile]   {total / 1e3:9.3f} ms  x{count:<4d} {name[:90]}")
+    return wall_ms, busy_ms
 
 
 def phase_serving(model_dir: str) -> int:
@@ -1191,6 +1232,7 @@ def time_critic_step(model_dir: str) -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     median = sorted(times)[len(times) // 2]
+    MEASURED["critic_step_ms"] = median
     flops = critic_train_flops(CRITIC["image_size"], CRITIC_BATCH,
                                CRITIC["num_convs"], CRITIC["width"])
     achieved = flops / (median / 1e3)
@@ -1203,6 +1245,410 @@ def time_critic_step(model_dir: str) -> None:
         f"of the f32 peak outside the tensor cores (TF32 off)")
     device_profile("critic train step", lambda: trainer.train_step(state, batch),
                    rows=15)
+
+
+# -- the data phase -------------------------------------------------------------
+
+
+def camera_like_frames(n: int, height: int, width: int, seed: int):
+    """Seeded robot-camera-like uint8 frames (bench.py's recipe with torch's
+    bilinear resize in place of PIL's): a smooth low-frequency background,
+    3-7 flat object rectangles and sensor noise (sigma 4). Real grasping
+    frames are spatially coherent, so their JPEGs are 40-150 KB at q95 for
+    512x640, not the ~385 KB of uniform noise."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    frames = np.empty((n, height, width, 3), np.uint8)
+    for i in range(n):
+        small = rng.randint(0, 256, (height // 16, width // 16, 3))
+        base = torch.nn.functional.interpolate(
+            torch.from_numpy(small.astype(np.float32)).permute(2, 0, 1)[None],
+            size=(height, width), mode="bilinear", align_corners=False,
+        )[0].permute(1, 2, 0).numpy().copy()
+        for _ in range(rng.randint(3, 8)):
+            h = rng.randint(height // 16, height // 3)
+            w = rng.randint(width // 16, width // 3)
+            y = rng.randint(0, height - h)
+            x = rng.randint(0, width - w)
+            base[y : y + h, x : x + w] = rng.randint(0, 256, 3)
+        base += rng.normal(0.0, 4.0, base.shape)
+        frames[i] = np.clip(base, 0, 255).astype(np.uint8)
+    return frames
+
+
+def roundtrip_error(frames, decoded):
+    """(mean, max) absolute error of decoded frames against their sources."""
+    import numpy as np
+
+    diff = np.abs(decoded.astype(np.int16) - frames.astype(np.int16))
+    return float(diff.mean()), int(diff.max())
+
+
+def write_records(model, directory: str, counts, image_hw, seed: int = 0):
+    """Records of the critic's in-spec (train) at `image_hw`: state/image a
+    q95 JPEG of camera_like_frames, every other feature and the label drawn
+    from the spec with the seed. counts = (train records, train shards,
+    eval records). Returns ({"train": pattern, "eval": pattern}, the first
+    shard's (frames, records, JPEGs), seconds to write)."""
+    from tensor2robot_tpu_torch.data import codec, tfrecord
+    from tensor2robot_tpu_torch.data.encoder import encode_example
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct, make_random_numpy
+
+    train_records, shards, eval_records = counts
+    spec = TensorSpecStruct()
+    for key, value in model.preprocessor.get_in_feature_specification("train").items():
+        spec[f"features/{key}"] = value
+    for key, value in model.preprocessor.get_in_label_specification("train").items():
+        spec[f"labels/{key}"] = value
+    os.makedirs(directory, exist_ok=True)
+    t0 = time.monotonic()
+    sample = None
+    layout = [("train", s, train_records // shards) for s in range(shards)]
+    layout.append(("eval", 0, eval_records))
+    for index, (split, shard, n) in enumerate(layout):
+        part_seed = seed + 1000 * index
+        values = make_random_numpy(spec, batch_size=n, seed=part_seed)
+        frames = camera_like_frames(n, *image_hw, seed=part_seed)
+        jpegs = [codec.encode_jpeg(frame, quality=95) for frame in frames]
+        records = []
+        for i in range(n):
+            row = {key: value[i] for key, value in values.items()}
+            row["features/state/image"] = jpegs[i]
+            records.append(encode_example(spec, row))
+        if sample is None:
+            sample = (frames, records, jpegs)
+        total = shards if split == "train" else 1
+        tfrecord.write_tfrecords(
+            os.path.join(directory, f"{split}-{shard:05d}-of-{total:05d}.tfrecord"),
+            records)
+    patterns = {split: os.path.join(directory, f"{split}-*.tfrecord")
+                for split in ("train", "eval")}
+    return patterns, sample, time.monotonic() - t0
+
+
+def codec_roundtrip():
+    """(mean, max) absolute error of this host's codec's q95 round trip of
+    the first ROUNDTRIP_FRAMES seeded 512x640 frames."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.data import codec
+
+    frames = camera_like_frames(ROUNDTRIP_FRAMES, 512, 640, seed=0)
+    decoded = np.empty_like(frames)
+    for frame, out in zip(frames, decoded):
+        codec.decode_into(codec.encode_jpeg(frame, quality=95), out)
+    return roundtrip_error(frames, decoded)
+
+
+def check_data_path(model, patterns, sample) -> str:
+    """The card-side self-checks of the data stack; raises on any
+    difference. FastSpecParser equals SpecParser bit for bit (golden
+    record, a train batch with and without ROI, the eval shard); a ROI
+    decode equals the full decode's crop; records written and read back
+    are the same bytes with every CRC (native and plain) holding; the
+    codec's round trip of the seeded frames stays within ROUNDTRIP."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.data import codec, tfrecord
+    from tensor2robot_tpu_torch.data.parser import SpecParser
+    from tensor2robot_tpu_torch.data.roi import DecodeROI, resolve_decode_rois
+    from tensor2robot_tpu_torch.data.wire import FastSpecParser
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom,
+    )
+
+    def combined(critic):
+        spec = {}
+        for key, value in critic.preprocessor.get_in_feature_specification("train").items():
+            spec[f"features/{key}"] = value
+        for key, value in critic.preprocessor.get_in_label_specification("train").items():
+            spec[f"labels/{key}"] = value
+        return spec
+
+    def same(fast, oracle, what):
+        if set(fast) != set(oracle):
+            raise AssertionError(f"{what}: keys differ")
+        for key in oracle:
+            a, b = np.asarray(fast[key]), np.asarray(oracle[key])
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{what}: FastSpecParser differs from "
+                                     f"SpecParser at {key}")
+
+    golden_model = Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+        image_size=(96, 96), num_convs=(2, 2, 1))
+    golden = list(tfrecord.read_tfrecords(GOLDEN_RECORDS))
+    spec = combined(golden_model)
+    same(FastSpecParser(spec).parse_batch(golden),
+         SpecParser(spec).parse_batch(golden), "golden record")
+    spec = combined(model)
+    fast, oracle = FastSpecParser(spec), SpecParser(spec)
+    frames, records, jpegs = sample
+    batch = records[:16]
+    same(fast.parse_batch(batch), oracle.parse_batch(batch), "train records")
+    th, tw = model.preprocessor._target_shape()
+    rng = np.random.default_rng(0)
+    for mode in ("random", "center"):
+        roi = resolve_decode_rois({"features/state/image": DecodeROI(th, tw, mode)},
+                                  spec, len(batch), rng)
+        same(fast.parse_batch(batch, roi=roi), oracle.parse_batch(batch, roi=roi),
+             f"train records, {mode} ROI")
+    eval_records = list(tfrecord.read_tfrecords(tfrecord.list_files(patterns["eval"])[0]))
+    same(fast.parse_batch(eval_records), oracle.parse_batch(eval_records), "eval shard")
+    # ROI decode == full decode + crop, at window edges and sub-MCU offsets.
+    h, w = frames.shape[1:3]
+    full = np.empty(frames.shape[1:], np.uint8)
+    windows = 0
+    for data in jpegs[:8]:
+        codec.decode_into(data, full)
+        for y, x in ((0, 0), (h - th, w - tw), (17, 23), (h - th - 3, 9)):
+            out = np.empty((th, tw, 3), np.uint8)
+            codec.decode_roi_into(data, out, y, x, (h, w))
+            if not np.array_equal(out, full[y : y + th, x : x + tw]):
+                raise AssertionError(f"ROI decode at ({y}, {x}) differs from the crop")
+            windows += 1
+    # TFRecord write then read: the same bytes, every CRC holds.
+    path = os.path.join(os.path.dirname(tfrecord.list_files(patterns["eval"])[0]),
+                        "roundtrip.tfrecord")
+    tfrecord.write_tfrecords(path, records)
+    back = list(tfrecord.read_tfrecords(path, verify_crc=True))
+    with open(path, "rb") as f:
+        raw = f.read()
+    offsets, lengths = tfrecord.index_tfrecord_buffer(raw, verify_crc=True)
+    if back != records or len(offsets) != len(records):
+        raise AssertionError("TFRecord write/read changed the records")
+    for record in records[:2]:
+        if tfrecord.masked_crc32c(record) != tfrecord.masked_crc32c_plain(record):
+            raise AssertionError("native CRC32-C differs from the plain version")
+    # The codec's round trip of the seeded full-size frames.
+    mean, worst = codec_roundtrip()
+    bound = ROUNDTRIP[codec.codec_name()]
+    if not (mean <= bound[0] and worst <= bound[1]):
+        raise AssertionError(
+            f"{codec.codec_name()} round trip mean {mean:.4f} max {worst} "
+            f"exceeds {bound}")
+    return (f"FastSpecParser == SpecParser bit for bit (golden record, 16 "
+            f"train records full / random ROI / center ROI, {len(eval_records)} "
+            f"eval records); {windows} ROI windows == full decode + crop; "
+            f"{len(records)} records written and read back with every CRC; "
+            f"{codec.codec_name()} q95 round trip of {ROUNDTRIP_FRAMES} frames: "
+            f"mean abs err {mean:.4f}, max {worst} (bound {bound[0]}, {bound[1]})")
+
+
+def time_codec(jpegs, source_hw, target_hw) -> str:
+    """One thread's time per image of the codec alone over `jpegs`: a full
+    decode and a decode of a random target_hw window (seed 0), into
+    pinned buffers where a card is visible."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data import codec
+
+    def buffer(shape):
+        out = torch.empty(shape, dtype=torch.uint8,
+                          pin_memory=torch.cuda.is_available())
+        return out.numpy()
+
+    full = buffer(tuple(source_hw) + (3,))
+    window = buffer(tuple(target_hw) + (3,))
+    rng = np.random.default_rng(0)
+    offsets = [(int(rng.integers(0, source_hw[0] - target_hw[0] + 1)),
+                int(rng.integers(0, source_hw[1] - target_hw[1] + 1)))
+               for _ in jpegs]
+    codec.decode_into(jpegs[0], full)  # warm-up
+    t0 = time.perf_counter()
+    for data in jpegs:
+        codec.decode_into(data, full)
+    t1 = time.perf_counter()
+    for data, (y, x) in zip(jpegs, offsets):
+        codec.decode_roi_into(data, window, y, x, source_hw)
+    t2 = time.perf_counter()
+    return (f"{(t1 - t0) / len(jpegs) * 1e3:.3f} ms a full decode, "
+            f"{(t2 - t1) / len(jpegs) * 1e3:.3f} ms a {target_hw[0]}x"
+            f"{target_hw[1]} ROI decode (one thread, {len(jpegs)} JPEGs)")
+
+
+def time_data_stack(model, patterns) -> list:
+    """Records/s of RecordDataset alone over the train shards at
+    CRITIC_BATCH, for each backend with ROI on and off, decode cache off;
+    one warm-up batch (which starts the workers) is not timed."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.data.dataset import RecordDataset
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRecordInputGenerator,
+    )
+
+    generator = DefaultRecordInputGenerator(file_patterns=patterns["train"],
+                                            batch_size=CRITIC_BATCH, seed=0)
+    generator.set_specification_from_model(model, "train")
+    rows = []
+    saved = os.environ.get("T2R_DECODE_CACHE_MB")
+    os.environ["T2R_DECODE_CACHE_MB"] = "0"
+    try:
+        for backend in ("thread", "process"):
+            for roi in (True, False):
+                dataset = RecordDataset(
+                    generator.combined_spec(), patterns["train"], CRITIC_BATCH,
+                    mode="train", seed=0, parse_backend=backend,
+                    decode_roi=generator.decode_rois("train") if roi else None)
+                it = iter(dataset)
+                next(it)
+                t0 = time.perf_counter()
+                nbytes = 0
+                for _ in range(DATA_BATCHES):
+                    batch = next(it)
+                    nbytes += sum(np.asarray(v).nbytes for v in batch.values())
+                seconds = time.perf_counter() - t0
+                del it, batch
+                dataset.close()
+                records = DATA_BATCHES * CRITIC_BATCH / seconds
+                image = tuple(generator.combined_spec()["features/state/image"].shape)
+                shape = (model.preprocessor._target_shape() if roi else image[:2])
+                rows.append((backend, roi, records))
+                log(f"[data] {backend} backend, ROI {'on' if roi else 'off'} "
+                    f"({shape[0]}x{shape[1]} images), batch {CRITIC_BATCH}, "
+                    f"{dataset._num_parse_workers} workers, decode cache off, on "
+                    f"{card_line()}: {records:.1f} records/s = {records:.1f} "
+                    f"images/s, {nbytes / seconds / 1e6:.1f} host MB/s of "
+                    f"parsed batches ({DATA_BATCHES} batches in {seconds:.3f} s)")
+    finally:
+        if saved is None:
+            os.environ.pop("T2R_DECODE_CACHE_MB", None)
+        else:
+            os.environ["T2R_DECODE_CACHE_MB"] = saved
+    return rows
+
+
+def time_fed_steps(model_dir: str, model, patterns) -> dict:
+    """Train steps fed from records: each step's wall from asking the
+    infeed for the batch to the step's end (synchronized), its median over
+    TIMED_STEPS, and the card's busy share over a profiled window of fed
+    steps."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRecordInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train import infeed
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    trainer = Trainer(model, device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    generator = DefaultRecordInputGenerator(file_patterns=patterns["train"],
+                                            batch_size=CRITIC_BATCH, seed=1)
+    generator.set_specification_from_model(model, "train")
+    dataset = generator.create_record_dataset("train")
+    fed = infeed.device_prefetch(iter(dataset), DEVICE, depth=infeed.resolve_depth())
+    for _ in range(3):
+        trainer.train_step(state, next(fed))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(state, next(fed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    median = sorted(times)[len(times) // 2]
+    share = device_profile(
+        f"{PROFILED_FED_STEPS} critic train steps fed from records",
+        lambda: [trainer.train_step(state, next(fed))
+                 for _ in range(PROFILED_FED_STEPS)], rows=8)
+    # On the card the images were parsed into pinned buffers, which the
+    # infeed copies as they are.
+    pinned = len(dataset._ring) if dataset._ring is not None else 0
+    if torch.cuda.is_available() and not pinned:
+        raise AssertionError("the fed steps' images came through no pinned buffer")
+    return {"median": median, "min": min(times), "max": max(times), "busy": share,
+            "pinned": pinned}
+
+
+def phase_data(model_dir: str) -> None:
+    """Builds the data stack, writes full-width JPEG records, checks the
+    parsers and the codec on the card, times RecordDataset alone, then
+    trains the critic from the records."""
+    import torch
+
+    from tensor2robot_tpu_torch.data import codec, native, tfrecord
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRecordInputGenerator,
+    )
+    from tensor2robot_tpu_torch.data.wire import reset_decode_cache
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    t0 = time.monotonic()
+    tfrecord.masked_crc32c(b"")
+    name = codec.codec_name()
+    log(f"[build] data: JPEG codec {name} ({native.codec_build()[1]}), "
+        f"tfrecord_io.cc, with g++ into build/native/ in "
+        f"{time.monotonic() - t0:.1f}s")
+    model = critic_model()
+    source = model.preprocessor.get_in_feature_specification("train")["state/image"]
+    patterns, sample, seconds = write_records(
+        model, os.path.join(model_dir, "records"), DATA_RECORDS, source.shape[:2])
+    sizes = [len(r) for r in sample[2]]
+    log(f"[data] wrote {DATA_RECORDS[0]} train records in {DATA_RECORDS[1]} "
+        f"shards and {DATA_RECORDS[2]} eval records ({source.shape[0]}x"
+        f"{source.shape[1]} q95 JPEG by {name}, mean JPEG "
+        f"{sum(sizes) / len(sizes) / 1e3:.1f} KB) in {seconds:.1f}s")
+    log(f"[data] checks on {card_line()}: {check_data_path(model, patterns, sample)}")
+    log(f"[data] {name} alone on {card_line()}: "
+        + time_codec(sample[2], source.shape[:2], model.preprocessor._target_shape()))
+    time_data_stack(model, patterns)
+
+    reset_decode_cache()  # the run decodes its own first epoch
+    codec.COUNTS.reset()
+    t0 = time.monotonic()
+    final_eval = train_eval_model(
+        model,
+        DefaultRecordInputGenerator(file_patterns=patterns["train"],
+                                    batch_size=CRITIC_BATCH, seed=0),
+        DefaultRecordInputGenerator(file_patterns=patterns["eval"],
+                                    batch_size=CRITIC_BATCH, seed=0),
+        model_dir=model_dir, max_train_steps=TRAIN_STEPS,
+        save_checkpoints_steps=SAVE_EVERY, eval_steps=CRITIC_EVAL_STEPS,
+        log_every_steps=LOG_EVERY, seed=0, device=DEVICE,
+    )
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    decodes = (codec.COUNTS.decodes, codec.COUNTS.roi_decodes)
+    steps = state_lib.checkpoint_steps(model_dir)
+    losses = [r["loss"] for r in read_metrics(os.path.join(model_dir, "train"))]
+    evals = read_metrics(os.path.join(model_dir, "eval"))
+    if (steps != [SAVE_EVERY, TRAIN_STEPS] or len(losses) != TRAIN_STEPS // LOG_EVERY
+            or not all(math.isfinite(x) for x in losses)
+            or [r["step"] for r in evals] != [SAVE_EVERY, TRAIN_STEPS]
+            or set(final_eval) != {"loss", "accuracy", "q_mean"}
+            or not all(math.isfinite(v) for v in final_eval.values())):
+        raise AssertionError(f"critic from records: checkpoints {steps}, losses "
+                             f"{losses}, evals {evals}, final {final_eval}")
+    # Every image of the run came through the native codec (or from the
+    # decode cache it filled): at least one epoch of the train shards.
+    if sum(decodes) < min(DATA_RECORDS[0], TRAIN_STEPS * CRITIC_BATCH):
+        raise AssertionError(f"critic from records decoded {decodes} (full, ROI)")
+    log(f"[data] critic from records: train_eval_model on {card_line()}: "
+        f"{TRAIN_STEPS} steps of batch {CRITIC_BATCH} at "
+        f"{CRITIC['image_size']} from {source.shape[0]}x{source.shape[1]} JPEG "
+        f"records (random ROI in train, center ROI in eval), checkpoints "
+        f"{steps}, EMA evals {[round(r['loss'], 6) for r in evals]}, in "
+        f"{wall:.1f}s (records, evals and checkpoints included); losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; codec calls {decodes[0]} "
+        f"full + {decodes[1]} ROI decodes")
+    fed = time_fed_steps(model_dir, model, patterns)
+    busy = ("not measured" if fed["busy"] is None else
+            f"{100 * fed['busy'][1] / fed['busy'][0]:.1f}% of "
+            f"{fed['busy'][0]:.1f} ms")
+    on_card = MEASURED.get("critic_step_ms")
+    log(f"[data] critic train step fed from records on {card_line()}: median "
+        f"{fed['median']:.3f} ms over {TIMED_STEPS} synced steps (min "
+        f"{fed['min']:.3f}, max {fed['max']:.3f}) = {1e3 / fed['median']:.3f} "
+        f"steps/s; device busy {busy} over {PROFILED_FED_STEPS} fed steps; "
+        f"{fed['pinned']} pinned image buffers; the critic phase's step on a "
+        f"batch already on the card: "
+        + (f"{on_card:.3f} ms" if on_card else "not run"))
 
 
 def main() -> int:
@@ -1254,6 +1700,8 @@ def main() -> int:
                 launches["flash_fwd"] = phase_serving(model_dir)
             if "critic" in phases:
                 phase_critic(os.path.join(model_dir, "critic"))
+            if "data" in phases:
+                phase_data(os.path.join(model_dir, "data"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

@@ -5,8 +5,8 @@ every read goes through a typed getter that parses and validates the same
 way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
-(the policy server, the trainer's infeed, the max pool's backward and the
-Grasping44 stem) are declared here.
+(the policy server, the trainer's infeed, the data stack, the max pool's
+backward and the Grasping44 stem) are declared here.
 """
 
 from __future__ import annotations
@@ -18,13 +18,15 @@ from typing import Dict, Optional, Tuple
 __all__ = [
     "FlagSpec",
     "all_flags",
+    "get_bool",
     "get_flag",
     "get_int",
+    "get_optional_int",
     "get_enum",
     "get_str",
 ]
 
-_INT, _ENUM, _STR = "int", "enum", "str"
+_BOOL, _INT, _ENUM, _STR = "bool", "int", "enum", "str"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +35,8 @@ class FlagSpec:
 
     Attributes:
       name: The full environment variable name (T2R_...).
-      kind: 'int', 'enum' (one of `choices`), or 'str'.
+      kind: 'bool' ('0' or '1'), 'int', 'enum' (one of `choices`), or
+        'str'.
       default: The value returned when the variable is unset.
       doc: One-line description of what the gate controls.
       owner: The module that consumes the flag.
@@ -52,6 +55,7 @@ class FlagSpec:
 
 _REGISTRY: Dict[str, FlagSpec] = {}
 _SERVER = "tensor2robot_tpu_torch/serving/server.py"
+_DATASET = "tensor2robot_tpu_torch/data/dataset.py"
 
 
 def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
@@ -65,12 +69,75 @@ def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
 
 
 _declare(
+    "T2R_DECODE_CACHE_MB",
+    _INT,
+    512,
+    "Decoded-image cache byte budget in MB; 0 disables the cache.",
+    "tensor2robot_tpu_torch/data/wire.py",
+    minimum=0,
+)
+_declare(
+    "T2R_DECODE_ROI",
+    _BOOL,
+    True,
+    "Honor decode-time ROI crops; 0 restores full-frame decode exactly.",
+    _DATASET,
+)
+_declare(
     "T2R_INFEED_DEPTH",
     _INT,
     2,
     "Device-prefetch depth: batches kept in flight ahead of the consumer.",
     "tensor2robot_tpu_torch/train/infeed.py",
     minimum=1,
+)
+_declare(
+    "T2R_MULTI_EVAL_NAME",
+    _STR,
+    None,
+    "Selects the eval dataset for MultiEvalRecordInputGenerator.",
+    "tensor2robot_tpu_torch/data/input_generators.py",
+)
+_declare(
+    "T2R_PARSE_BACKEND",
+    _ENUM,
+    "thread",
+    "Parse worker pool backend.",
+    _DATASET,
+    choices=("thread", "process"),
+)
+_declare(
+    "T2R_PARSE_FAST",
+    _BOOL,
+    True,
+    "Wire-format fast parser (SpecParser stays the per-batch fallback).",
+    _DATASET,
+)
+_declare(
+    "T2R_PARSE_ON_ERROR",
+    _ENUM,
+    "raise",
+    "Data-pipeline behavior on a corrupt record (both the fast parser and "
+    "the SpecParser oracle refuse it): raise kills the consumer with the "
+    "oracle's error; skip drops the bad record(s), counts them in the "
+    "dataset's stats()['records_skipped'] and yields the surviving batch.",
+    _DATASET,
+    choices=("raise", "skip"),
+)
+_declare(
+    "T2R_PARSE_SHM",
+    _BOOL,
+    True,
+    "Process-backend batches return via the shared-memory ring.",
+    _DATASET,
+)
+_declare(
+    "T2R_PARSE_WORKERS",
+    _INT,
+    None,
+    "Parse pool size; 0 = synchronous; unset = min(8, cpu_count).",
+    _DATASET,
+    minimum=0,
 )
 _declare(
     "T2R_POOL_BACKWARD",
@@ -171,6 +238,8 @@ def get_int(name: str) -> int:
         raise TypeError(f"{name} is a {spec.kind} flag, not int")
     raw = _raw(spec)
     if raw is None:
+        if spec.default is None:
+            raise ValueError(f"{name} has no default; use get_optional_int")
         value = int(spec.default)
     else:
         try:
@@ -182,6 +251,38 @@ def get_int(name: str) -> int:
     if spec.minimum is not None:
         value = max(spec.minimum, value)
     return value
+
+
+def get_optional_int(name: str) -> Optional[int]:
+    """An int flag whose unset state means "the caller's default"."""
+    spec = get_flag(name)
+    if spec.kind != _INT:
+        raise TypeError(f"{name} is a {spec.kind} flag, not int")
+    if _raw(spec) is None:
+        return None
+    return get_int(name)
+
+
+def get_bool(name: str) -> bool:
+    """A '0'/'1' flag; anything else fails fast with the flag name."""
+    spec = get_flag(name)
+    if spec.kind != _BOOL:
+        raise TypeError(f"{name} is a {spec.kind} flag, not bool")
+    raw = _raw(spec)
+    if raw is None:
+        return bool(spec.default)
+    if raw not in ("0", "1"):
+        raise ValueError(f"{name} must be '0' or '1', got {raw!r}")
+    return raw == "1"
+
+
+def write_env(name: str, value) -> None:
+    """Sets a declared int flag in this process's environment (a parse
+    process's share of a budget), validated at the write site."""
+    spec = get_flag(name)
+    if spec.kind != _INT:
+        raise TypeError(f"{name} is a {spec.kind} flag, not int")
+    os.environ[spec.name] = str(int(value))
 
 
 def get_enum(name: str) -> str:

@@ -19,6 +19,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from tensor2robot_tpu_torch.data.roi import adjust_spec_for_roi_tensors
 from tensor2robot_tpu_torch.specs import (
     ExtendedTensorSpec,
     TensorSpecStruct,
@@ -60,6 +61,17 @@ class AbstractPreprocessor(abc.ABC):
     def get_out_label_specification(self, mode: str) -> TensorSpecStruct:
         """Spec of the labels this preprocessor produces."""
 
+    def get_decode_rois(self, mode: str):
+        """Optional {in-feature key: data.roi.DecodeROI}: crops the data
+        layer may apply at JPEG-decode time instead of this preprocessor on
+        the card (the pixels are identical; data/roi.py). The input
+        generator hands the map to RecordDataset; `preprocess` then accepts
+        the named features at the source or the cropped shape, and
+        `_preprocess_fn` must not crop again an input that arrives
+        cropped. Base: no ROIs (None)."""
+        del mode
+        return None
+
     @abc.abstractmethod
     def _preprocess_fn(
         self,
@@ -81,9 +93,16 @@ class AbstractPreprocessor(abc.ABC):
         flatten(out-spec)."""
         if mode not in ALL_MODES:
             raise ValueError(f"mode must be one of {ALL_MODES}, got {mode!r}")
+        in_feature_spec = self.get_in_feature_specification(mode)
+        decode_rois = self.get_decode_rois(mode)
+        if decode_rois:
+            # Features named in the decode-ROI map may arrive already
+            # cropped (a ROI-decoding dataset) or at the source shape
+            # (direct feeds, T2R_DECODE_ROI=0): accept exactly those two.
+            in_feature_spec = adjust_spec_for_roi_tensors(
+                in_feature_spec, decode_rois, features)
         packed_features = validate_and_pack(
-            self.get_in_feature_specification(mode), features,
-            ignore_batch=True,
+            in_feature_spec, features, ignore_batch=True,
         )
         packed_labels = None
         if labels is not None:
@@ -157,13 +176,6 @@ class SpecTransformationPreprocessor(NoOpPreprocessor):
         self, spec: TensorSpecStruct, mode: str
     ) -> TensorSpecStruct:
         return spec
-
-    def get_decode_rois(self, mode: str):
-        """Decode-time crops (the JAX package's data/roi.py) are not
-        ported yet (ROADMAP.md A1a): the port always decodes full frames
-        and crops in the preprocessor."""
-        del mode
-        return None
 
     @staticmethod
     def update_spec(spec_struct: TensorSpecStruct, key: str, **overrides) -> None:

@@ -6,9 +6,11 @@ specs, `q_predicted` logits, log-loss against `grasp_success` rewards, CEM
 action tiling in PREDICT, a momentum optimizer with staircase learning-rate
 decay, and EMA parameters.
 
-The infeed carries uint8 source images (512x640 at the full 472x472 width);
-the crop, the conversion to float and the photometric distortion run on
-the device inside the train step, from the step's generator.
+The infeed carries uint8 images: 512x640 sources, or (from a record
+dataset that honors `get_decode_rois`) 472x472 crops cut at decode time.
+The crop of a source, the conversion to float and the photometric
+distortion run on the device inside the train step, from the step's
+generator.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch.data.roi import DecodeROI
 from tensor2robot_tpu_torch.models.abstract_model import MODE_TRAIN
 from tensor2robot_tpu_torch.models.base_models import CriticModel
 from tensor2robot_tpu_torch.preprocessors import image_transformations
@@ -42,10 +45,11 @@ TARGET_SHAPE = (472, 472)
 @dataclasses.dataclass
 class ImageDraws:
     """The random numbers of one train-mode preprocess of a batch: crop
-    offsets (int64 [B] each) and the photometric distortion's draws."""
+    offsets (int64 [B] each; None for images cropped at decode time) and
+    the photometric distortion's draws."""
 
-    ys: torch.Tensor
-    xs: torch.Tensor
+    ys: Optional[torch.Tensor]
+    xs: Optional[torch.Tensor]
     photometric: image_transformations.PhotometricDraws
 
 
@@ -53,7 +57,14 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
     """uint8 source -> crop (random in train with a generator, center
     otherwise) -> float [0, 1] -> photometric distortion (train with a
     generator only). The source is the model's image plus 40 rows and 168
-    columns (512x640 for 472x472)."""
+    columns (512x640 for 472x472).
+
+    The crop is also published as a decode-time ROI (`get_decode_rois`):
+    a record dataset then decodes only the crop window, the image arrives
+    at the target shape, and this preprocessor does not crop it again.
+    Its random offsets then come from the dataset's seeded numpy
+    generator, not from the step's; the distortion still draws from the
+    step's generator."""
 
     def _target_shape(self) -> Tuple[int, int]:
         model_image = self._model.get_feature_specification(MODE_TRAIN)["state/image"]
@@ -70,13 +81,25 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
         )
         return spec
 
+    def get_decode_rois(self, mode):
+        th, tw = self._target_shape()
+        return {"state/image": DecodeROI(
+            th, tw, mode="random" if mode == MODE_TRAIN else "center")}
+
+    def _cropped(self, images_shape) -> bool:
+        """Whether a batch arrives cropped at decode time."""
+        return tuple(images_shape[1:3]) == self._target_shape()
+
     def draw(self, generator: torch.Generator, images_shape, device) -> ImageDraws:
-        """A batch's draws from `generator`: the crop offsets, then the
-        distortion (a test replaces this with the JAX package's draws)."""
-        ys, xs = image_transformations.draw_random_crop_offsets(
-            generator, images_shape[0], images_shape[1:3],
-            self._target_shape(), device,
-        )
+        """A batch's draws from `generator`: the crop offsets (none for a
+        batch cropped at decode time), then the distortion (a test
+        replaces this with the JAX package's draws)."""
+        ys = xs = None
+        if not self._cropped(images_shape):
+            ys, xs = image_transformations.draw_random_crop_offsets(
+                generator, images_shape[0], images_shape[1:3],
+                self._target_shape(), device,
+            )
         target = (images_shape[0],) + self._target_shape() + (images_shape[3],)
         photometric = image_transformations.draw_photometric_distortions(
             generator, target, device
@@ -86,16 +109,19 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
     def _preprocess_fn(self, features, labels, mode, generator):
         image = features["state/image"]
         target = self._target_shape()
+        cropped = self._cropped(tuple(image.shape))
         if mode == MODE_TRAIN and generator is not None:
             draws = self.draw(generator, tuple(image.shape), image.device)
-            image = image_transformations.crop_image_batch_at(
-                image, draws.ys, draws.xs, target)
+            if not cropped:
+                image = image_transformations.crop_image_batch_at(
+                    image, draws.ys, draws.xs, target)
             image = image_transformations.uint8_to_float(image)
             image = image_transformations.apply_photometric_image_distortions(
                 None, image, draws=draws.photometric)
         else:
             # No generator, no randomness: the deterministic center crop.
-            image = image_transformations.center_crop_image_batch(image, target)
+            if not cropped:
+                image = image_transformations.center_crop_image_batch(image, target)
             image = image_transformations.uint8_to_float(image)
         features["state/image"] = image
         return features, labels

@@ -15,6 +15,8 @@ from tensor2robot_tpu_torch.specs.utils import (
     flatten_spec_structure,
     make_constant_numpy,
     make_random_numpy,
+    pad_or_clip_tensor_to_spec_shape,
+    parse_dtype,
     validate_and_flatten,
     validate_and_pack,
 )

@@ -9,8 +9,8 @@
   * `make_random_numpy` generates spec-conforming fixtures, the basis of
     the server's bucket prewarm batches and the tests.
 
-Port of tensor2robot_tpu/specs/utils.py (the subset the serving path and
-its tests use).
+Port of tensor2robot_tpu/specs/utils.py (the subset the serving path, the
+parsers and their tests use).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from collections import abc as cabc
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from tensor2robot_tpu_torch.specs.spec import (
     ExtendedTensorSpec,
@@ -293,3 +294,35 @@ def make_constant_numpy(
         shape = _resolve_shape(spec, batch_size, sequence_length)
         out[key] = np.full(shape, constant_value, dtype=numpy_dtype(spec.dtype))
     return out
+
+
+# -- parsing helpers ----------------------------------------------------------
+
+
+def parse_dtype(spec: ExtendedTensorSpec) -> np.dtype:
+    """The numpy dtype a parser fills for `spec`. numpy has no bfloat16
+    (the JAX package takes it from ml_dtypes, which the port does not
+    use): a bfloat16 spec parses as float32, as it is stored on disk, and
+    the parsers hand it on as a torch.bfloat16 tensor."""
+    if spec.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return numpy_dtype(spec.dtype)
+
+
+def pad_or_clip_tensor_to_spec_shape(
+    tensor: np.ndarray, spec: ExtendedTensorSpec
+) -> np.ndarray:
+    """Pads (with varlen_default_value) or clips a parsed varlen tensor to
+    the spec's static length along the first axis."""
+    target = int(spec.shape[0])
+    value = spec.varlen_default_value
+    if value is None:
+        value = 0
+    tensor = np.asarray(tensor)
+    n = tensor.shape[0]
+    if n > target:
+        return tensor[:target]
+    if n < target:
+        pad = np.full((target - n,) + tensor.shape[1:], value, dtype=tensor.dtype)
+        return np.concatenate([tensor, pad], axis=0)
+    return tensor

@@ -1,12 +1,16 @@
-"""chip_smoke.py's training, serving and critic phases, rehearsed on the CPU.
+"""chip_smoke.py's training, serving, critic and data phases, rehearsed on
+the CPU.
 
 The phases run here at a tiny width on the CPU (DEVICE = "cpu"), where
 flash attention takes the kernels' plain versions; those are wrapped to
 count as their kernels would, so the phases' launch checks (B1, B3, B4
 once per layer per train step, B2 once per layer per eval or served
 batch, none in the critic) are exercised as on the card. The critic runs
-at 96x96 with num_convs (2, 2, 1), width 8 and batch 4. The kernel phase
-needs the card and runs only there.
+at 96x96 with num_convs (2, 2, 1), width 8 and batch 4; the data phase
+writes 8 train records (136x264 JPEG sources, 2 shards) and 4 eval
+records, checks the parsers and the codec (libjpeg here), times
+RecordDataset and trains the critic from the records with 96x96 crops at
+batch 4. The kernel phase needs the card and runs only there.
 """
 
 import importlib.util
@@ -111,4 +115,28 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 
 
 def test_phases_list_the_critic(chip_smoke):
-    assert chip_smoke.PHASES == ("build", "kernels", "training", "serving", "critic")
+    assert chip_smoke.PHASES == (
+        "build", "kernels", "training", "serving", "critic", "data")
+
+
+def test_data_phase(chip_smoke, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "DATA_RECORDS", (8, 2, 4))
+    monkeypatch.setattr(chip_smoke, "DATA_BATCHES", 2)
+    monkeypatch.setattr(chip_smoke, "PROFILED_FED_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "MEASURED", {"critic_step_ms": 12.5})
+    chip_smoke.phase_data(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[build] data: JPEG codec libjpeg",
+                 "[data] wrote 8 train records in 2 shards and 4 eval records "
+                 "(136x264 q95 JPEG by libjpeg",
+                 "FastSpecParser == SpecParser bit for bit",
+                 "libjpeg q95 round trip of 8 frames",
+                 "[data] libjpeg alone on CPU rehearsal:", "ROI decode (one thread",
+                 "[data] thread backend, ROI on (96x96 images), batch 4",
+                 "[data] thread backend, ROI off (136x264 images)",
+                 "[data] process backend, ROI on", "[data] process backend, ROI off",
+                 "[data] critic from records: train_eval_model on CPU rehearsal: "
+                 "20 steps of batch 4", "checkpoints [10, 20]",
+                 "[data] critic train step fed from records",
+                 "on the card: 12.500 ms"):
+        assert line in out, line

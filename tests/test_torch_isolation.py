@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no JAX package, no library attention, and
-the card by default.
+"""The port stands alone: no JAX, no JAX package, no protobuf or PIL, no
+library attention, no native library of the JAX package, and the card by
+default.
 
 The import check runs in a SUBPROCESS: blocking jax in this process would
 break every JAX test that later shares the pytest worker.
@@ -19,7 +20,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "tensor2robot_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensor2robot_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensor2robot_tpu",
+             "google", "PIL")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,6 +72,17 @@ def test_no_library_attention_or_compile(path):
         )
         if compile_call or (sdpa and path.name != "chip_smoke.py"):
             pytest.fail(f"{path}:{node.lineno} uses .{node.attr}")
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES + sorted((PACKAGE / "data" / "csrc").glob("*.cc")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_native_library_of_the_jax_package(path):
+    """The port builds its own native sources (data/csrc) into build/: no
+    file names the JAX package's native directory or its libraries."""
+    text = path.read_text()
+    for name in ("tensor2robot_tpu/native", "libt2r_io", "libt2r_jpeg"):
+        assert name not in text, f"{path} names {name}"
 
 
 def test_imports_with_jax_blocked_in_a_subprocess():

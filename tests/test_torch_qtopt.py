@@ -4,8 +4,11 @@ The JAX golden gate's run (tools/make_qtopt_golden.py: the 96x96 critic
 with num_convs=(2, 2, 1), batch 4, two train steps of CompiledModel over
 tests/golden/qtopt_train.tfrecord, init PRNGKey(0), step key
 PRNGKey(123)) is made here once; its init variables go through the
-converter (utils/jax_params.py) into the port's Trainer, which trains on
-the same numpy batches with each step's preprocessing draws (the random
+converter (utils/jax_params.py) into the port's Trainer. The port reads
+the same record through its own DefaultRecordInputGenerator (decode-time
+ROI off, so the batches carry the full sources as the JAX run's do), its
+batches must equal the JAX run's byte for byte, and it trains on them
+with each step's preprocessing draws (the random
 crop and the photometric distortion of JAX's rng_pre = split(fold_in(
 PRNGKey(123), step))[0]) injected. Then:
 
@@ -45,6 +48,7 @@ from tests.test_torch_image_transformations import (
 )
 from tensor2robot_tpu_torch.data.input_generators import (
     DefaultRandomInputGenerator,
+    DefaultRecordInputGenerator,
 )
 from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
     Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom as Critic,
@@ -152,10 +156,34 @@ def _port_batch(batch):
     return out
 
 
+def _port_record_batches(model, count):
+    """The golden record through the port's own record generator, as the
+    JAX run reads it (seed 11, no shuffle buffer, synchronous parse), with
+    decode-time ROI off so the batches carry the full sources."""
+    from tools import make_qtopt_golden as golden
+
+    generator = DefaultRecordInputGenerator(
+        file_patterns=golden.RECORD_PATH, batch_size=golden.BATCH,
+        shuffle_buffer_size=0, seed=11, num_parse_workers=0, prefetch_depth=0)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setenv("T2R_DECODE_ROI", "0")
+        generator.set_specification_from_model(model, "train")
+        batches = iter(generator.create_dataset("train"))
+        return [next(batches) for _ in range(count)]
+
+
 @pytest.fixture(scope="module")
 def port_run(jax_run):
     model = _GoldenCritic(image_size=jax_run["image_size"],
                           num_convs=jax_run["num_convs"])
+    batches = _port_record_batches(model, len(jax_run["batches"]))
+    for got, want in zip(batches, jax_run["batches"]):
+        assert set(got.keys()) == {f"{group}/{key}" for group in ("features", "labels")
+                                   for key in want[group]}
+        for group in ("features", "labels"):
+            for key, value in want[group].items():
+                np.testing.assert_array_equal(np.asarray(got[f"{group}/{key}"]), value,
+                                              err_msg=key)
     trainer = train_eval.Trainer(model, device="cpu")
     state = trainer.init_state(
         params=jax_params.flax_variables_to_state_dict(jax_run["init"]))
@@ -167,8 +195,8 @@ def port_run(jax_run):
     ])
     trainer.preprocessor.draw = lambda generator, shape, device: next(draws)
     steps = []
-    for batch in jax_run["batches"]:
-        metrics = trainer.train_step(state, _port_batch(batch))
+    for batch in batches:
+        metrics = trainer.train_step(state, to_device(batch, "cpu"))
         steps.append({k: metrics[k].numpy() for k in ("loss", "golden/q_predicted")})
     return steps, state
 
