@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,data]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,data]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -43,7 +43,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                 episodes; every reply must be finite, [1024, 7], equal
                 within tolerance to the same weights served with the plain
                 (einsum) attention, and B2 launched once per layer per
-                served batch.
+                served batch. The training phase's train_eval_model also
+                exports (create_default_exporters, warmup ladder (1, 2, 4,
+                8)) after each eval: latest/ and best/ versions, each timed
+                and sized, each with its torch.export program.
   5. critic   — the QT-Opt Grasping44 critic at the flagship's full width
                 (472x472 crops of uint8 512x640x3 sources, num_convs
                 (6, 6, 3), width 64, batch 64, momentum, EMA 0.9999,
@@ -64,7 +67,22 @@ Phases, each fatal on failure (exit code 1, no result line):
                 achieved TFLOP/s against an analytic flop count. The
                 critic runs no kernel of the port (its convolutions are
                 cuDNN's, its pools and batch norms plain torch).
-  6. data     — the data stack: builds the native TFRecord codec and the
+  6. export   — serves the training phase's step-10 export with no model
+                code: ExportedSavedModelPredictor loads the program (B2 as
+                the t2r_torch::flash_fwd operator), PolicyServer takes its
+                ladder and warmup requests from the export and prewarms
+                every bucket; 4 clients x 6 episodes, every reply within
+                1e-4 of einsum attention at the same step and B2 launched
+                4 x batches; then a hot swap to the step-20 export under
+                traffic (versions never go back for a client, each reply
+                equals its own version's einsum action, the last replies
+                are step 20, the incoming version prewarms every bucket
+                first); an int8 export of step 20 (within 0.05 of the f32
+                export's actions, files under half the f32 sizes); and the
+                critic phase's step-20 EMA weights exported at full width
+                and served for 8 requests within 1e-5 of
+                CheckpointPredictor, launching no kernel.
+  7. data     — the data stack: builds the native TFRecord codec and the
                 JPEG codec (libjpeg where the host has jpeglib.h, else
                 nvJPEG; the line names it) with g++, writes 512 train
                 records in 4 shards and 64 eval records of the critic's
@@ -103,7 +121,7 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "training", "serving", "critic", "data")
+PHASES = ("build", "kernels", "training", "serving", "critic", "export", "data")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -644,6 +662,7 @@ def phase_training(model_dir: str) -> dict:
 
     model = full_width_model(True)
     reset_launches()
+    EXPORTS.clear()
     t0 = time.monotonic()
     final_eval = train_eval_model(
         model,
@@ -652,6 +671,7 @@ def phase_training(model_dir: str) -> dict:
         model_dir=model_dir, max_train_steps=TRAIN_STEPS,
         save_checkpoints_steps=SAVE_EVERY, eval_steps=EVAL_STEPS,
         log_every_steps=LOG_EVERY, device=DEVICE,
+        create_exporters_fn=timed_exporters,
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -678,9 +698,17 @@ def phase_training(model_dir: str) -> dict:
     ):
         raise AssertionError(f"non-finite losses {losses} / eval {final_eval}")
     log(f"[training] train_eval_model on {card_line()}: {TRAIN_STEPS} steps, checkpoints "
-        f"{steps}, in {wall:.1f}s (host data, evals and checkpoints "
-        f"included); losses {', '.join(f'{x:.5f}' for x in losses)}; final "
-        f"eval {final_eval}; launches {launches}")
+        f"{steps}, in {wall:.1f}s (host data, evals, checkpoints and "
+        f"exports included); losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"final eval {final_eval}; launches {launches}")
+    latest = [(e["step"]) for e in EXPORTS if e["exporter"] == "latest"]
+    if latest != [SAVE_EVERY, TRAIN_STEPS]:
+        raise AssertionError(f"latest exports at steps {latest}")
+    for e in EXPORTS:
+        log(f"[training] export {e['exporter']} step {e['step']} in "
+            f"{e['seconds']:.2f}s: program {e['program_mb']:.2f} MB, "
+            f"variables {e['variables_mb']:.2f} MB, warmup "
+            f"{e['warmup_mb']:.2f} MB ({e['path']})")
     time_train_step(model_dir)
     return launches
 
@@ -1250,6 +1278,373 @@ def time_critic_step(model_dir: str) -> None:
 # -- the data phase -------------------------------------------------------------
 
 
+# -- export: the BC and critic programs served without model code ------------------
+
+# The training phase's exports, in the order they were written.
+EXPORTS = []
+CRITIC_REQUESTS = 8
+CRITIC_SERVE_TOL = 1e-5
+INT8_TOL = 0.05
+INT8_SIZE_RATIO = 0.5
+
+
+def export_sizes(path: str) -> dict:
+    """MB of an export's program, variables and warmup records."""
+    from tensor2robot_tpu_torch.export import saved_model
+    from tensor2robot_tpu_torch.export.export_generators import (
+        WARMUP_DIR,
+        WARMUP_FILENAME,
+    )
+
+    def mb(file):
+        return os.path.getsize(file) / 1e6 if os.path.exists(file) else 0.0
+
+    return {
+        "program_mb": mb(saved_model.program_path(path)),
+        "variables_mb": mb(os.path.join(path, saved_model.VARIABLES_FILENAME)),
+        "warmup_mb": mb(os.path.join(path, WARMUP_DIR, WARMUP_FILENAME)),
+    }
+
+
+def timed_exporters(model):
+    """create_default_exporters with the serving ladder (best on the eval
+    mse), each export timed and sized into EXPORTS; raises unless every
+    export carries its program."""
+    from tensor2robot_tpu_torch.export import (
+        create_default_exporters,
+        create_valid_result_smaller,
+    )
+    from tensor2robot_tpu_torch.export.saved_model import read_metadata
+
+    exporters = create_default_exporters(
+        model, warmup_batch_sizes=BUCKETS,
+        compare_fn=create_valid_result_smaller("eval/mse"),
+    )
+    for exporter in exporters:
+        def timed(fn=exporter.maybe_export, name=exporter.name, **kwargs):
+            t0 = time.monotonic()
+            path = fn(**kwargs)
+            if path is None:
+                return None
+            seconds = time.monotonic() - t0
+            meta = read_metadata(path)
+            if meta["program"] is not True:
+                raise AssertionError(f"{path}: no program: {meta['program_error']}")
+            EXPORTS.append(dict(exporter=name, step=kwargs["step"], path=path,
+                                seconds=seconds, **export_sizes(path)))
+            return path
+
+        exporter.maybe_export = timed
+    return exporters
+
+
+def install_version(source: str, root: str, version: int) -> str:
+    """Copies an export into `root` as version `version`, renamed into
+    place so a poller never sees it half copied."""
+    import shutil
+
+    tmp = os.path.join(root, f"temp-{version}")
+    shutil.copytree(source, tmp)
+    final = os.path.join(root, str(version))
+    os.replace(tmp, final)
+    return final
+
+
+def run_clients(server, requests, until) -> list:
+    """CLIENTS threads, each submitting request (index + n) % len(requests)
+    one at a time while `until(index, replies so far)` holds; returns
+    (client, episode, latency s, reply time, response) tuples."""
+    replies, errors = [], []
+    lock = threading.Lock()
+
+    def client(index):
+        n = 0
+        try:
+            while True:
+                with lock:
+                    mine = sum(1 for r in replies if r[0] == index)
+                if not until(index, mine):
+                    return
+                episode = (index + n) % len(requests)
+                t_submit = time.monotonic()
+                response = server.call(requests[episode], timeout=300)
+                t_done = time.monotonic()
+                with lock:
+                    replies.append((index, episode, t_done - t_submit, t_done,
+                                    response))
+                n += 1
+        except Exception as err:  # noqa: BLE001 — reported by the caller
+            with lock:
+                errors.append(err)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(CLIENTS)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=900)
+    if errors or any(thread.is_alive() for thread in threads):
+        raise AssertionError(f"client failures: {errors!r}")
+    return replies
+
+
+def check_replies(replies, expected) -> float:
+    """Raises unless every reply is finite, [seq, 7] and within SERVE_TOL
+    of the einsum-attention action of its own version; returns the max
+    abs error."""
+    import numpy as np
+
+    worst = 0.0
+    for _, episode, _, _, response in replies:
+        action = response.outputs["action"]
+        want = expected[response.model_version][episode]
+        if action.shape != (SLICE["seq"], 7) or not np.isfinite(action).all():
+            raise AssertionError(f"bad reply {action.shape}")
+        err = np.abs(action - want)
+        if (err > SERVE_TOL + SERVE_TOL * np.abs(want)).any():
+            raise AssertionError(
+                f"version {response.model_version} reply disagrees with "
+                f"einsum attention: {err.max()}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def p50_ms(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2] * 1e3
+
+
+def phase_export(model_dir: str) -> int:
+    """Serves the training phase's BC exports with no model code (ladder
+    from their metadata, a hot swap under traffic, an int8 export), then
+    exports the critic phase's EMA weights and serves them. Returns the B2
+    launches of the phase."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import (
+        ExportedModel,
+        Exporter,
+        LatestExporter,
+        list_export_dirs,
+    )
+    from tensor2robot_tpu_torch.export.saved_model import read_metadata
+    from tensor2robot_tpu_torch.predictors import (
+        CheckpointPredictor,
+        ExportedSavedModelPredictor,
+    )
+    from tensor2robot_tpu_torch.serving import PolicyServer
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+    )
+
+    steps = (SAVE_EVERY, TRAIN_STEPS)
+    exports = {
+        read_metadata(path)["global_step"]: path
+        for path in list_export_dirs(os.path.join(model_dir, "export", "latest"))
+    }
+    if sorted(exports) != list(steps):
+        raise AssertionError(f"latest exports of steps {sorted(exports)}")
+    root = os.path.join(model_dir, "served")
+    install_version(exports[SAVE_EVERY], root, SAVE_EVERY)
+    predictor = ExportedSavedModelPredictor(export_dir=root, device=DEVICE)
+    t0 = time.monotonic()
+    if not predictor.restore():
+        raise AssertionError("no export to restore")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    spec = predictor.get_feature_specification()
+    episodes = make_random_numpy(spec, batch_size=DISTINCT_EPISODES, seed=1)
+    expected = {}
+    for step in steps:  # the same weights through einsum attention
+        reference = CheckpointPredictor(full_width_model(False), device=DEVICE)
+        reference.load_state_dict(state_lib.load_checkpoint(model_dir, step)["params"])
+        expected[step] = reference.predict(episodes)["action"]
+        del reference
+    torch.cuda.empty_cache()
+    requests = [{k: v[i] for k, v in episodes.items()} for i in range(DISTINCT_EPISODES)]
+
+    total = 0
+    with PolicyServer(predictor, max_wait_ms=20, default_deadline_ms=120_000) as server:
+        reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        torch.cuda.synchronize()
+        prewarm_s = time.monotonic() - t0
+        prewarm = read_launches()
+        snap = server.snapshot()
+        if server.buckets != BUCKETS or snap["warmup_source"] != "export":
+            raise AssertionError(
+                f"ladder {server.buckets} from {snap['warmup_source']}, not "
+                f"the export's {BUCKETS}")
+        if prewarm["flash_fwd"] != NUM_LAYERS * len(BUCKETS) or any(
+                v for k, v in prewarm.items() if k != "flash_fwd"):
+            raise AssertionError(f"prewarm launches {prewarm}")
+        total += prewarm["flash_fwd"]
+        log(f"[export] BC export of step {SAVE_EVERY} restored with no model "
+            f"code on {card_line()}: load + move {load_s:.2f}s, prewarm of "
+            f"{BUCKETS} (ladder from t2r_metadata.json, the export's warmup "
+            f"requests) {prewarm_s:.2f}s; B2 launches {prewarm['flash_fwd']}")
+
+        # Steady state on version 10.
+        reset_launches()
+        before = server.snapshot()["counters"]["batches"]
+        t0 = time.monotonic()
+        replies = run_clients(server, requests,
+                              lambda i, mine: mine < REQUESTS_PER_CLIENT)
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        snap = server.snapshot()
+        batches = snap["counters"]["batches"] - before
+        if {r[4].model_version for r in replies} != {SAVE_EVERY}:
+            raise AssertionError("steady-state replies from another version")
+        worst = check_replies(replies, expected)
+        served = launches.pop("flash_fwd")
+        if served != NUM_LAYERS * batches or any(launches.values()):
+            raise AssertionError(
+                f"B2 launches {served} != {NUM_LAYERS} x {batches} batches, or "
+                f"other kernels launched: {launches}")
+        total += served
+        log(f"[export] served from the export on {card_line()}: "
+            f"{len(replies)} episodes in {wall:.3f}s = {len(replies) / wall:.3f} "
+            f"episodes/s; client p50 {p50_ms([r[2] for r in replies]):.1f} ms; "
+            f"server p50_total {snap['latency_ms']['p50_total']:.1f} ms, "
+            f"p50_compute {snap['latency_ms']['p50_compute']:.1f} ms; batches "
+            f"{batches}; B2 launches {served}; max |action - einsum| {worst:.3e}")
+
+        # Hot swap to version 20 under traffic.
+        swap = {}
+
+        def until(index, mine):
+            if mine >= 2 and index == 0 and "start" not in swap:
+                swap["start"] = time.monotonic()
+                install_version(exports[TRAIN_STEPS], root, TRAIN_STEPS)
+                if not server.hot_swap():
+                    raise AssertionError("hot_swap refused")
+            if "landed" not in swap and predictor.model_version == TRAIN_STEPS:
+                swap["landed"] = time.monotonic()
+                swap["counts"] = {}
+            if "landed" not in swap:
+                return True
+            base = swap["counts"].setdefault(index, mine)
+            return mine < base + 3
+
+        reset_launches()
+        before = server.snapshot()["counters"]["batches"]
+        replies = run_clients(server, requests, until)
+        launches = read_launches()
+        snap = server.snapshot()
+        batches = snap["counters"]["batches"] - before
+        worst = check_replies(replies, expected)
+        for index in range(CLIENTS):
+            versions = [r[4].model_version for r in replies if r[0] == index]
+            if versions != sorted(versions) or set(versions) - set(steps):
+                raise AssertionError(f"client {index} saw versions {versions}")
+            if versions[-1] != TRAIN_STEPS:
+                raise AssertionError(f"client {index} ended on {versions[-1]}")
+        if snap["prewarmed"].get(str(TRAIN_STEPS)) != list(BUCKETS):
+            raise AssertionError(f"version {TRAIN_STEPS} prewarmed {snap['prewarmed']}")
+        served = launches.pop("flash_fwd")
+        if served != NUM_LAYERS * (batches + len(BUCKETS)) or any(launches.values()):
+            raise AssertionError(
+                f"B2 launches {served} != {NUM_LAYERS} x ({batches} batches + "
+                f"{len(BUCKETS)} prewarm predicts), or others: {launches}")
+        total += served
+        landed = swap["landed"]
+        near = [r[2] for r in replies if abs(r[3] - landed) <= 0.5]
+        log(f"[export] hot swap {SAVE_EVERY} -> {TRAIN_STEPS} under traffic: "
+            f"landed {landed - swap['start']:.2f}s after hot_swap(); "
+            f"{len(replies)} replies, versions per client never back, each "
+            f"within {SERVE_TOL} of its version's einsum action (max "
+            f"{worst:.3e}); version {TRAIN_STEPS} prewarmed {BUCKETS} first; "
+            f"B2 launches {served} ({batches} batches + {len(BUCKETS)} prewarm "
+            f"predicts); max reply latency within 0.5s of the swap "
+            f"{max(near) * 1e3 if near else float('nan'):.1f} ms, client p50 "
+            f"{p50_ms([r[2] for r in replies]):.1f} ms")
+    predictor.close()
+    del predictor
+    torch.cuda.empty_cache()
+
+    # int8: an export of step 20 with weight-only int8.
+    trainer = Trainer(full_width_model(True), device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    t0 = time.monotonic()
+    int8_path = Exporter("int8", quantize_weights=True).maybe_export(
+        step=state.step, state=state, eval_metrics={}, compiled=trainer,
+        model_dir=model_dir)
+    int8_s = time.monotonic() - t0
+    del state, trainer
+    reset_launches()
+    f32 = ExportedModel(exports[TRAIN_STEPS], device=DEVICE).predict(episodes)["action"]
+    got = ExportedModel(int8_path, device=DEVICE).predict(episodes)["action"]
+    launches = read_launches()
+    if launches["flash_fwd"] != 2 * NUM_LAYERS:
+        raise AssertionError(f"int8 / f32 predict launches {launches}")
+    total += launches["flash_fwd"]
+    gap = np.abs(got - f32)
+    if (gap > INT8_TOL + INT8_TOL * np.abs(f32)).any():
+        raise AssertionError(f"int8 actions {gap.max()} from the f32 export's")
+    sizes, f32_sizes = export_sizes(int8_path), export_sizes(exports[TRAIN_STEPS])
+    for key in ("program_mb", "variables_mb"):
+        if sizes[key] >= INT8_SIZE_RATIO * f32_sizes[key]:
+            raise AssertionError(f"int8 {key} {sizes[key]} vs f32 {f32_sizes[key]}")
+    log(f"[export] int8 export of step {TRAIN_STEPS} in {int8_s:.2f}s: program "
+        f"{sizes['program_mb']:.2f} MB (f32 {f32_sizes['program_mb']:.2f}), "
+        f"variables {sizes['variables_mb']:.2f} MB (f32 "
+        f"{f32_sizes['variables_mb']:.2f}); max |int8 - f32 action| "
+        f"{gap.max():.3e} (limit {INT8_TOL} abs + rel)")
+    torch.cuda.empty_cache()
+
+    # The critic: its step-20 EMA weights, exported and served.
+    critic_dir = os.path.join(model_dir, "critic")
+    trainer = Trainer(critic_model(), device=DEVICE)
+    state = restore_or_init_state(critic_dir, trainer)
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"critic state at step {state.step}")
+    reset_launches()
+    t0 = time.monotonic()
+    path = LatestExporter("critic").maybe_export(
+        step=state.step, state=state, eval_metrics={}, compiled=trainer,
+        model_dir=critic_dir)
+    critic_export_s = time.monotonic() - t0
+    del state, trainer
+    predictor = ExportedSavedModelPredictor(
+        export_dir=os.path.dirname(path), device=DEVICE)
+    t0 = time.monotonic()
+    predictor.restore()
+    critic_load_s = time.monotonic() - t0
+    batch = make_random_numpy(predictor.get_feature_specification(),
+                              batch_size=CRITIC_REQUESTS, seed=3)
+    got = predictor.predict(batch)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the critic launched flash kernels: {launches}")
+    reference = CheckpointPredictor(critic_model(), checkpoint_dir=critic_dir,
+                                    device=DEVICE)
+    reference.restore()
+    want = reference.predict(batch)
+    if set(got) != set(want):
+        raise AssertionError(f"critic outputs {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for key, value in want.items():
+        err = np.abs(got[key] - value)
+        if (not np.isfinite(got[key]).all() or got[key].shape != value.shape
+                or (err > CRITIC_SERVE_TOL + CRITIC_SERVE_TOL * np.abs(value)).any()):
+            raise AssertionError(f"critic {key}: {err.max()} from the checkpoint's")
+        worst = max(worst, float(err.max()))
+    sizes = export_sizes(path)
+    log(f"[export] critic (EMA of step {TRAIN_STEPS}, {CRITIC['image_size']} "
+        f"crop of uint8 512x640 inside the program) exported in "
+        f"{critic_export_s:.2f}s (program {sizes['program_mb']:.2f} MB, "
+        f"variables {sizes['variables_mb']:.2f} MB), restored in "
+        f"{critic_load_s:.2f}s; {CRITIC_REQUESTS} requests on {card_line()}: "
+        f"max |exported - CheckpointPredictor(EMA)| {worst:.3e} (limit "
+        f"{CRITIC_SERVE_TOL} abs + rel); flash launches {launches}")
+    return total
+
+
 def camera_like_frames(n: int, height: int, width: int, seed: int):
     """Seeded robot-camera-like uint8 frames (bench.py's recipe with torch's
     bilinear resize in place of PIL's): a smooth low-frequency background,
@@ -1651,6 +2046,13 @@ def phase_data(model_dir: str) -> None:
         + (f"{on_card:.3f} ms" if on_card else "not run"))
 
 
+def timed_phase(name: str, fn, *args):
+    t0 = time.monotonic()
+    out = fn(*args)
+    log(f"[done] phase {name} in {time.monotonic() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1689,19 +2091,24 @@ def main() -> int:
         t0 = time.monotonic()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as model_dir:
             if "build" in phases:
-                phase_build()
+                timed_phase("build", phase_build)
             if "kernels" in phases:
-                _, kernels = phase_kernels()
+                _, kernels = timed_phase("kernels", phase_kernels)
             if "training" in phases:
-                launches.update(phase_training(model_dir))
+                launches.update(timed_phase("training", phase_training, model_dir))
             if "serving" in phases:
                 if "training" not in phases:
                     raise ValueError("serving restores the training checkpoint")
-                launches["flash_fwd"] = phase_serving(model_dir)
+                launches["flash_fwd"] = timed_phase("serving", phase_serving, model_dir)
             if "critic" in phases:
-                phase_critic(os.path.join(model_dir, "critic"))
+                timed_phase("critic", phase_critic, os.path.join(model_dir, "critic"))
+            if "export" in phases:
+                if "training" not in phases or "critic" not in phases:
+                    raise ValueError(
+                        "export serves the training and critic phases' weights")
+                launches["flash_fwd"] += timed_phase("export", phase_export, model_dir)
             if "data" in phases:
-                phase_data(os.path.join(model_dir, "data"))
+                timed_phase("data", phase_data, os.path.join(model_dir, "data"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

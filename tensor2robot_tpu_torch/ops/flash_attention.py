@@ -28,10 +28,12 @@ changes only the rounding too.
 
 `flash_attention` dispatches: with grad enabled and any of q/k/v requiring
 grad it runs `FlashAttentionFunction` (B1 forward, B3+B4 backward, as the
-JAX package's custom VJP); otherwise the normalized forward. Each step
-launches its CUDA kernel for CUDA tensors (or raises) and takes its plain
-version for CPU tensors. There is no fallback from a kernel to anything
-else.
+JAX package's custom VJP); otherwise the normalized forward, through the
+operator `t2r_torch::flash_fwd` (`flash_fwd_op`, with a fake for tracing),
+so a `torch.export` program records B2 as one node on either device. Each
+step launches its CUDA kernel for CUDA tensors (or raises) and takes its
+plain version for CPU tensors. There is no fallback from a kernel to
+anything else.
 
 Positions are GLOBAL: q_offset/k_offset shift the causal mask so one call
 can compute one (q-shard x k-shard) tile of a longer sequence. A query row
@@ -797,6 +799,31 @@ class FlashAttentionFunction(torch.autograd.Function):
         return grads + (None,) * 5
 
 
+@torch.library.custom_op("t2r_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    scale: float,
+    q_offset: int,
+    k_offset: int,
+    window: Optional[int],
+) -> torch.Tensor:
+    """B2 as one operator, the entry an exported program records: the
+    kernel for CUDA tensors, its plain version for CPU tensors. A program
+    traced on either device holds this node, so it launches B2 wherever it
+    is moved to the card; a traced ctypes launch would not survive."""
+    fn = flash_fwd_kernel if _on_cuda(q) else flash_attention_plain
+    return fn(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset, window=window).contiguous()
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, q_offset, k_offset, window):
+    return q.new_empty(q.shape)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -809,7 +836,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention over [B, S, H, D]. With grad enabled and any input
     requiring grad: FlashAttentionFunction (B1 forward, B3+B4 backward).
-    Otherwise the normalized forward: B2 for CUDA tensors, its plain
+    Otherwise the normalized forward through the operator
+    `t2r_torch::flash_fwd` (flash_fwd_op): B2 for CUDA tensors, its plain
     version for CPU tensors."""
     _check_window(window, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
@@ -818,6 +846,5 @@ def flash_attention(
         return FlashAttentionFunction.apply(
             q, k, v, causal, scale, q_offset, k_offset, window
         )
-    fn = flash_fwd_kernel if _on_cuda(q) else flash_attention_plain
-    return fn(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-              k_offset=k_offset, window=window)
+    _on_cuda(q)  # refuses a head dim past MAX_HEAD_DIM before a trace does
+    return flash_fwd_op(q, k, v, causal, scale, q_offset, k_offset, window)

@@ -7,9 +7,8 @@ set of served shapes is closed over what the server prewarmed at start
 traffic).
 
 Resolution order for the ladder: explicit constructor argument >
-`T2R_SERVE_BUCKETS` > `(1,)`. Port of tensor2robot_tpu/serving/buckets.py;
-the ladder and warmup batches an export publishes wait for the export
-slice (ROADMAP.md A2).
+`T2R_SERVE_BUCKETS` > the loaded export's `warmup_batch_sizes`
+(t2r_metadata.json) > `(1,)`. Port of tensor2robot_tpu/serving/buckets.py.
 """
 
 from __future__ import annotations
@@ -20,7 +19,13 @@ import numpy as np
 
 from tensor2robot_tpu_torch import flags as t2r_flags
 
-__all__ = ["resolve_buckets", "pick_bucket", "pad_feature_batch"]
+__all__ = [
+    "buckets_from_metadata",
+    "resolve_buckets",
+    "pick_bucket",
+    "pad_feature_batch",
+    "load_warmup_batches",
+]
 
 
 def _normalize(sizes: Sequence[int], source: str) -> Tuple[int, ...]:
@@ -45,12 +50,27 @@ def _flag_buckets() -> Optional[Tuple[int, ...]]:
     return _normalize(sizes, "T2R_SERVE_BUCKETS")
 
 
-def resolve_buckets(explicit: Optional[Sequence[int]]) -> Tuple[int, ...]:
+def buckets_from_metadata(metadata: Optional[Mapping]) -> Optional[Tuple[int, ...]]:
+    """The exporter-published ladder (t2r_metadata.json
+    `warmup_batch_sizes`), or None when the export has none."""
+    sizes = metadata.get("warmup_batch_sizes") if metadata else None
+    if not sizes:
+        return None
+    return _normalize(sizes, "t2r_metadata.json warmup_batch_sizes")
+
+
+def resolve_buckets(
+    explicit: Optional[Sequence[int]],
+    metadata: Optional[Mapping] = None,
+) -> Tuple[int, ...]:
     if explicit is not None:
         return _normalize(explicit, "batch_buckets argument")
     from_flag = _flag_buckets()
     if from_flag is not None:
         return from_flag
+    from_meta = buckets_from_metadata(metadata)
+    if from_meta is not None:
+        return from_meta
     return (1,)
 
 
@@ -82,3 +102,37 @@ def pad_feature_batch(
         values.extend([values[-1]] * pad)
         out[key] = np.stack(values)
     return out
+
+
+def load_warmup_batches(
+    export_dir: str, feature_spec, metadata: Optional[Mapping]
+) -> Dict[int, Dict[str, np.ndarray]]:
+    """Parses `warmup/warmup_requests.tfrecord` back into per-bucket
+    batches, re-chunked by the published `warmup_batch_sizes` (rows are
+    written in ladder order). A missing or foreign warmup file gives {}
+    and the caller synthesizes random batches."""
+    import os
+
+    from tensor2robot_tpu_torch.data.parser import SpecParser
+    from tensor2robot_tpu_torch.data.tfrecord import read_tfrecords
+    from tensor2robot_tpu_torch.export.export_generators import (
+        WARMUP_DIR,
+        WARMUP_FILENAME,
+    )
+    from tensor2robot_tpu_torch.specs import flatten_spec_structure
+
+    path = os.path.join(export_dir, WARMUP_DIR, WARMUP_FILENAME)
+    sizes = metadata.get("warmup_batch_sizes") if metadata else None
+    if not sizes or not os.path.exists(path):
+        return {}
+    records = list(read_tfrecords(path))
+    if len(records) != sum(sizes):
+        return {}  # foreign layout; let the caller synthesize
+    parser = SpecParser(feature_spec)
+    batches: Dict[int, Dict[str, np.ndarray]] = {}
+    offset = 0
+    for size in sizes:
+        batch = parser.parse_batch(records[offset:offset + size])
+        batches[int(size)] = dict(flatten_spec_structure(batch).items())
+        offset += size
+    return batches

@@ -11,25 +11,33 @@ bucket-sized batches:
     incoming one (`T2R_SERVE_OVERLOAD`);
   * a dispatcher thread that coalesces queued requests up to a
     max-wait/max-batch window (`T2R_SERVE_MAX_WAIT_MS`), pads the batch
-    to the smallest fitting bucket (serving/buckets.py) and runs ONE
-    predict per batch; every bucket is prewarmed at start, so no request
-    meets a first-call cost (kernel build, cuDNN algorithm search);
+    to the smallest fitting bucket (serving/buckets.py; the ladder of the
+    loaded export's `warmup_batch_sizes` unless an argument or
+    `T2R_SERVE_BUCKETS` sets one) and runs ONE predict per batch; every
+    bucket is prewarmed at start on the export's own warmup requests (or
+    synthesized batches), so no request meets a first-call cost (kernel
+    build, cuDNN algorithm search);
+  * hot swap: `hot_swap()` rides the predictor's async restore; through
+    `set_restore_prewarm` the incoming version runs every bucket before
+    it is swapped in (a failed prewarm keeps the old version), batches
+    drain on the old version meanwhile, and every response reports the
+    model version that computed it;
   * an optional compute watchdog (`T2R_SERVE_PREDICT_TIMEOUT_MS`);
   * per-request spans and counters (serving/metrics.py) exported as one
     structured `snapshot()`, and typed errors for every failure.
 
 Port of tensor2robot_tpu/serving/server.py. The predictor's `predict` is
-called only from the dispatcher (and from `_prewarm` at start): a predict
-on the submit path would serialize clients behind the model. Export-side
-features — AOT restore tiers, compile caches, quantized regimes and the
-multi-policy `exported_policy_loader` — wait for the export slice
-(ROADMAP.md A2).
+called only from the dispatcher (and from the prewarms): a predict on
+the submit path would serialize clients behind the model. AOT restore
+tiers, compile caches, quantized regimes and the multi-policy
+`exported_policy_loader` are not ported (ROADMAP.md A10).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -233,6 +241,9 @@ class PolicyServer:
         self._buckets: Tuple[int, ...] = ()
         self._spec_checks: List[Tuple] = []
         self._bucket_batches: Dict[int, Dict[str, np.ndarray]] = {}
+        # {version: buckets prewarmed on it}, at start and per swap.
+        self._prewarmed: Dict[str, List[int]] = {}
+        self._warmup_source: Optional[str] = None  # "export" | "synthesized"
         self._metrics = ServerMetrics()
         self._queue: deque = deque()
         self._cond = threading.Condition()
@@ -244,8 +255,9 @@ class PolicyServer:
     # -- lifecycle ------------------------------------------------------------
 
     def start(self, prewarm: bool = True) -> "PolicyServer":
-        """Resolves the bucket ladder, optionally prewarms every bucket
-        (one predict per served shape BEFORE traffic arrives), and starts
+        """Resolves the bucket ladder from the loaded export, optionally
+        prewarms every bucket (one predict per served shape BEFORE traffic
+        arrives), installs the restore prewarm for hot swaps, and starts
         the dispatcher."""
         if self._started:
             raise RuntimeError("PolicyServer.start() called twice")
@@ -254,7 +266,10 @@ class PolicyServer:
                 raise RuntimeError(
                     "predictor restore failed; cannot start the server"
                 )
-        self._buckets = buckets_lib.resolve_buckets(self._explicit_buckets)
+        loaded = getattr(self._predictor, "loaded_model", None)
+        self._buckets = buckets_lib.resolve_buckets(
+            self._explicit_buckets, getattr(loaded, "metadata", None)
+        )
         spec = self._predictor.get_feature_specification()
         # Precompiled validation table: submit() runs per request on the
         # client thread, so the spec walk must not. Dtypes are coerced to
@@ -268,16 +283,12 @@ class PolicyServer:
             self._spec_checks.append(
                 (key, dims, static, len(dims), numpy_dtype(leaf.dtype))
             )
-        self._bucket_batches = {
-            bucket: dict(
-                flatten_spec_structure(
-                    make_random_numpy(spec, batch_size=bucket, seed=0)
-                ).items()
-            )
-            for bucket in self._buckets
-        }
+        self._bucket_batches = self._build_bucket_batches(loaded, spec)
         if prewarm:
             self._prewarm()
+        installer = getattr(self._predictor, "set_restore_prewarm", None)
+        if installer is not None:
+            installer(self._prewarm_restored)
         self._started = True
         self._closed = False
         self._dispatcher = threading.Thread(
@@ -286,10 +297,46 @@ class PolicyServer:
         self._dispatcher.start()
         return self
 
+    def _build_bucket_batches(self, loaded, spec) -> Dict[int, Dict[str, np.ndarray]]:
+        """One spec-conforming batch per bucket: the export's warmup
+        requests where it has them, synthesized random batches otherwise
+        (the shapes are the contract, not the values)."""
+        warmed = {}
+        export_dir = getattr(loaded, "export_dir", None)
+        if export_dir:
+            try:
+                warmed = buckets_lib.load_warmup_batches(
+                    export_dir, spec, getattr(loaded, "metadata", None)
+                )
+            except Exception as err:  # noqa: BLE001 — warmup payloads are
+                # an optimization; synthesized batches warm the same shapes.
+                logging.warning("warmup tfrecord unusable (%s); synthesizing", err)
+        batches = {}
+        for bucket in self._buckets:
+            batch = warmed.get(bucket)
+            if batch is None:
+                batch = dict(flatten_spec_structure(
+                    make_random_numpy(spec, batch_size=bucket, seed=0)
+                ).items())
+            batches[bucket] = batch
+        self._warmup_source = "export" if warmed else "synthesized"
+        return batches
+
     def _prewarm(self) -> None:
         """One predict per bucket before traffic."""
         for bucket in self._buckets:
             self._predictor.predict(self._bucket_batches[bucket])
+        self._prewarmed[str(self._predictor.model_version)] = list(self._buckets)
+
+    def _prewarm_restored(self, loaded, serve) -> None:
+        """Runs on the restore thread before a new version is swapped in:
+        every bucket runs on the incoming version while the old one keeps
+        serving, so the swap never puts a first call in front of traffic.
+        Raising aborts the swap."""
+        for bucket in self._buckets:
+            serve(self._bucket_batches[bucket])
+        version = os.path.basename(str(getattr(loaded, "export_dir", "")).rstrip("/"))
+        self._prewarmed[version] = list(self._buckets)
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stops the dispatcher. drain=True serves everything already
@@ -418,11 +465,16 @@ class PolicyServer:
         snap["max_queue"] = self._max_queue
         snap["max_wait_ms"] = self._max_wait_s * 1e3
         snap["model_version"] = self._predictor.model_version
+        snap["warmup_source"] = self._warmup_source
+        snap["prewarmed"] = dict(list(self._prewarmed.items()))
         return snap
 
     def hot_swap(self, wait: bool = False) -> bool:
-        """Reloads the predictor's newest weights between batches;
-        responses report the model_version that computed them."""
+        """Serves the newest version with no downtime: the predictor
+        reloads (async by default) and prewarms every bucket on it while
+        batches drain on the current version; the swap lands between
+        batches and responses report the model_version that computed
+        them."""
         self._metrics.count("hot_swaps")
         return self._predictor.restore(is_async=not wait)
 

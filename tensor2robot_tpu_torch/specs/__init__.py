@@ -1,5 +1,9 @@
 """Spec system: typed tensor contracts and the flat/hierarchical container."""
 
+from tensor2robot_tpu_torch.specs.proto_io import (
+    read_t2r_assets,
+    write_t2r_assets,
+)
 from tensor2robot_tpu_torch.specs.spec import (
     ExtendedTensorSpec,
     canonical_dtype,

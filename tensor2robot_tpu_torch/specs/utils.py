@@ -121,8 +121,11 @@ def assert_equal_spec_or_tensor(
         tensor, "shape"
     ):
         tensor = np.asarray(tensor)
+    # A symbolic dim (a torch.export trace's batch) stays symbolic: int()
+    # would pin it to the example's size.
     tensor_shape = tuple(
-        None if d is None else int(d) for d in tuple(tensor.shape)
+        d if d is None or isinstance(d, torch.SymInt) else int(d)
+        for d in tuple(tensor.shape)
     )
     spec_shape = tuple(spec.shape)
     if isinstance(tensor, ExtendedTensorSpec):

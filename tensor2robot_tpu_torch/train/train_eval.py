@@ -18,12 +18,14 @@ autograd, B2 under inference_mode in eval and predict).
 checkpoint under `<model_dir>/checkpoints/` (skipping the batches the
 restored steps consumed), logs scalars to `<model_dir>/train/
 metrics.jsonl`, checkpoints every `save_checkpoints_steps` and evaluates
-each named eval set into `<model_dir>/eval[_<name>]/metrics.jsonl`.
+each named eval set into `<model_dir>/eval[_<name>]/metrics.jsonl`. With
+`create_exporters_fn`, each exporter it returns (export/exporters.py) is
+asked to export after every eval, with that eval's metrics, under
+`<model_dir>/export/<name>/`.
 
 Regimes not ported raise NotImplementedError naming their ROADMAP.md item:
 mesh / plan / weight-update sharding / flattened optimizer update (A9),
-remat, gradient accumulation and multi-step loops (A4), hooks and
-exporters (A5, A2).
+remat, gradient accumulation and multi-step loops (A4), hooks (A5).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 def _reject_unported(
     mesh=None, plan=None, remat=False, grad_accum_steps=1,
     shard_weight_update=False, flatten_optimizer_update=False,
-    iterations_per_loop=1, hook_builders=None, create_exporters_fn=None,
+    iterations_per_loop=1, hook_builders=None,
 ) -> None:
     if (mesh is not None or plan is not None or shard_weight_update
             or flatten_optimizer_update):
@@ -67,10 +69,6 @@ def _reject_unported(
         )
     if hook_builders:
         raise NotImplementedError("hook_builders are not ported yet (ROADMAP.md A5)")
-    if create_exporters_fn is not None:
-        raise NotImplementedError(
-            "create_exporters_fn is not ported yet (ROADMAP.md A2)"
-        )
 
 
 def _batch_labels(batch):
@@ -325,7 +323,6 @@ def train_eval_model(
     the newest checkpoint in model_dir if there is one."""
     _reject_unported(
         iterations_per_loop=iterations_per_loop, hook_builders=hook_builders,
-        create_exporters_fn=create_exporters_fn,
     )
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
@@ -356,6 +353,9 @@ def train_eval_model(
         # stream from batch 0, so skip the batches already consumed.
         host_batches = itertools.islice(host_batches, start_step, None)
 
+    exporters = (
+        create_exporters_fn(t2r_model) if create_exporters_fn is not None else []
+    )
     writer = MetricsWriter(os.path.join(model_dir, "train"))
     eval_writers = {
         name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
@@ -380,10 +380,16 @@ def train_eval_model(
             state.optimizer.state_dict(), keep_checkpoint_max,
         )
         last_saved_step = step
-        return run_named_evals(
+        eval_metrics = run_named_evals(
             trainer, state, eval_generators, eval_steps=eval_steps,
             use_ema=use_ema_for_eval, step=step, writers=eval_writers,
         )
+        for exporter in exporters:
+            exporter.maybe_export(
+                step=step, state=state, eval_metrics=eval_metrics,
+                compiled=trainer, model_dir=model_dir,
+            )
+        return eval_metrics
 
     try:
         for batch in infeed.device_prefetch(

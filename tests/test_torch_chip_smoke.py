@@ -116,7 +116,38 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
-        "build", "kernels", "training", "serving", "critic", "data")
+        "build", "kernels", "training", "serving", "critic", "export", "data")
+
+
+def test_export_phase(chip_smoke, tmp_path, monkeypatch, capsys):
+    """Training writes latest/best exports at steps 10 and 20 (program
+    true); the export phase serves step 10 with no model code (ladder from
+    the metadata), swaps to 20 under traffic, checks an int8 export and
+    serves the critic's exported EMA weights against its checkpoint."""
+    # At 32 wide the program's graph outweighs its weights: int8 must only
+    # be smaller here (the card's full width holds it under half).
+    monkeypatch.setattr(chip_smoke, "INT8_SIZE_RATIO", 1.0)
+    chip_smoke.phase_training(str(tmp_path))
+    assert [e["step"] for e in chip_smoke.EXPORTS if e["exporter"] == "latest"] == [10, 20]
+    chip_smoke.phase_critic(str(tmp_path / "critic"))
+    launches = chip_smoke.phase_export(str(tmp_path))
+    assert launches > 0 and launches % 2 == 0
+    out = capsys.readouterr().out
+    for line in ("[training] export latest step 10", "[training] export latest step 20",
+                 "[export] BC export of step 10 restored with no model code",
+                 "[export] served from the export on CPU rehearsal: 24 episodes",
+                 "[export] hot swap 10 -> 20 under traffic",
+                 "[export] int8 export of step 20",
+                 "[export] critic (EMA of step 20"):
+        assert line in out, line
+
+
+def test_export_needs_training_and_critic(chip_smoke, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr("sys.argv", ["chip_smoke.py", "--phases", "critic,export"])
+    monkeypatch.setattr(chip_smoke, "phase_critic", lambda model_dir: None)
+    assert chip_smoke.main() == 1
+    assert '"ok"' not in capsys.readouterr().out
 
 
 def test_data_phase(chip_smoke, tmp_path, monkeypatch, capsys):

@@ -357,3 +357,172 @@ class TestCheckpoints:
         assert pred.restore() is False
         with pytest.raises(ValueError, match="no model loaded"):
             pred.predict({})
+
+
+class TestExportLadder:
+    CASES = {
+        "argument": dict(explicit=[8, 3], flag="2,1", meta=[1, 4]),
+        "flag": dict(explicit=None, flag="2,1", meta=[1, 4]),
+        "metadata": dict(explicit=None, flag=None, meta=[4, 1, 2]),
+        "default": dict(explicit=None, flag=None, meta=[]),
+        "no_metadata": dict(explicit=None, flag=None, meta=None),
+    }
+
+    @pytest.mark.parametrize("case", list(CASES))
+    def test_resolution_order_matches_jax(self, monkeypatch, case):
+        """argument > T2R_SERVE_BUCKETS > the export's warmup_batch_sizes
+        > (1,), as the JAX package resolves it."""
+        kw = self.CASES[case]
+        monkeypatch.delenv("T2R_SERVE_BUCKETS", raising=False)
+        if kw["flag"] is not None:
+            monkeypatch.setenv("T2R_SERVE_BUCKETS", kw["flag"])
+        metadata = None if kw["meta"] is None else {"warmup_batch_sizes": kw["meta"]}
+        got = buckets.resolve_buckets(kw["explicit"], metadata)
+        assert got == jax_buckets.resolve_buckets(kw["explicit"], metadata)
+        assert buckets.buckets_from_metadata(metadata) == (
+            jax_buckets.buckets_from_metadata(metadata or {}))
+
+
+@pytest.fixture(scope="module")
+def exports(tmp_path_factory):
+    """Two export versions (weights of seeds 1 and 2) with ladder (1, 2, 4)
+    and warmup requests, and a reference predictor per version."""
+    from tensor2robot_tpu_torch.export import (
+        DefaultExportGenerator,
+        save_exported_model,
+    )
+
+    model = _model()
+    generator = DefaultExportGenerator()
+    generator.set_specification_from_model(model)
+    out = {}
+    for seed in (1, 2):
+        state = model.init_network(
+            torch.Generator().manual_seed(seed), "cpu").state_dict()
+        path = save_exported_model(
+            str(tmp_path_factory.mktemp(f"v{seed}")), variables=state,
+            feature_spec=generator.serving_input_spec(), global_step=seed,
+            serving_module=generator.create_serving_fn(state, device=torch.device("cpu")),
+            example_features=generator.create_example_features(),
+            metadata={"warmup_batch_sizes": [1, 2, 4]},
+        )
+        generator.create_warmup_requests_numpy((1, 2, 4), path)
+        reference = CheckpointPredictor(_model(), device="cpu")
+        reference.load_state_dict(state)
+        out[seed] = (path, reference)
+    return out
+
+
+def _install(exports, root, seed, version):
+    import os
+    import shutil
+
+    tmp = os.path.join(root, f"temp-{version}")
+    shutil.copytree(exports[seed][0], tmp)
+    os.replace(tmp, os.path.join(root, str(version)))
+
+
+class TestServingExports:
+    def test_ladder_and_warmup_batches_come_from_the_export(self, exports, tmp_path,
+                                                            monkeypatch):
+        from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+
+        monkeypatch.delenv("T2R_SERVE_BUCKETS", raising=False)
+        _install(exports, tmp_path, 1, 10)
+        predictor = ExportedSavedModelPredictor(str(tmp_path), device="cpu")
+        seen = []
+        original = predictor.predict
+
+        def spy(features):
+            seen.append({k: np.array(v) for k, v in features.items()})
+            return original(features)
+
+        predictor.predict = spy
+        with PolicyServer(predictor) as server:
+            server.start()
+            assert server.buckets == (1, 2, 4)
+            snap = server.snapshot()
+            assert snap["warmup_source"] == "export"
+            assert snap["prewarmed"] == {"10": [1, 2, 4]}
+        warmup = buckets.load_warmup_batches(
+            exports[1][0], predictor.get_feature_specification(),
+            {"warmup_batch_sizes": [1, 2, 4]})
+        assert [s["gripper_pose"].shape[0] for s in seen] == [1, 2, 4]
+        for batch, size in zip(seen, (1, 2, 4)):
+            for key in batch:
+                np.testing.assert_array_equal(batch[key], warmup[size][key])
+
+    def test_missing_warmup_file_synthesizes(self, exports, tmp_path, monkeypatch):
+        import shutil
+
+        from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+
+        monkeypatch.delenv("T2R_SERVE_BUCKETS", raising=False)
+        _install(exports, tmp_path, 1, 10)
+        shutil.rmtree(tmp_path / "10" / "warmup")
+        predictor = ExportedSavedModelPredictor(str(tmp_path), device="cpu")
+        with PolicyServer(predictor, batch_buckets=(2,)) as server:
+            server.start()
+            assert server.buckets == (2,)
+            assert server.snapshot()["warmup_source"] == "synthesized"
+
+    def test_hot_swap_under_traffic(self, exports, tmp_path, monkeypatch):
+        """Clients keep sending while version 20 lands: every reply comes
+        from version 10 or 20, a client never sees the version go back,
+        each reply equals its own version's predict, the last replies are
+        20, and version 20 ran every bucket before it served."""
+        from tensor2robot_tpu_torch.predictors import (
+            ExportedSavedModelPredictor,
+            exported_savedmodel_predictor,
+        )
+
+        monkeypatch.delenv("T2R_SERVE_BUCKETS", raising=False)
+        monkeypatch.setattr(exported_savedmodel_predictor, "POLL_SECONDS", 0.05)
+        _install(exports, tmp_path, 1, 10)
+        predictor = ExportedSavedModelPredictor(str(tmp_path), device="cpu")
+        spec_batch = make_random_numpy(_model().preprocessor.get_in_feature_specification(
+            "predict"), batch_size=3, seed=9)
+        requests = [{k: v[i] for k, v in spec_batch.items()} for i in range(3)]
+        expected = {version: exports[seed][1].predict(dict(spec_batch.items()))["action"]
+                    for version, seed in ((10, 1), (20, 2))}
+        replies = {i: [] for i in range(3)}
+        errors, stop = [], threading.Event()
+        swapped_at = []
+
+        def client(index):
+            try:
+                while not stop.is_set() or not swapped_at or (
+                        len(replies[index]) < 3 + swapped_at[0][index]):
+                    response = server.call(requests[index], timeout=60)
+                    replies[index].append(response)
+            except Exception as err:  # noqa: BLE001 — reported below
+                errors.append(err)
+
+        with PolicyServer(predictor, max_wait_ms=2) as server:
+            server.start()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+            for thread in threads:
+                thread.start()
+            while min(len(r) for r in replies.values()) < 2 and not errors:
+                time.sleep(0.01)
+            _install(exports, tmp_path, 2, 20)
+            assert server.hot_swap()
+            deadline = time.monotonic() + 60
+            while predictor.model_version != 20 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            swapped_at.append({i: len(r) for i, r in replies.items()})
+            stop.set()
+            for thread in threads:
+                thread.join(timeout=120)
+            snap = server.snapshot()
+        assert not errors and predictor.model_version == 20
+        assert snap["prewarmed"] == {"10": [1, 2, 4], "20": [1, 2, 4]}
+        assert snap["counters"]["hot_swaps"] == 1
+        for index, rows in replies.items():
+            versions = [r.model_version for r in rows]
+            assert set(versions) <= {10, 20} and versions == sorted(versions)
+            assert versions[0] == 10 and versions[-1] == 20
+            for response in rows:
+                np.testing.assert_allclose(
+                    response.outputs["action"], expected[response.model_version][index],
+                    atol=TOL, rtol=TOL)

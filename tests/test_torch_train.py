@@ -24,6 +24,7 @@ from tensor2robot_tpu_torch import flags
 from tensor2robot_tpu_torch.data.input_generators import (
     DefaultRandomInputGenerator,
 )
+from tensor2robot_tpu_torch.export import create_default_exporters
 from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
 from tensor2robot_tpu_torch.specs import make_random_numpy
@@ -293,6 +294,46 @@ class TestTrainEvalModel:
         assert len(calls) == SMALL["num_layers"]
 
 
+class TestExporters:
+    def test_one_export_per_eval(self, tmp_path):
+        """create_exporters_fn is called once; each exporter exports after
+        every eval with that eval's metrics, and the exported program
+        serves the checkpoint of its step."""
+        from tensor2robot_tpu_torch.export import (
+            ExportedModel,
+            create_valid_result_smaller,
+            list_export_dirs,
+        )
+
+        calls = []
+
+        def exporters_fn(model):
+            calls.append(model)
+            return create_default_exporters(
+                model, warmup_batch_sizes=(1, 2),
+                compare_fn=create_valid_result_smaller("eval/mse"))
+
+        model, final = _train(tmp_path, 4, create_exporters_fn=exporters_fn)
+        assert len(calls) == 1 and calls[0] is model
+        latest = list_export_dirs(str(tmp_path / "export" / "latest"))
+        loaded = [ExportedModel(path, device="cpu") for path in latest]
+        assert [e.global_step for e in loaded] == [2, 4]
+        evals = read_metrics(str(tmp_path / "eval"))
+        for export, record in zip(loaded, evals):
+            assert export.metadata["eval_metrics"] == {"eval/mse": record["eval/mse"]}
+            assert export.metadata["warmup_batch_sizes"] == [1, 2]
+            assert export.has_program
+        assert loaded[-1].metadata["eval_metrics"] == final
+        best = list_export_dirs(str(tmp_path / "export" / "best"))
+        assert 1 <= len(best) <= 2
+        features = make_random_numpy(loaded[-1].feature_spec, batch_size=2, seed=1)
+        reference = CheckpointPredictor(model, checkpoint_dir=str(tmp_path), device="cpu")
+        assert reference.restore() and reference.model_version == 4
+        np.testing.assert_allclose(
+            loaded[-1].predict(dict(features.items()))["action"],
+            reference.predict(dict(features.items()))["action"], atol=1e-5, rtol=1e-5)
+
+
 class TestUnportedArguments:
     @pytest.mark.parametrize(
         "kw,item",
@@ -303,7 +344,8 @@ class TestUnportedArguments:
             (dict(remat=True), "A4"), (dict(grad_accum_steps=2), "A4"),
             (dict(iterations_per_loop=2), "A4"),
             (dict(hook_builders=[object()]), "A5"),
-            (dict(create_exporters_fn=lambda m: []), "A2"),
+            (dict(create_exporters_fn=lambda m: create_default_exporters(
+                m, serve_quant=("int8",))), "A10"),
         ],
         ids=lambda x: x if isinstance(x, str) else next(iter(x)),
     )
