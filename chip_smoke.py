@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,data]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -82,7 +82,28 @@ Phases, each fatal on failure (exit code 1, no result line):
                 critic phase's step-20 EMA weights exported at full width
                 and served for 8 requests within 1e-5 of
                 CheckpointPredictor, launching no kernel.
-  7. data     — the data stack: builds the native TFRecord codec and the
+  7. policy   — robot-side action selection. (a) The full-width critic
+                (the critic phase's step-20 EMA weights when it ran, else
+                seed 0) exported with action_batch_size 64 through the
+                Exporter and restored with ExportedSavedModelPredictor (no
+                model code): JitCEMPolicy (action_size 10, 64 samples, 3
+                iterations, seed 0) runs the whole CEM loop as one CUDA
+                graph replay per select (replays must equal selects);
+                selects/s and p50/p90 ms; the same loop eagerly on the same
+                noise (best action and Q within 1e-5) and its selects/s;
+                the graph's best Q re-scored through predict (1e-5);
+                CEMPolicy's numpy engine over the same predictor; the
+                64-state predict of the untiled export (calls/s); an int8
+                export under JitCEMPolicy; a second export version restored
+                must rebuild the graph exactly once. (b) The PoseToyEnv
+                loop: run_env with the random policy collects 64 episodes
+                into TFRecords, train_eval_model trains
+                PoseEnvRegressionModel from them with the latest exporter,
+                collect_eval_loop evaluates a RegressionPolicy over the
+                export on 32 episodes (its global step must be the
+                export's), and JitCEMPolicy drives episodes over a
+                PoseEnvContinuousMCModel export. No flash kernel runs.
+  8. data     — the data stack: builds the native TFRecord codec and the
                 JPEG codec (libjpeg where the host has jpeglib.h, else
                 nvJPEG; the line names it) with g++, writes 512 train
                 records in 4 shards and 64 eval records of the critic's
@@ -121,7 +142,8 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "training", "serving", "critic", "export", "data")
+PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
+          "data")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -215,6 +237,28 @@ ROUNDTRIP = {
     "libjpeg": LIBJPEG_ROUNDTRIP,
     "nvjpeg": (LIBJPEG_ROUNDTRIP[0] * 1.5, LIBJPEG_ROUNDTRIP[1] + 32),
 }
+# The policy phase: JitCEMPolicy as the JAX bench's predict leg sizes it
+# (bench.py:954-1100: action_size 10, 64 samples, 3 iterations, seed 0,
+# an export with action_batch_size 64), timed over POLICY_SELECTS selects
+# after warm-up; the eager loop and the numpy engine over fewer. Graph vs
+# eager on the same noise, and the graph's best Q vs the same action
+# re-scored through predict: 1e-5 abs + rel (the same f32 ops in another
+# launch order, or one batch of 64 against another).
+CEM = dict(action_size=10, cem_samples=64, cem_iterations=3, seed=0)
+POLICY_SELECTS = 50
+POLICY_EAGER_SELECTS = 10
+POLICY_NUMPY_SELECTS = 5
+PREDICT_WINDOWS, PREDICT_WINDOW = 5, 5
+POLICY_TOL = 1e-5
+# The PoseToyEnv loop: random-policy episodes collected, train steps of
+# PoseEnvRegressionModel from their records, eval episodes of the trained
+# policy through collect_eval_loop, and episodes of JitCEMPolicy over a
+# PoseEnvContinuousMCModel export.
+POSE_COLLECT = 64
+POSE_TRAIN_STEPS = 40
+POSE_BATCH = 16
+POSE_EVAL = 32
+POSE_CEM_EPISODES = 8
 # Numbers one phase measures for another to print beside its own.
 MEASURED = {}
 
@@ -1645,6 +1689,418 @@ def phase_export(model_dir: str) -> int:
     return total
 
 
+def _percentile_ms(values, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def _timed_selects(policy, state, count):
+    """Per-select wall seconds of `count` SelectAction calls (each ends
+    with the copy of its action to the host, so it is synchronous)."""
+    times = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        policy.SelectAction(state)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _synced_ms(fn, iters: int = 20) -> float:
+    """Mean host ms of `fn` over `iters` calls after two warm-up calls,
+    the card synchronized around them."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _population_batch(state, action, leaves, population):
+    """One state with `action` repeated over the exported population."""
+    import numpy as np
+
+    batch = {key: np.asarray(value)[None] for key, value in state.items()}
+    offset = 0
+    for key, size in leaves:
+        part = np.asarray(action, np.float32)[offset:offset + size]
+        batch[key] = np.repeat(part[None, None], population, axis=1)
+        offset += size
+    return batch
+
+
+def _close(got, want, tol) -> float:
+    """max |got - want|; raises unless within tol abs + rel."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    if not np.all(np.isfinite(got)) or np.any(err > tol + tol * np.abs(want)):
+        raise AssertionError(f"{got} vs {want}: |err| {err.max()} over {tol} abs + rel")
+    return float(err.max())
+
+
+def scaled_params(params, seed: int = 0) -> dict:
+    """Seeded weights of a trained critic's scale in the layout of the
+    state dict `params`: kernels normal * sqrt(2 / fan in), biases and
+    batch-norm means normal * 0.05, batch-norm scales 1 + normal * 0.1,
+    variances uniform in [0.5, 1.5]. The package's init (std 0.01 kernels,
+    zero biases), and a 20-step EMA of it, leave the critic's Q at ~1e-6
+    and flat in the action, where no tolerance means anything."""
+    import torch
+
+    generator = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, value in params.items():
+        value = value.detach().cpu()
+        if not value.is_floating_point():
+            out[key] = value
+            continue
+        normal = torch.randn(value.shape, generator=generator)
+        if key.endswith(".weight") and value.ndim >= 2:
+            out[key] = normal * math.sqrt(2.0 / value[0].numel())
+        elif key.endswith(".weight"):
+            out[key] = 1.0 + 0.1 * normal
+        elif key.endswith(".var"):
+            out[key] = 0.5 + torch.rand(value.shape, generator=generator)
+        else:
+            out[key] = 0.05 * normal
+    return out
+
+
+def _eager_select(policy, state):
+    """The policy's loop run eagerly (no graph) on its own buffers and on
+    the noise its next select draws after `policy.seed()`: the features
+    loaded, the noise drawn, the loop run, the best copied out."""
+    import torch
+
+    from tensor2robot_tpu_torch.ops import cem as cem_ops
+
+    policy._load_features(state)
+    noise = policy._noise
+    generator = torch.Generator(device=noise.device).manual_seed(policy._noise_seed)
+    cem_ops.draw_noise(generator, noise.shape[0], noise.shape[1], noise.shape[2:],
+                       out=noise)
+    best, best_q = policy._run_loop(policy._source)
+    return best.cpu().numpy(), float(best_q)
+
+
+def _check_select(policy, predictor, state, population) -> dict:
+    """One select through the graph against the same loop run eagerly on
+    the same noise, its best Q against its action re-scored through
+    predict, and the Q range of the select's first population (the scale
+    the POLICY_TOL checks are to be read against)."""
+    import numpy as np
+    import torch
+
+    policy.seed(0)
+    action, q = policy.SelectAction(state), policy.last_q
+    eager_action, eager_q = _eager_select(policy, state)
+    leaves = policy._resolve_action_leaves()
+    rescored = predictor.predict(_population_batch(state, action, leaves,
+                                                   population))["q_predicted"]
+    first = torch.clamp(policy._noise[0], policy._low, policy._high)
+    first_q = policy._objective(policy._source, leaves)(first).cpu().numpy()
+    if np.any(np.abs(action) > 1.0) or action.shape != (CEM["action_size"],):
+        raise AssertionError(f"action {action} outside the box")
+    return dict(action=action, q=q,
+                d_action=_close(eager_action, action, POLICY_TOL),
+                d_q=_close(eager_q, q, POLICY_TOL),
+                d_rescore=_close(np.asarray(rescored).reshape(-1)[0], q, POLICY_TOL),
+                first_max=float(first_q.max()), spread=float(np.ptp(first_q)))
+
+
+def policy_critic_cem(model_dir: str) -> None:
+    """JitCEMPolicy over the full-width critic's export: one CUDA graph
+    replay per select, against the eager loop and the numpy engine, the
+    64-state raw predict, an int8 export and a version change."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import Exporter
+    from tensor2robot_tpu_torch.policies import CEMPolicy, JitCEMPolicy, split_action
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom as Critic,
+    )
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    graph = torch.device(DEVICE).type == "cuda"
+    critic_dir = os.path.join(model_dir, "critic")
+    trained = state_lib.latest_checkpoint_step(critic_dir) is not None
+    weights_dir = critic_dir if trained else os.path.join(model_dir, "policy_critic")
+    population = CEM["cem_samples"]
+    exports = {}
+    t0 = time.monotonic()
+    for name, batch, quantize in (("cem", population, False), ("raw", None, False),
+                                  ("cem_int8", population, True)):
+        model = Critic(batch_size=CRITIC_BATCH, action_batch_size=batch, **CRITIC)
+        trainer = Trainer(model, device=DEVICE)
+        state = restore_or_init_state(weights_dir, trainer,
+                                      torch.Generator().manual_seed(0))
+        step = state.step
+        exports[name] = (Exporter(name, quantize_weights=quantize), state, trainer)
+        exports[name][0].maybe_export(step=step, state=state, eval_metrics={},
+                                      compiled=trainer, model_dir=model_dir)
+    export_s = time.monotonic() - t0
+    weights = (f"the critic phase's EMA of step {step}" if trained
+               else "seed 0 (no critic phase)")
+
+    def restored(name):
+        predictor = ExportedSavedModelPredictor(
+            os.path.join(model_dir, "export", name), timeout=0, device=DEVICE)
+        if not predictor.restore():
+            raise AssertionError(f"no {name} export")
+        return predictor
+
+    reset_launches()
+    predictor = restored("cem")
+    spec = predictor.get_feature_specification()
+    state = {k: v[0] for k, v in make_random_numpy(spec, batch_size=1, seed=0).items()
+             if k.startswith("state")}
+    policy = JitCEMPolicy(predictor, **CEM)
+    t0 = time.monotonic()
+    policy.SelectAction(state)
+    build_s = time.monotonic() - t0
+    replays = policy.graph_replays
+    times = _timed_selects(policy, state, POLICY_SELECTS)
+    ran = policy.graph_replays - replays if graph else policy.eager_selects - 1
+    if ran != POLICY_SELECTS or (graph and policy.graph_builds != 1):
+        raise AssertionError(f"{ran} graph replays for {POLICY_SELECTS} selects, "
+                             f"{policy.graph_builds} builds")
+    # The same select on the same noise, through the graph and eagerly.
+    check = _check_select(policy, predictor, state, population)
+    eager_times = []
+    for _ in range(POLICY_EAGER_SELECTS):
+        t0 = time.perf_counter()
+        _eager_select(policy, state)
+        eager_times.append(time.perf_counter() - t0)
+    leaves = policy._resolve_action_leaves()
+    numpy_policy = CEMPolicy(predictor, **CEM)
+    numpy_times = _timed_selects(numpy_policy, state, POLICY_NUMPY_SELECTS)
+    hz = lambda ts: len(ts) / sum(ts)  # noqa: E731
+    log(f"[policy] critic {CRITIC['image_size']} (num_convs {CRITIC['num_convs']}) "
+        f"with {weights}, exported x3 in {export_s:.2f}s; JitCEMPolicy(action_size "
+        f"{CEM['action_size']}, {population} samples, {CEM['cem_iterations']} "
+        f"iterations) on {card_line()}: first select (warm-up + capture) "
+        f"{build_s:.2f}s; {hz(times):.3f} selects/s over {POLICY_SELECTS}, p50 "
+        f"{_percentile_ms(times, 50):.3f} ms, p90 {_percentile_ms(times, 90):.3f} ms; "
+        f"graph replays {ran} = selects, builds {policy.graph_builds}")
+    log(f"[policy] eager loop (same loop, no graph) {hz(eager_times):.3f} selects/s "
+        f"over {POLICY_EAGER_SELECTS}, p50 {_percentile_ms(eager_times, 50):.3f} ms; "
+        f"on the same noise max|d best action| {check['d_action']:.3e}, |d best Q| "
+        f"{check['d_q']:.3e} vs the graph; graph best Q {check['q']:.6e} re-scored "
+        f"through predict: |d| {check['d_rescore']:.3e} (limit {POLICY_TOL} abs + "
+        f"rel); Q range of the first population {check['spread']:.3e}")
+    log(f"[policy] CEMPolicy (numpy engine, {CEM['cem_iterations']} predictor round "
+        f"trips) {hz(numpy_times):.3f} selects/s over {POLICY_NUMPY_SELECTS}, p50 "
+        f"{_percentile_ms(numpy_times, 50):.3f} ms")
+    MEASURED["jit_cem_selects_per_s"] = hz(times)
+
+    raw = restored("raw")
+    features = make_random_numpy(raw.get_feature_specification(), batch_size=population,
+                                 seed=0)
+    raw.predict(features)
+    windows = []
+    for _ in range(PREDICT_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_WINDOW):
+            out = raw.predict(features)
+        windows.append(PREDICT_WINDOW / (time.perf_counter() - t0))
+    q = np.asarray(out["q_predicted"])
+    if q.shape[0] != population or not np.all(np.isfinite(q)):
+        raise AssertionError(f"raw predict q {q.shape}")
+    # What the graph re-runs: each iteration's critic call repeats the
+    # state tower, which the untiled export at one state approximates
+    # (its head scores one action).
+    one = {key: torch.from_numpy(np.asarray(value)[:1]).to(DEVICE)
+           for key, value in features.items()}
+    call_ms = _synced_ms(lambda: predictor.loaded_model.traced_predict(
+        {**policy._inputs, **{key: part[None] for key, part in
+                              split_action(policy._noise[0], leaves).items()}}))
+    tower_ms = _synced_ms(lambda: raw.loaded_model.traced_predict(one))
+    log(f"[policy] {population}-state predict of the untiled critic export on "
+        f"{card_line()}: median {float(np.median(windows)):.3f} calls/s over "
+        f"{PREDICT_WINDOWS} windows of {PREDICT_WINDOW} (best {max(windows):.3f}); "
+        f"one critic call at population {population} {call_ms:.3f} ms, the untiled "
+        f"export at one state (~ the state tower each CEM iteration re-runs) "
+        f"{tower_ms:.3f} ms")
+
+    int8 = restored("cem_int8")
+    int8_policy = JitCEMPolicy(int8, **CEM)
+    actions = [int8_policy.SelectAction(state) for _ in range(5)]
+    int8_ran = int8_policy.graph_replays if graph else int8_policy.eager_selects
+    if int8_ran != 5 or np.any(np.abs(actions) > 1.0) or not np.all(np.isfinite(actions)):
+        raise AssertionError(f"int8: {int8_ran} replays for 5 selects, {actions}")
+    if not int8.loaded_model.metadata.get("weights_int8"):
+        raise AssertionError("the int8 export is not quantized")
+
+    # A second version lands, with weights of a trained critic's scale;
+    # the next select rebuilds the graph once, and the graph, the eager
+    # loop and predict are held to each other where Q varies with the
+    # action.
+    exporter, state_cem, trainer = exports["cem"]
+    scaled = trainer.init_state(params=scaled_params(state_cem.network.state_dict()))
+    exporter.maybe_export(step=state_cem.step + 1, state=scaled, eval_metrics={},
+                          compiled=trainer, model_dir=model_dir)
+    first = predictor.loaded_model
+    if not predictor.restore() or predictor.loaded_model is first:
+        raise AssertionError("the second export version was not restored")
+    builds, replays = policy.graph_builds, policy.graph_replays
+    for _ in range(3):
+        policy.SelectAction(state)
+    if graph and (policy.graph_builds != builds + 1 or policy.graph_replays != replays + 3):
+        raise AssertionError(f"after the version change: builds {policy.graph_builds}, "
+                             f"replays {policy.graph_replays - replays}")
+    second = _check_select(policy, predictor, state, population)
+    if not np.isfinite(second["spread"]) or second["spread"] <= 1e3 * POLICY_TOL * (
+            1.0 + abs(second["first_max"])):
+        raise AssertionError(f"second version: Q range {second['spread']} of the "
+                             f"first population is within reach of the tolerance")
+    if second["q"] < second["first_max"] - POLICY_TOL * (1.0 + abs(second["first_max"])):
+        raise AssertionError(f"best Q {second['q']} below the first population's "
+                             f"{second['first_max']}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the policy phase launched flash kernels: {launches}")
+    log(f"[policy] int8 export under JitCEMPolicy: 5 selects, {int8_ran} graph "
+        f"replays, actions in [-1, 1]; after restore() of a second export version "
+        f"the graph was rebuilt {policy.graph_builds - builds} time(s) and 3 more "
+        f"selects replayed it; flash launches {launches}")
+    log(f"[policy] second version (seeded weights of a trained critic's scale): Q "
+        f"range of the first population {second['spread']:.6e} (max "
+        f"{second['first_max']:.6e}), best Q {second['q']:.6e}; graph vs eager on "
+        f"the same noise max|d best action| {second['d_action']:.3e}, |d best Q| "
+        f"{second['d_q']:.3e}; re-scored through predict |d| "
+        f"{second['d_rescore']:.3e} (limit {POLICY_TOL} abs + rel)")
+
+
+def policy_pose_loop(model_dir: str) -> None:
+    """The PoseToyEnv loop through the port's entry points: random
+    collect into TFRecords, train_eval_model with the latest exporter,
+    one collect_eval_loop cycle of a RegressionPolicy over the export, and
+    JitCEMPolicy over a PoseEnvContinuousMCModel export."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.export import LatestExporter
+    from tensor2robot_tpu_torch.policies import JitCEMPolicy, RegressionPolicy
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.research import pose_env
+    from tensor2robot_tpu_torch.research.run_env import run_env
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, train_eval_model
+    from tensor2robot_tpu_torch.utils.continuous_collect_eval import collect_eval_loop
+    from tensor2robot_tpu_torch.utils.writer import TFRecordReplayWriter
+
+    graph = torch.device(DEVICE).type == "cuda"
+    root = os.path.join(model_dir, "pose")
+    t0 = time.monotonic()
+    random_rewards = run_env(
+        pose_env.PoseToyEnv(seed=1), pose_env.PoseEnvRandomPolicy(seed=2),
+        num_episodes=POSE_COLLECT,
+        episode_to_transitions_fn=functools.partial(
+            pose_env.episode_to_transitions_pose_toy, binary_success_threshold=-1.5),
+        replay_writer=TFRecordReplayWriter(), output_dir=os.path.join(root, "collect"))
+    collect_s = time.monotonic() - t0
+    records = glob.glob(os.path.join(root, "collect", "*.tfrecord"))
+    train_dir = os.path.join(root, "train")
+    t0 = time.monotonic()
+    train_eval_model(
+        pose_env.PoseEnvRegressionModel(),
+        DefaultRecordInputGenerator(file_patterns=records, batch_size=POSE_BATCH, seed=0),
+        model_dir=train_dir, max_train_steps=POSE_TRAIN_STEPS,
+        save_checkpoints_steps=POSE_TRAIN_STEPS, eval_steps=None,
+        create_exporters_fn=lambda model: [LatestExporter("latest")], device=DEVICE)
+    train_s = time.monotonic() - t0
+    predictor = ExportedSavedModelPredictor(
+        os.path.join(train_dir, "export", "latest"), timeout=0, device=DEVICE)
+    policy = RegressionPolicy(predictor)
+    eval_rewards, seen = [], []
+
+    def run_agent_fn(env, policy, num_episodes, output_dir, global_step):
+        seen.append(global_step)
+        eval_rewards.extend(run_env(env, policy, num_episodes=num_episodes))
+
+    t0 = time.monotonic()
+    final = collect_eval_loop(
+        root_dir=os.path.join(root, "robot"), policy=policy, run_agent_fn=run_agent_fn,
+        eval_env=pose_env.PoseToyEnv(seed=9), num_eval=POSE_EVAL,
+        max_steps=POSE_TRAIN_STEPS, idle_sleep_secs=0.0, max_cycles=1)
+    eval_s = time.monotonic() - t0
+    export_step = predictor.loaded_model.global_step
+    if not (final == seen[0] == policy.global_step == export_step == POSE_TRAIN_STEPS):
+        raise AssertionError(f"loop step {final}, run at {seen}, policy "
+                             f"{policy.global_step}, export {export_step}")
+    if len(eval_rewards) != POSE_EVAL or not np.all(np.isfinite(eval_rewards)):
+        raise AssertionError(f"eval rewards {eval_rewards}")
+
+    critic = pose_env.PoseEnvContinuousMCModel(action_batch_size=CEM["cem_samples"])
+    trainer = Trainer(critic, device=DEVICE)
+    LatestExporter("mc").maybe_export(
+        step=0, state=trainer.init_state(torch.Generator().manual_seed(0)),
+        eval_metrics={}, compiled=trainer, model_dir=root)
+    mc = ExportedSavedModelPredictor(os.path.join(root, "export", "mc"), timeout=0,
+                                     device=DEVICE)
+    mc.restore()
+    cem = JitCEMPolicy(mc, action_size=2, cem_samples=CEM["cem_samples"],
+                       cem_iterations=CEM["cem_iterations"], seed=0,
+                       pack_fn=lambda state, context, timestep: {"state/image": state})
+    actions = []
+
+    class _Recorded:
+        def sample_action(self, obs, explore_prob):
+            action, debug = cem.sample_action(obs, explore_prob)
+            actions.append(action)
+            return action, debug
+
+    t0 = time.monotonic()
+    cem_rewards = run_env(pose_env.PoseToyEnv(seed=11), _Recorded(),
+                          num_episodes=POSE_CEM_EPISODES)
+    cem_s = time.monotonic() - t0
+    ran = cem.graph_replays if graph else cem.eager_selects
+    if (ran != POSE_CEM_EPISODES or np.any(np.abs(actions) > 1.0)
+            or not np.all(np.isfinite(cem_rewards))):
+        raise AssertionError(f"pose CEM: {ran} replays, actions {actions}")
+    # One more select's best Q against its action re-scored by predict.
+    obs = pose_env.PoseToyEnv(seed=12).reset()
+    action = cem.SelectAction(obs)
+    rescored = mc.predict(_population_batch(
+        {"state/image": obs}, action, [("action/pose", 2)],
+        CEM["cem_samples"]))["q_predicted"]
+    d_rescore = _close(np.asarray(rescored).reshape(-1)[0], cem.last_q, POLICY_TOL)
+    log(f"[policy] PoseToyEnv on {card_line()}: {POSE_COLLECT} random episodes "
+        f"collected in {collect_s:.2f}s ({POSE_COLLECT / collect_s:.1f} episodes/s, "
+        f"{len(records)} shard); PoseEnvRegressionModel {POSE_TRAIN_STEPS} steps of "
+        f"batch {POSE_BATCH} from the records + latest export in {train_s:.2f}s; "
+        f"collect_eval_loop: {POSE_EVAL} eval episodes of RegressionPolicy at "
+        f"global_step {policy.global_step} (export step {export_step}) in "
+        f"{eval_s:.2f}s ({POSE_EVAL / eval_s:.1f} episodes/s), mean reward "
+        f"{np.mean(eval_rewards):.4f} beside the random policy's "
+        f"{np.mean(random_rewards):.4f}; JitCEMPolicy over the "
+        f"PoseEnvContinuousMCModel export (seed-0 weights): {POSE_CEM_EPISODES} "
+        f"episodes in {cem_s:.2f}s, {ran} graph replays, mean reward "
+        f"{np.mean(cem_rewards):.4f}; its best Q {cem.last_q:.6e} re-scored through "
+        f"predict: |d| {d_rescore:.3e} (limit {POLICY_TOL} abs + rel)")
+
+
+def phase_policy(model_dir: str) -> None:
+    import torch
+
+    policy_critic_cem(model_dir)
+    torch.cuda.empty_cache()
+    policy_pose_loop(model_dir)
+
+
 def camera_like_frames(n: int, height: int, width: int, seed: int):
     """Seeded robot-camera-like uint8 frames (bench.py's recipe with torch's
     bilinear resize in place of PIL's): a smooth low-frequency background,
@@ -2107,6 +2563,8 @@ def main() -> int:
                     raise ValueError(
                         "export serves the training and critic phases' weights")
                 launches["flash_fwd"] += timed_phase("export", phase_export, model_dir)
+            if "policy" in phases:
+                timed_phase("policy", phase_policy, model_dir)
             if "data" in phases:
                 timed_phase("data", phase_data, os.path.join(model_dir, "data"))
         log(f"[done] {time.monotonic() - t0:.1f}s")

@@ -8,10 +8,17 @@ EMA parameters when `use_ema` asks for them, by default when the model
 keeps them (`use_avg_model_params`). Weights can also come from
 `init_randomly` (a seeded generator) or `load_state_dict` (e.g. flax
 params converted by utils/jax_params.py).
+
+A restore reads durable steps only, as the JAX predictor does
+(`latest_durable_step_in`): it walks the steps newest first and skips,
+with a warning naming the file, any that does not load (a torn or
+truncated file under its final name). It serves the newest step that
+loads, or keeps the version it serves when none newer does.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Any, Dict, Mapping, Optional, Union
@@ -87,20 +94,35 @@ class CheckpointPredictor(AbstractPredictor):
             raise ValueError("CheckpointPredictor needs checkpoint_dir to restore.")
         start = time.monotonic()
         while True:
-            step = state_lib.latest_checkpoint_step(self._checkpoint_dir)
-            if step is not None:
-                if step != self._version:
-                    checkpoint = state_lib.load_checkpoint(
-                        self._checkpoint_dir, step
-                    )
-                    params = checkpoint["params"]
-                    if self._use_ema and checkpoint["ema_params"] is not None:
-                        params = {**params, **checkpoint["ema_params"]}
-                    self.load_state_dict(params, version=step)
+            if self._restore_newest_durable():
                 return True
             if time.monotonic() - start > self._timeout:
                 return False
             time.sleep(0.5)
+
+    def _restore_newest_durable(self) -> bool:
+        """Serves the newest step that loads; True when one is served
+        (or the one served is still the newest that loads), False when
+        no step loads."""
+        for step in reversed(state_lib.checkpoint_steps(self._checkpoint_dir)):
+            if step == self._version:
+                return True
+            try:
+                checkpoint = state_lib.load_checkpoint(self._checkpoint_dir, step)
+                params = checkpoint["params"]
+            except Exception as err:  # noqa: BLE001 — any unreadable file
+                # is torn for a reader: never served, never raised on.
+                logging.warning(
+                    "Skipping torn checkpoint %s: %s: %s",
+                    state_lib.checkpoint_path(self._checkpoint_dir, step),
+                    type(err).__name__, err,
+                )
+                continue
+            if self._use_ema and checkpoint["ema_params"] is not None:
+                params = {**params, **checkpoint["ema_params"]}
+            self.load_state_dict(params, version=step)
+            return True
+        return False
 
     def init_randomly(self, generator: Optional[torch.Generator] = None) -> None:
         """Random weights drawn from `generator` (seed 0 when None)."""

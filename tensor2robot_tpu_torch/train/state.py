@@ -10,9 +10,13 @@ Checkpoints live where the JAX trainer keeps them, under
 `<model_dir>/checkpoints/`, one file `<step>.pt` per saved step holding
 {step, params, ema_params, optimizer}; `params` is the network's state
 dict, buffers (batch-norm statistics) included, and `ema_params` covers
-the parameters only. Each is written under a temporary
-name and renamed into place, so a reader never sees a torn file under a
-final name; the directory is pruned to the newest `keep_checkpoint_max`.
+the parameters only. Each is written under a temporary name, fsynced,
+renamed into place and the directory fsynced, so a crash leaves either
+the whole file under its final name or none; the directory is pruned to
+the newest `keep_checkpoint_max`. Readers still skip a final name that
+does not load (predictors/checkpoint_predictor.py): a copy or a disk
+can tear a file after it was written. The JAX package's manifests and
+quarantine sweep (train/durability.py there) are not ported.
 
 The flat (one concatenated vector) EMA layout of the JAX package's
 flatten_optimizer_update regime is not ported (ROADMAP.md A9).
@@ -114,6 +118,14 @@ def latest_checkpoint_step(model_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _fsync_dir(directory: str) -> None:
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def save_checkpoint(
     model_dir: str,
     step: int,
@@ -122,22 +134,27 @@ def save_checkpoint(
     optimizer: Optional[Mapping[str, Any]] = None,
     keep_checkpoint_max: Optional[int] = None,
 ) -> str:
-    """Writes `<model_dir>/checkpoints/<step>.pt` through a temporary name
-    and an atomic rename, then removes all but the newest
-    `keep_checkpoint_max` checkpoints (None keeps all). Returns the path."""
+    """Writes `<model_dir>/checkpoints/<step>.pt` through a temporary name,
+    fsynced before an atomic rename and the directory fsynced after it,
+    then removes all but the newest `keep_checkpoint_max` checkpoints
+    (None keeps all). Returns the path."""
     os.makedirs(checkpoint_dir(model_dir), exist_ok=True)
     path = checkpoint_path(model_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(
-        {
-            "step": int(step),
-            "params": dict(params),
-            "ema_params": None if ema_params is None else dict(ema_params),
-            "optimizer": optimizer,
-        },
-        tmp,
-    )
+    with open(tmp, "wb") as f:
+        torch.save(
+            {
+                "step": int(step),
+                "params": dict(params),
+                "ema_params": None if ema_params is None else dict(ema_params),
+                "optimizer": optimizer,
+            },
+            f,
+        )
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
+    _fsync_dir(checkpoint_dir(model_dir))
     if keep_checkpoint_max is not None:
         for old in checkpoint_steps(model_dir)[:-keep_checkpoint_max]:
             os.remove(checkpoint_path(model_dir, old))

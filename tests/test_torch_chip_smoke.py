@@ -116,7 +116,36 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
-        "build", "kernels", "training", "serving", "critic", "export", "data")
+        "build", "kernels", "training", "serving", "critic", "export", "policy",
+        "data")
+
+
+def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
+    """The policy phase at the critic's CPU width (seed-0 weights: no
+    critic phase ran), fewer selects and a shorter pose loop. On the CPU
+    JitCEMPolicy runs its loop eagerly, so the phase counts eager selects
+    where the card counts graph replays."""
+    monkeypatch.setattr(chip_smoke, "POLICY_SELECTS", 3)
+    monkeypatch.setattr(chip_smoke, "POLICY_EAGER_SELECTS", 2)
+    monkeypatch.setattr(chip_smoke, "POLICY_NUMPY_SELECTS", 1)
+    monkeypatch.setattr(chip_smoke, "PREDICT_WINDOWS", 2)
+    monkeypatch.setattr(chip_smoke, "PREDICT_WINDOW", 1)
+    monkeypatch.setattr(chip_smoke, "POSE_COLLECT", 8)
+    monkeypatch.setattr(chip_smoke, "POSE_TRAIN_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "POSE_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "POSE_EVAL", 4)
+    monkeypatch.setattr(chip_smoke, "POSE_CEM_EPISODES", 2)
+    chip_smoke.phase_policy(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[policy] critic (96, 96) (num_convs (2, 2, 1)) with seed 0",
+                 "graph replays 3 = selects", "[policy] eager loop",
+                 "re-scored through predict", "[policy] CEMPolicy (numpy engine",
+                 "[policy] 64-state predict of the untiled critic export",
+                 "[policy] int8 export under JitCEMPolicy: 5 selects",
+                 "[policy] second version (seeded weights of a trained critic's",
+                 "[policy] PoseToyEnv on CPU rehearsal: 8 random episodes",
+                 "at global_step 2 (export step 2)", "2 graph replays"):
+        assert line in out, line
 
 
 def test_export_phase(chip_smoke, tmp_path, monkeypatch, capsys):

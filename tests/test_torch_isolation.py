@@ -137,3 +137,26 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
     )
     assert result.returncode != 0
     assert '"ok"' not in result.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.config.registry",
+    "tensor2robot_tpu_torch.ops.cem",
+    "tensor2robot_tpu_torch.policies.policies",
+    "tensor2robot_tpu_torch.utils.cross_entropy",
+    "tensor2robot_tpu_torch.utils.writer",
+    "tensor2robot_tpu_torch.utils.image",
+    "tensor2robot_tpu_torch.utils.continuous_collect_eval",
+    "tensor2robot_tpu_torch.research.run_env",
+    "tensor2robot_tpu_torch.research.pose_env.pose_env",
+    "tensor2robot_tpu_torch.research.pose_env.episode_to_transitions",
+    "tensor2robot_tpu_torch.research.pose_env.pose_env_models",
+    "tensor2robot_tpu_torch.research.dql_grasping_lib.tf_modules",
+    "tensor2robot_tpu_torch.layers.vision_layers",
+])
+def test_the_subprocess_import_covers_the_policy_slice(module):
+    """Every module of the policy slice is among those the blocked-jax
+    subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
