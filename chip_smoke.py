@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -120,6 +120,31 @@ Phases, each fatal on failure (exit code 1, no result line):
                 fed step's time and the card's busy share are printed
                 beside the critic phase's step on a batch already on the
                 card.
+  9. cli      — the trainer's command line: (a) in process, one remat +
+                grad_accum_steps 2 step of full-width BC against a plain
+                step on one batch (the BC gradient gate; B1 16, B3 8, B4 8
+                launches exactly), 10 steps at iterations_per_loop 5
+                against 1 (the same gate on the step-10 parameters, cuDNN
+                deterministic) and each regime's synced step time and
+                peak memory (remat's under 0.75 of the plain step's);
+                (b) bin/run_t2r_trainer as a child process
+                training full-width BC for 20 steps (remat, grad-accum 2,
+                5 steps a loop, EMA, checkpoints at 10 and 20) with the
+                six hook builders, beside bin/run_continuous_eval tailing
+                its model_dir (steps 10 and 20 evaluated with B2 and
+                exported): operative_config.gin, step_timing.jsonl, a
+                profiler trace naming B1, B3 and B4, golden_values.npy,
+                the TD3 lagged directory one version behind and a
+                durability manifest per checkpoint; (c) the JAX package's
+                shipped pose_env configs through the three binaries:
+                run_random_collect.gin (64 episodes), run_train_reg.gin at
+                its own width and device_type 'tpu' (the bf16 wrapper),
+                cut from 5000 to 40 steps and from 100 eval batches to 1,
+                and continuous eval over that run. Random-collect rewards
+                are all <= 0, so that run's loss is exactly 0; in
+                process, the same model takes a reward-bearing bf16 step
+                against the f32 step from the same weights, then 4 more
+                that must lower the loss.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -143,7 +168,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data")
+          "data", "cli")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -158,6 +183,7 @@ F32_ROUTES = {SIMT_F32: 67e12, "3xtf32 tensor cores": 495e12 / 3}
 
 SLICE = dict(batch=8, seq=1024, heads=8, head_dim=32)
 NUM_LAYERS = 4
+BC_WIDTH = dict(image_size=(64, 64), d_model=256)
 BUCKETS = (1, 2, 4, 8)
 CLIENTS = 4
 REQUESTS_PER_CLIENT = 6
@@ -628,12 +654,7 @@ def full_width_model(use_flash: bool):
         TransformerBCModel,
     )
 
-    return TransformerBCModel(
-        action_size=7, pose_size=14, episode_length=SLICE["seq"],
-        image_size=(64, 64), d_model=256, num_layers=NUM_LAYERS,
-        num_heads=SLICE["heads"], head_dim=SLICE["head_dim"],
-        use_flash=use_flash,
-    )
+    return TransformerBCModel(**bc_model_kwargs(use_flash))
 
 
 def check_gradients() -> None:
@@ -979,7 +1000,7 @@ def critic_model():
     )
 
     return Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
-        batch_size=CRITIC_BATCH, **CRITIC
+        batch_size=CRITIC_BATCH, device_type="gpu", **CRITIC
     )
 
 
@@ -2016,7 +2037,7 @@ def policy_pose_loop(model_dir: str) -> None:
     train_dir = os.path.join(root, "train")
     t0 = time.monotonic()
     train_eval_model(
-        pose_env.PoseEnvRegressionModel(),
+        pose_env.PoseEnvRegressionModel(device_type="gpu"),
         DefaultRecordInputGenerator(file_patterns=records, batch_size=POSE_BATCH, seed=0),
         model_dir=train_dir, max_train_steps=POSE_TRAIN_STEPS,
         save_checkpoints_steps=POSE_TRAIN_STEPS, eval_steps=None,
@@ -2502,6 +2523,549 @@ def phase_data(model_dir: str) -> None:
         + (f"{on_card:.3f} ms" if on_card else "not run"))
 
 
+# -- the cli phase ----------------------------------------------------------------
+
+# The trainer's command line: the port's three binaries as child
+# processes. The BC learner at full width under remat, grad-accum 2 and
+# 5 steps a loop, with the six hook builders, beside a continuous-eval
+# process tailing its model_dir; the regimes held in process against a
+# plain step; then the JAX package's shipped pose_env configs. The pose
+# trainer runs run_train_reg.gin at its own width and device_type 'tpu'
+# (the bf16 wrapper), cut from 5000 to CLI_POSE["steps"] steps and from
+# 100 eval batches to CLI_POSE["eval_steps"].
+CLI_STEPS, CLI_SAVE_EVERY, CLI_LOOP, CLI_ACCUM = 20, 10, 5, 2
+CLI_EVAL_STEPS = 2
+CLI_PROFILE = dict(start_step=10, num_steps=2)
+CLI_IPL_STEPS = 10
+CLI_TIMED_STEPS = 5
+# remat's peak memory against the plain step's, at most.
+CLI_REMAT_PEAK = 0.75
+# A reward-bearing bf16 step of run_train_reg.gin's model (its width,
+# device_type 'tpu') against the f32 step from the same weights: the
+# loss within POSE_BF16_LOSS_TOL (the bf16 gate of the port's dtype-policy
+# tests), the gradient within POSE_BF16_GRAD_TOL relative L2 over all
+# leaves (bf16 convs at batch 4 on the CPU read 0.09 on random data and
+# 0.26 on collected data; no update reads 1, a flipped one 2), the
+# update's cosine with the f32 update at least POSE_BF16_UPDATE_COS
+# (Adam's first step is the learning rate times the gradient's sign, and
+# bf16 flips the sign of gradients in its noise); then POSE_BF16_STEPS
+# steps on the batch lower its loss.
+POSE_BF16_LOSS_TOL = 0.02
+POSE_BF16_GRAD_TOL = 0.5
+POSE_BF16_UPDATE_COS = 0.5
+POSE_BF16_STEPS = 5
+POSE_ADAM = dict(lr=1e-3, beta1=0.9)
+CLI_POSE = dict(collect=64, steps=40, eval_steps=1, batch=None)
+CLI_TIMEOUT = 600
+POSE_CONFIGS = os.path.join(ROOT, "tensor2robot_tpu", "research", "pose_env", "configs")
+# The flash kernels in a CUDA trace, demangled or mangled (B1 is the
+# forward body with kTile = true).
+TRACE_KERNELS = {
+    "flash_fwd_tile": r"flash_fwd_kernel<[^\"]*true>|flash_fwd_kernelI[^\"]*Lb1E",
+    "flash_bwd_dq": r"flash_bwd_dq_kernel",
+    "flash_bwd_dkv": r"flash_bwd_dkv_kernel",
+}
+
+
+def bc_model_kwargs(use_flash: bool = True) -> dict:
+    return dict(
+        action_size=7, pose_size=14, episode_length=SLICE["seq"],
+        image_size=BC_WIDTH["image_size"], d_model=BC_WIDTH["d_model"],
+        num_layers=NUM_LAYERS, num_heads=SLICE["heads"],
+        head_dim=SLICE["head_dim"], use_flash=use_flash, device_type="gpu",
+    )
+
+
+def _bindings(prefix: str, values: dict) -> list:
+    return [f"{prefix}.{key} = {value!r}" for key, value in values.items()]
+
+
+class _Child:
+    """A binary of the port as a child process, its output in a file."""
+
+    def __init__(self, name: str, module: str, flags: list, log_dir: str):
+        self.name = name
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, f"{name}.log")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        self._file = open(self.path, "w")
+        self.started = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"tensor2robot_tpu_torch.bin.{module}", *flags],
+            cwd=ROOT, env=env, stdout=self._file, stderr=subprocess.STDOUT)
+        self.seconds = None
+
+    def output(self) -> str:
+        with open(self.path, errors="replace") as f:
+            return f.read()
+
+    def tail(self, lines: int = 60) -> str:
+        """The output's last lines, each cut to 400 characters (a torch
+        error can print a line of megabytes)."""
+        return "\n".join(line[:400] for line in self.output().splitlines()[-lines:])
+
+    def wait_for(self, text: str, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while text not in self.output():
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{self.name} never printed {text!r}:\n{self.tail()}")
+            time.sleep(0.2)
+
+    def wait(self, timeout: float = CLI_TIMEOUT) -> str:
+        try:
+            code = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"{self.name} ran past {timeout}s:\n{self.tail()}")
+        self.seconds = time.monotonic() - self.started
+        self._file.close()
+        if code != 0:
+            raise AssertionError(f"{self.name} exited {code}:\n{self.tail()}")
+        return self.output()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._file.close()
+
+
+def _run_children(children) -> None:
+    try:
+        for child in children:
+            child.wait()
+    finally:
+        for child in children:
+            child.stop()
+
+
+def _bc_flags() -> list:
+    model = {**bc_model_kwargs(True), "use_avg_model_params": True}
+    return [f"--gin_bindings={b}" for b in (
+        _bindings("TransformerBCModel", model)
+        + _bindings("eval/DefaultRandomInputGenerator",
+                    dict(batch_size=SLICE["batch"], seed=1000)))]
+
+
+def cli_bc_binaries(model_dir: str) -> dict:
+    """run_t2r_trainer (full-width BC, remat, grad-accum, 5 steps a loop,
+    six hook builders) beside run_continuous_eval tailing it. The learner
+    reads constant batches: drawing a 400 MB random batch a step on the
+    host would bound it (the parity group trains on random batches)."""
+    import glob
+    import re
+
+    import numpy as np
+
+    from tensor2robot_tpu_torch.train import durability
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+
+    run_dir = os.path.join(model_dir, "bc")
+    td3 = {"export_dir": os.path.join(run_dir, "td3", "latest"),
+           "lagged_export_dir": os.path.join(run_dir, "td3", "lagged"),
+           "save_secs": 0.0, "num_versions": 5}
+    trainer_flags = _bc_flags() + [f"--gin_bindings={b}" for b in (
+        ["train_eval_model.t2r_model = @TransformerBCModel()",
+         "train_eval_model.input_generator_train = @train/DefaultConstantInputGenerator()",
+         "train_eval_model.hook_builders = [@StepTimingHookBuilder(), "
+         "@ProfilerHookBuilder(), @GoldenValuesHookBuilder(), @TD3Hooks(), "
+         "@VariableLoggerHookBuilder(), @ConfigLoggerHookBuilder()]"]
+        + _bindings("train/DefaultConstantInputGenerator",
+                    dict(batch_size=SLICE["batch"], constant_value=0.5))
+        + _bindings("train_eval_model", dict(
+            model_dir=run_dir, max_train_steps=CLI_STEPS,
+            save_checkpoints_steps=CLI_SAVE_EVERY, log_every_steps=CLI_LOOP,
+            remat=True, grad_accum_steps=CLI_ACCUM, iterations_per_loop=CLI_LOOP,
+            device=DEVICE))
+        + _bindings("StepTimingHookBuilder", dict(sync_every=CLI_LOOP))
+        + _bindings("ProfilerHookBuilder", CLI_PROFILE)
+        + _bindings("VariableLoggerHookBuilder", dict(every_steps=CLI_SAVE_EVERY))
+        + _bindings("TD3Hooks", td3))]
+    eval_flags = _bc_flags() + [f"--gin_bindings={b}" for b in (
+        ["continuous_eval.t2r_model = @TransformerBCModel()",
+         "continuous_eval.input_generator_eval = @eval/DefaultRandomInputGenerator()",
+         "continuous_eval.create_exporters_fn = @create_default_exporters"]
+        + _bindings("continuous_eval", dict(
+            model_dir=run_dir, eval_steps=CLI_EVAL_STEPS,
+            max_train_steps=CLI_STEPS, timeout=float(CLI_TIMEOUT),
+            poll_interval=0.2, device=DEVICE)))]
+    os.makedirs(run_dir, exist_ok=True)
+    # The eval job first: once it polls, the learner starts, so the eval
+    # job sees step 10 land before the learner can reach step 20.
+    evaluator = _Child("continuous_eval_bc", "run_continuous_eval", eval_flags, model_dir)
+    children = [evaluator]
+    try:
+        evaluator.wait_for("continuous_eval: waiting", CLI_TIMEOUT)
+        children.append(_Child("trainer_bc", "run_t2r_trainer", trainer_flags, model_dir))
+    finally:
+        _run_children(children[::-1])  # the learner first: its own time
+    trainer_out = children[1].output()
+
+    steps = state_lib.checkpoint_steps(run_dir)
+    if steps != [CLI_SAVE_EVERY, CLI_STEPS]:
+        raise AssertionError(f"trainer checkpoints {steps}")
+    for step in steps:
+        manifest = state_lib.manifest_path(run_dir, step)
+        if not os.path.exists(manifest) or durability.validate(run_dir, step):
+            raise AssertionError(f"step {step} has no valid durability manifest")
+    operative = os.path.join(run_dir, "operative_config.gin")
+    with open(operative) as f:
+        if f"train_eval_model.device = {DEVICE!r}" not in f.read():
+            raise AssertionError(f"{operative} does not bind device {DEVICE!r}")
+    timing = [json.loads(line) for line in open(
+        os.path.join(run_dir, "profiling", "step_timing.jsonl"))]
+    if not timing or not all(row["steps_per_sec"] > 0 for row in timing):
+        raise AssertionError(f"step_timing.jsonl rows {timing}")
+    traces = glob.glob(os.path.join(run_dir, "profiling", "trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profiler traces {traces}")
+    with open(traces[0]) as f:
+        trace = f.read()
+    in_trace = {name: len(re.findall(pattern, trace))
+                for name, pattern in TRACE_KERNELS.items()}
+    if torch_device_type() == "cuda" and not all(in_trace.values()):
+        raise AssertionError(f"the profiler trace lacks a flash kernel: {in_trace}")
+    if not os.path.exists(os.path.join(run_dir, "golden_values.npy")):
+        raise AssertionError("no golden_values.npy")
+    latest = sorted(os.listdir(td3["export_dir"]))
+    lagged = sorted(os.listdir(td3["lagged_export_dir"]))
+    if len(latest) < 2 or lagged[-1] != latest[-2]:
+        raise AssertionError(f"TD3 latest {latest}, lagged {lagged}")
+    evals = [row["step"] for row in read_metrics(os.path.join(run_dir, "eval"))]
+    if evals != [CLI_SAVE_EVERY, CLI_STEPS]:
+        raise AssertionError(f"continuous eval wrote steps {evals}")
+    exports = []
+    for path in sorted(glob.glob(os.path.join(run_dir, "export", "*", "*", "t2r_metadata.json"))):
+        with open(path) as f:
+            meta = json.load(f)
+        exports.append((meta["exporter"], meta["global_step"], meta["program_device"]))
+    if sorted(e[1] for e in exports if e[0] == "latest") != [CLI_SAVE_EVERY, CLI_STEPS]:
+        raise AssertionError(f"the eval job's exports {exports}")
+    if not all(str(e[2]).startswith(torch_device_type()) for e in exports):
+        raise AssertionError(f"exports not traced on {DEVICE}: {exports}")
+    variables = trainer_out.count("var=embed.weight ")
+    if variables != CLI_STEPS // CLI_SAVE_EVERY or "Operative config" not in trainer_out:
+        raise AssertionError(f"VariableLoggerHook logged {variables} times; "
+                             "or ConfigLoggerHook did not log")
+    hook_rate = float(np.median([row["steps_per_sec"] for row in timing]))
+    log(f"[cli] trainer binary on {card_line()}: {CLI_STEPS} steps of full-width "
+        f"BC (remat, grad_accum_steps {CLI_ACCUM}, iterations_per_loop {CLI_LOOP}) "
+        f"in {children[1].seconds:.1f}s with start-up; checkpoints {steps} with "
+        f"manifests; StepTimingHook {', '.join(f'{r['steps_per_sec']:.3f}' for r in timing)} "
+        f"steps/s (median {hook_rate:.3f}); trace {os.path.basename(traces[0])} "
+        f"({len(trace) / 1e6:.1f} MB) kernel events {in_trace}; TD3 latest "
+        f"{latest}, lagged {lagged}; variable logs {variables}")
+    log(f"[cli] continuous-eval binary: steps {evals} in {evaluator.seconds:.1f}s "
+        f"with start-up; exports {exports}")
+    return {"hook_steps_per_sec": hook_rate, "profile_kernels": in_trace}
+
+
+def torch_device_type() -> str:
+    import torch
+
+    return torch.device(DEVICE).type
+
+
+def _synced_step_ms(trainer, state, batch) -> tuple:
+    import torch
+
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(CLI_TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], torch.cuda.max_memory_allocated()
+
+
+def cli_regime_parity(model_dir: str) -> dict:
+    """One remat + grad-accum step against a plain one on one full-width
+    batch (the BC gradient gate and the launches per step), 10 steps at
+    iterations_per_loop 5 against 1, and each regime's synced step time."""
+    import itertools
+
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, train_eval_model
+
+    model = full_width_model(True)
+    plain = Trainer(model, device=DEVICE)
+    regime = Trainer(model, device=DEVICE, remat=True, grad_accum_steps=CLI_ACCUM)
+    network = plain.init_state(torch.Generator().manual_seed(0)).network
+    twin = plain.init_state(params=network.state_dict()).network
+    generator = DefaultRandomInputGenerator(batch_size=SLICE["batch"], seed=0)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+    features, labels = plain.preprocess_train(batch)
+    loss, _ = plain.backward(network, features, labels)
+    torch.cuda.synchronize()
+    reset_launches()
+    regime_loss, _ = regime.backward(twin, features, labels)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = {"flash_fwd": 0, "flash_fwd_tile": 2 * NUM_LAYERS * CLI_ACCUM,
+                "flash_bwd_dq": NUM_LAYERS * CLI_ACCUM,
+                "flash_bwd_dkv": NUM_LAYERS * CLI_ACCUM}
+    if launches != expected:
+        raise AssertionError(f"remat + grad-accum step launches {launches} != {expected}")
+    loss_err = abs(regime_loss.item() - loss.item()) / abs(loss.item())
+    if not loss_err <= LOSS_TOL:
+        raise AssertionError(f"loss {regime_loss.item()} vs plain {loss.item()}")
+    worst = 0.0
+    twin_params = dict(twin.named_parameters())
+    for name, p in network.named_parameters():
+        scale = p.grad.abs().max().item()
+        err = (twin_params[name].grad - p.grad).abs().max().item()
+        if not err <= GRAD_TOL * scale + 1e-7:
+            raise AssertionError(f"{name}: remat + grad-accum gradient off the "
+                                 f"plain one by {err} (max {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"[cli] remat + grad_accum_steps {CLI_ACCUM} vs plain on {card_line()}: "
+        f"loss {regime_loss.item():.7f} vs {loss.item():.7f} (rel {loss_err:.2e}); "
+        f"worst gradient at {worst:.2e} of its max; launches {launches}")
+    del network, twin
+
+    class CachedBatches(DefaultRandomInputGenerator):
+        """Two random batches drawn once, in turns: the same stream for
+        both runs without drawing 400 MB of host data a step."""
+
+        def _create_dataset(self, mode):
+            return itertools.cycle(list(itertools.islice(
+                super()._create_dataset(mode), 2)))
+
+    # cuDNN's default conv backward sums in an order that varies from run
+    # to run, and Adam scales each element by its own gradient, so two
+    # runs of one regime already drift apart in the last bits; the
+    # comparison of iterations_per_loop takes deterministic convs.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for loop in (CLI_LOOP, 1):
+        run_dir = os.path.join(model_dir, f"ipl{loop}")
+        reset_launches()
+        t0 = time.monotonic()
+        train_eval_model(
+            full_width_model(True),
+            CachedBatches(batch_size=SLICE["batch"], seed=0),
+            model_dir=run_dir, max_train_steps=CLI_IPL_STEPS,
+            save_checkpoints_steps=CLI_IPL_STEPS, log_every_steps=CLI_LOOP,
+            iterations_per_loop=loop, device=DEVICE)
+        torch.cuda.synchronize()
+        runs[loop] = (state_lib.load_checkpoint(run_dir, CLI_IPL_STEPS)["params"],
+                      time.monotonic() - t0, read_launches())
+        for name, count in runs[loop][2].items():
+            launches[name] += count
+    torch.backends.cudnn.deterministic = deterministic
+    worst, equal = 0.0, True
+    for name, p in runs[1][0].items():
+        if not p.is_floating_point():
+            continue
+        other = runs[CLI_LOOP][0][name]
+        equal = equal and torch.equal(p, other)
+        scale = p.abs().max().item()
+        err = (other - p).abs().max().item()
+        if not err <= GRAD_TOL * scale + 1e-7:
+            raise AssertionError(f"{name} at step {CLI_IPL_STEPS}: iterations_per_loop "
+                                 f"{CLI_LOOP} off 1 by {err} (max {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"[cli] {CLI_IPL_STEPS} steps at iterations_per_loop {CLI_LOOP} vs 1 "
+        f"(deterministic cuDNN convs): "
+        f"parameters {'bit-equal' if equal else f'worst {worst:.2e} of max'}; "
+        f"{runs[CLI_LOOP][1]:.1f}s vs {runs[1][1]:.1f}s with set-up")
+
+    timed = {}
+    for name, kw in (("plain", {}), ("remat", dict(remat=True)),
+                     ("grad_accum", dict(grad_accum_steps=CLI_ACCUM)),
+                     ("remat+grad_accum", dict(remat=True, grad_accum_steps=CLI_ACCUM))):
+        trainer = Trainer(model, device=DEVICE, **kw)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        timed[name] = _synced_step_ms(trainer, state, batch)
+        del state
+        torch.cuda.empty_cache()
+    log(f"[cli] synced train step (batch {SLICE['batch']}, on-device batch, median "
+        f"of {CLI_TIMED_STEPS}) on {card_line()}: " + "; ".join(
+            f"{name} {ms:.3f} ms = {1e3 / ms:.3f} steps/s, peak {peak / 2**30:.3f} GiB"
+            for name, (ms, peak) in timed.items()))
+    # remat's segments must lower the peak: the conv embed's activations
+    # wait in slices of frames for their recompute.
+    if torch_device_type() == "cuda" and not (
+            timed["remat"][1] <= CLI_REMAT_PEAK * timed["plain"][1]):
+        raise AssertionError(f"remat peak {timed['remat'][1]} not under "
+                             f"{CLI_REMAT_PEAK} of the plain step's {timed['plain'][1]}")
+    MEASURED["cli_timed"] = timed
+    return launches
+
+
+def start_pose_collect(model_dir: str) -> "_Child":
+    return _Child("collect_pose", "run_collect_eval", [
+        f"--root_dir={os.path.join(model_dir, 'pose', 'collect')}",
+        f"--gin_configs={os.path.join(POSE_CONFIGS, 'run_random_collect.gin')}",
+        f"--gin_bindings=collect_eval_loop.num_collect = {CLI_POSE['collect']}",
+    ], model_dir)
+
+
+def cli_pose_binaries(model_dir: str, collect: "_Child") -> None:
+    """The JAX package's shipped pose_env configs through the three
+    binaries: random collect (started by the caller), then regression
+    training (bf16 wrapper) with continuous eval tailing it."""
+    import glob
+
+    from tensor2robot_tpu_torch.data import tfrecord
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+
+    _run_children([collect])
+    root = os.path.join(model_dir, "pose")
+    shards = sorted(glob.glob(os.path.join(root, "collect", "policy_collect", "*.tfrecord")))
+    records = sum(1 for shard in shards for _ in tfrecord.read_tfrecords(shard))
+    if records != CLI_POSE["collect"]:
+        raise AssertionError(f"collect wrote {records} records in {shards}")
+    run_dir = os.path.join(root, "run")
+    common = [f"--gin_configs={os.path.join(POSE_CONFIGS, 'run_train_reg.gin')}",
+              f"--gin_bindings=EVAL_DATA = {shards!r}"]
+    if CLI_POSE["batch"]:
+        common += [f"--gin_bindings={scope}/DefaultRecordInputGenerator.batch_size = "
+                   f"{CLI_POSE['batch']}" for scope in ("train_input_generator",
+                                                        "eval_input_generator")]
+    evaluator = _Child("continuous_eval_pose", "run_continuous_eval", common + [
+        "--gin_bindings=continuous_eval.t2r_model = @PoseEnvRegressionModel()",
+        "--gin_bindings=continuous_eval.input_generator_eval = {'cli': %EVAL_INPUT_GENERATOR}",
+        f"--gin_bindings=continuous_eval.model_dir = {run_dir!r}",
+        f"--gin_bindings=continuous_eval.eval_steps = {CLI_POSE['eval_steps']}",
+        f"--gin_bindings=continuous_eval.max_train_steps = {CLI_POSE['steps']}",
+        "--gin_bindings=continuous_eval.poll_interval = 0.2",
+        f"--gin_bindings=continuous_eval.timeout = {float(CLI_TIMEOUT)}",
+        f"--gin_bindings=continuous_eval.device = {DEVICE!r}",
+    ], model_dir)
+    trainer = _Child("trainer_pose", "run_t2r_trainer", common + [
+        f"--gin_bindings=TRAIN_DATA = {shards!r}",
+        f"--gin_bindings=train_eval_model.max_train_steps = {CLI_POSE['steps']}",
+        f"--gin_bindings=train_eval_model.eval_steps = {CLI_POSE['eval_steps']}",
+        f"--gin_bindings=train_eval_model.model_dir = {run_dir!r}",
+        f"--gin_bindings=train_eval_model.device = {DEVICE!r}",
+    ], model_dir)
+    _run_children([trainer, evaluator])
+    if "dtype=torch.bfloat16" not in trainer.output():
+        raise AssertionError("run_train_reg.gin did not train under the bf16 wrapper")
+    if state_lib.checkpoint_steps(run_dir) != [CLI_POSE["steps"]]:
+        raise AssertionError(f"pose checkpoints {state_lib.checkpoint_steps(run_dir)}")
+    evals = read_metrics(os.path.join(run_dir, "eval_cli"))
+    if [row["step"] for row in evals] != [CLI_POSE["steps"]]:
+        raise AssertionError(f"pose continuous eval wrote {evals}")
+    train = read_metrics(os.path.join(run_dir, "train"))
+    log(f"[cli] pose_env configs on {card_line()}: run_random_collect.gin "
+        f"{records} episodes (beside the BC binaries); run_train_reg.gin "
+        f"(device_type 'tpu': bf16 wrapper) {CLI_POSE['steps']} steps in "
+        f"{trainer.seconds:.1f}s with start-up, last loss {train[-1]['loss']:.6f} "
+        f"(random-collect rewards are <= 0: every loss weight is 0); "
+        f"continuous eval beside it done {evaluator.seconds:.1f}s after its start: "
+        f"{evals[-1]}")
+    cli_pose_bf16_step(shards)
+
+
+def cli_pose_bf16_step(shards: list) -> None:
+    """run_train_reg.gin's model under its bf16 wrapper, trained in
+    process on a collected batch whose rewards are made positive. The
+    env's reward is -|action - target| <= 0 and the loss weights clamp at
+    0, so the binaries' run on random-collect data has a loss of exactly
+    0 and moves nothing (in both packages); this step is the one that
+    holds the bf16 update. Rewards become exp(reward), in (0, 1], larger
+    for closer actions."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
+    from tensor2robot_tpu_torch.research.pose_env.pose_env_models import (
+        PoseEnvRegressionModel,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, maybe_wrap_for_tpu
+
+    model = PoseEnvRegressionModel(device_type="tpu")
+    wrapped = maybe_wrap_for_tpu(model)
+    if not isinstance(wrapped, BFloat16ModelWrapper):
+        raise AssertionError("device_type 'tpu' did not select the bf16 wrapper")
+    runs = {}
+    for name, each in (("f32", model), ("bf16", wrapped)):
+        generator = DefaultRecordInputGenerator(
+            file_patterns=shards, batch_size=CLI_POSE["batch"] or 64,
+            shuffle_buffer_size=0, seed=0, num_parse_workers=0)
+        generator.set_specification_from_model(each, "train")
+        batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+        batch["labels/reward"] = torch.exp(batch["labels/reward"].float()).to(
+            batch["labels/reward"].dtype)
+        trainer = Trainer(each, device=DEVICE)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        params = dict(state.network.named_parameters())
+        init = {k: p.detach().clone() for k, p in params.items()}
+        losses = [trainer.train_step(state, batch)["loss"].float()]
+        grads = {k: state.optimizer.state[p]["exp_avg"] / (1 - POSE_ADAM["beta1"])
+                 for k, p in params.items()}
+        moved = {k: p.detach() - init[k] for k, p in params.items()}
+        for _ in range(POSE_BF16_STEPS - 1):
+            losses.append(trainer.train_step(state, batch)["loss"].float())
+        runs[name] = dict(init=init, grads=grads, moved=moved,
+                          losses=[float(x) for x in losses])
+    f32, bf16 = runs["f32"], runs["bf16"]
+    if any(not torch.equal(f32["init"][k], v) for k, v in bf16["init"].items()):
+        raise AssertionError("the bf16 and f32 steps did not start from one init")
+    flat = lambda tree: torch.cat([v.flatten().double() for v in tree.values()])  # noqa: E731
+    grad_err = float((flat(bf16["grads"]) - flat(f32["grads"])).norm()
+                     / flat(f32["grads"]).norm())
+    a, b = flat(bf16["moved"]), flat(f32["moved"])
+    update_cos = float(a @ b / (a.norm() * b.norm()))
+    largest = max(float(v.abs().max()) for v in bf16["moved"].values())
+    stalled = [k for k, v in bf16["moved"].items()
+               if not float(v.abs().max()) >= 0.5 * POSE_ADAM["lr"]]
+    loss, want = bf16["losses"][0], f32["losses"][0]
+    log(f"[cli] run_train_reg.gin's model, a reward-bearing bf16 step vs f32 on "
+        f"{card_line()}: loss {loss:.6f} vs {want:.6f}; gradient {grad_err:.4f} "
+        f"relative L2; update cosine {update_cos:.4f}, largest {largest:.3e}; "
+        f"bf16 losses over {POSE_BF16_STEPS} steps "
+        + ", ".join(f"{x:.6f}" for x in bf16["losses"]))
+    if not (loss > 0 and abs(loss - want) <= POSE_BF16_LOSS_TOL):
+        raise AssertionError(f"bf16 loss {loss} vs f32 {want}")
+    if not grad_err <= POSE_BF16_GRAD_TOL:
+        raise AssertionError(f"bf16 gradient {grad_err} relative L2 off f32")
+    if not (update_cos >= POSE_BF16_UPDATE_COS and largest <= 1.002 * POSE_ADAM["lr"]
+            and not stalled):
+        raise AssertionError(f"bf16 update: cosine {update_cos}, largest {largest}, "
+                             f"leaves that did not move {stalled}")
+    if not bf16["losses"][-1] < bf16["losses"][0]:
+        raise AssertionError(f"bf16 steps did not lower the loss: {bf16['losses']}")
+
+
+def phase_cli(model_dir: str) -> dict:
+    launches = cli_regime_parity(model_dir)
+    # The pose collect (host only) runs beside the BC binaries.
+    collect = start_pose_collect(model_dir)
+    try:
+        measured = cli_bc_binaries(model_dir)
+    except BaseException:
+        collect.stop()
+        raise
+    timed = MEASURED["cli_timed"]["remat+grad_accum"][0]
+    log(f"[cli] steps/s of remat + grad_accum_steps {CLI_ACCUM} on {card_line()}: "
+        f"StepTimingHook in the trainer binary {measured['hook_steps_per_sec']:.3f} "
+        f"(iterations_per_loop {CLI_LOOP}, host data and hooks included) beside "
+        f"this script's synced timer {1e3 / timed:.3f} (one on-device batch)")
+    cli_pose_binaries(model_dir, collect)
+    return launches
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -2567,6 +3131,10 @@ def main() -> int:
                 timed_phase("policy", phase_policy, model_dir)
             if "data" in phases:
                 timed_phase("data", phase_data, os.path.join(model_dir, "data"))
+            if "cli" in phases:
+                for name, count in timed_phase(
+                        "cli", phase_cli, os.path.join(model_dir, "cli")).items():
+                    launches[name] = launches.get(name, 0) + count
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

@@ -9,14 +9,17 @@ the same names as the JAX package, so a gin file binds either package:
   * Macros `MACRO = value` referenced as `%MACRO`.
   * References `@name` (the configurable itself) and `@name()` (called at
     injection time), incl. scoped `@scope/name()`.
+  * References and macros inside lists, tuples and dicts
+    (`train_eval_model.hook_builders = [@StepTimingHookBuilder(), ...]`).
   * `include 'file.gin'` composition.
+  * `import module` statements. `import tensor2robot_tpu.<m>` imports the
+    port's `tensor2robot_tpu_torch.<m>`, so the JAX package's shipped
+    configs (which start `import tensor2robot_tpu.config.defaults`) run
+    unchanged on the port without loading JAX; any other import naming
+    the JAX package or JAX raises ConfigError.
   * `parse_config_files_and_bindings`, `bind_parameter`, `clear_config`.
   * `operative_config_str()` — the params every configurable actually ran
     with.
-
-The framework defaults (`config/defaults.py` of the JAX package, which
-registers the trainer, input generators and exporters) are not ported
-yet, so the shipped gin configs that import them do not parse here.
 """
 
 from __future__ import annotations
@@ -227,28 +230,62 @@ def _resolve_value(value: Any) -> Any:
     return value
 
 
+def _reference(body: str) -> _Reference:
+    call = body.endswith("()")
+    if call:
+        body = body[:-2]
+    scope = None
+    if "/" in body:
+        scope, body = body.rsplit("/", 1)
+    return _Reference(body, call=call, scope=scope)
+
+
+# A reference or a macro inside a container, outside string literals.
+_TOKEN_RE = re.compile(
+    r"@((?:[A-Za-z_][\w.]*/)*[A-Za-z_][\w.]*(?:\(\))?)|%([A-Za-z_][\w.]*)")
+_STRING_RE = re.compile(r"'(?:\\.|[^'\\])*'" + r'|"(?:\\.|[^"\\])*"')
+_REF_CALL, _MACRO_CALL = "__t2r_reference__", "__t2r_macro__"
+
+
+def _mark_tokens(text: str) -> str:
+    """`@name()` and `%NAME` outside strings as calls of marker functions
+    that _ast_to_value turns back into references and macros."""
+
+    def mark(match):
+        if match.group(1) is not None:
+            return f"{_REF_CALL}({match.group(1)!r})"
+        return f"{_MACRO_CALL}({match.group(2)!r})"
+
+    out, pos = [], 0
+    for string in _STRING_RE.finditer(text):
+        out.append(_TOKEN_RE.sub(mark, text[pos:string.start()]))
+        out.append(string.group(0))
+        pos = string.end()
+    out.append(_TOKEN_RE.sub(mark, text[pos:]))
+    return "".join(out)
+
+
 def _parse_value(text: str) -> Any:
     text = text.strip()
     if text.startswith("@"):
-        body = text[1:]
-        call = body.endswith("()")
-        if call:
-            body = body[:-2]
-        scope = None
-        if "/" in body:
-            scope, body = body.rsplit("/", 1)
-        return _Reference(body, call=call, scope=scope)
+        return _reference(text[1:])
     if text.startswith("%"):
         return _Macro(text[1:])
     # Containers may hold references/macros: parse via ast with a transform.
     try:
-        node = ast.parse(text, mode="eval").body
+        node = ast.parse(_mark_tokens(text), mode="eval").body
         return _ast_to_value(node)
     except (SyntaxError, ValueError) as e:
         raise ConfigError(f"Cannot parse config value {text!r}: {e}") from e
 
 
 def _ast_to_value(node: ast.AST) -> Any:
+    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+            and node.func.id in (_REF_CALL, _MACRO_CALL)):
+        (arg,) = node.args
+        if node.func.id == _REF_CALL:
+            return _reference(arg.value)
+        return _Macro(arg.value)
     if isinstance(node, ast.Constant):
         return node.value
     if isinstance(node, ast.List):
@@ -351,7 +388,7 @@ def _parse_statement(statement: str, base_dir: str) -> None:
         return
     if statement.startswith("import"):
         # Side-effect imports registering configurables (gin parity).
-        module = statement.split(None, 1)[1].strip()
+        module = port_module(statement.split(None, 1)[1].strip())
         import importlib
 
         importlib.import_module(module)
@@ -371,6 +408,26 @@ def _parse_statement(statement: str, base_dir: str) -> None:
         # MACRO = value
         with _REGISTRY.lock:
             _REGISTRY.macros[target] = value
+
+
+_JAX_PACKAGE = "tensor2robot_tpu"
+_PORT_PACKAGE = "tensor2robot_tpu_torch"
+_FORBIDDEN_ROOTS = (_JAX_PACKAGE, "jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def port_module(module: str) -> str:
+    """The module a config's `import` loads: `tensor2robot_tpu.<m>` is the
+    port's `tensor2robot_tpu_torch.<m>`; any other module of the JAX
+    package, or of JAX, raises ConfigError; the rest import as named."""
+    root, _, rest = module.partition(".")
+    if root == _JAX_PACKAGE and rest:
+        return f"{_PORT_PACKAGE}.{rest}"
+    if root in _FORBIDDEN_ROOTS:
+        raise ConfigError(
+            f"config imports {module!r}: the port never loads the JAX "
+            f"package or JAX (name a module under {_JAX_PACKAGE}. to import "
+            "its port)")
+    return module
 
 
 def parse_config_file(path: str) -> None:

@@ -37,6 +37,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any, Dict, List, Mapping, Optional, Union
 
@@ -123,6 +124,16 @@ def module_device(module: torch.nn.Module) -> torch.device:
     return torch.device("cpu")
 
 
+#: torch.export sets torch.compiler's is_compiling flag, one for the whole
+#: process, while it traces, and eager code on every thread reads it: an
+#: optimizer step that sees it flip mid-step passes a list of tensors where
+#: scalars go and raises; nn.Module calls and torch.utils.checkpoint take
+#: their traced paths. Tracing holds this lock, and so does eager work that
+#: may run beside an export on another thread (the trainer's steps beside
+#: AsyncExportHook's worker).
+TRACE_LOCK = threading.RLock()
+
+
 def export_program(
     module: torch.nn.Module,
     example_features: Mapping[str, Any],
@@ -143,7 +154,7 @@ def export_program(
                 f"{tuple(value.shape)}."
             )
     batch = torch.export.Dim("batch", min=1, max=max(max_batch, EXAMPLE_BATCH))
-    with torch.no_grad():
+    with TRACE_LOCK, torch.no_grad():
         return torch.export.export(
             module, (examples,),
             dynamic_shapes=({key: {0: batch} for key in examples},),

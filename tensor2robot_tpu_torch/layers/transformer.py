@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.ops import flash_attention as flash_lib
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
@@ -155,7 +156,8 @@ class TransformerBlock(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """N pre-norm blocks with learned positional embeddings over
-    [batch, seq, features]; final LayerNorm."""
+    [batch, seq, features]; final LayerNorm. Each block is a remat
+    segment (layers/remat.py)."""
 
     def __init__(
         self,
@@ -206,5 +208,5 @@ class TransformerEncoder(nn.Module):
             )
         x = x + self.pos_embedding[None, :seq]
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = remat.segment(getattr(self, f"block_{i}"), x)
         return self.ln_final(x)

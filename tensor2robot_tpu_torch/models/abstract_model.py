@@ -54,23 +54,52 @@ class AbstractT2RModel(ModelInterface):
     `inference_network_fn` and `model_train_fn`.
 
     Attributes:
+      device_type: "tpu" (the JAX default) asks the trainer for the bf16
+        policy (models/tpu_model_wrapper.BFloat16ModelWrapper, applied by
+        train/train_eval.maybe_wrap_for_tpu); "gpu" or "cpu" train in
+        float32.
       use_avg_model_params: the trainer keeps an EMA of the parameters;
         checkpoints hold both and eval and serving select the EMA
         (the JAX package's swapping-saver parity).
       avg_model_params_decay: that EMA's decay.
+      init_from_checkpoint_fn: a warm start, state dict -> state dict,
+        applied to every freshly initialized network
+        (models/checkpoint_init.default_init_from_checkpoint_fn).
     """
 
     def __init__(
         self,
         preprocessor_cls: Optional[Callable[..., AbstractPreprocessor]] = None,
         create_optimizer_fn: Optional[Callable[[], Any]] = None,
+        device_type: str = "tpu",
         use_avg_model_params: bool = False,
         avg_model_params_decay: float = 0.9999,
+        init_from_checkpoint_fn: Optional[
+            Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
     ):
         self._preprocessor_cls = preprocessor_cls
         self._create_optimizer_fn = create_optimizer_fn
+        self._device_type = device_type
         self.use_avg_model_params = use_avg_model_params
         self.avg_model_params_decay = avg_model_params_decay
+        self._init_from_checkpoint_fn = init_from_checkpoint_fn
+
+    @property
+    def device_type(self) -> str:
+        return self._device_type
+
+    @property
+    def is_device_tpu(self) -> bool:
+        return self.device_type == "tpu"
+
+    def maybe_init_from_checkpoint(
+        self, state_dict: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        """The warm-start hook: a fresh network's state dict rewritten from
+        a foreign checkpoint, or returned as it is."""
+        if self._init_from_checkpoint_fn is not None:
+            return self._init_from_checkpoint_fn(state_dict)
+        return state_dict
 
     @property
     def preprocessor(self) -> AbstractPreprocessor:

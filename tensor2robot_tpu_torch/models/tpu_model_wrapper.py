@@ -36,6 +36,7 @@ class BFloat16ModelWrapper(AbstractT2RModel):
 
     def __init__(self, model: AbstractT2RModel):
         super().__init__(
+            device_type="tpu",
             use_avg_model_params=model.use_avg_model_params,
             avg_model_params_decay=model.avg_model_params_decay,
         )
@@ -70,6 +71,9 @@ class BFloat16ModelWrapper(AbstractT2RModel):
 
     def create_optimizer(self):
         return self._model.create_optimizer()
+
+    def maybe_init_from_checkpoint(self, state_dict):
+        return self._model.maybe_init_from_checkpoint(state_dict)
 
     # -- the hooks: autocast, and float32 at the boundaries ------------------
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.spatial_softmax import spatial_softmax
 from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
 from tensor2robot_tpu_torch.models.abstract_model import TorchT2RModel
@@ -25,6 +26,9 @@ from tensor2robot_tpu_torch.specs import (
 )
 
 _CONV_FILTERS = (32, 64)
+# Frames per remat segment of the per-frame conv embed, whose activations
+# dominate a step's memory (layers/remat.py).
+REMAT_FRAMES = 1024
 
 
 def _pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -76,17 +80,22 @@ class _TransformerBCNet(nn.Module):
         )
         self.action_head = nn.Linear(d_model, action_size)
 
+    def _embed_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        """[N, H, W, 3] frames -> [N, 2C] spatial-softmax keypoints."""
+        # NHWC at the module boundary (as the JAX package); NCHW for conv.
+        x = frames.permute(0, 3, 1, 2)
+        for i in range(len(_CONV_FILTERS)):
+            x = F.relu(getattr(self, f"Conv_{i}")(_pad_same(x, 3, 2)))
+        points, _ = spatial_softmax(x.permute(0, 2, 3, 1))
+        return points
+
     def forward(self, features, mode):
         del mode
         image = features["image"]
         pose = features["gripper_pose"]
         batch, steps = image.shape[:2]
-        # NHWC at the module boundary (as the JAX package); NCHW for conv.
-        x = image.reshape((batch * steps,) + tuple(image.shape[2:]))
-        x = x.permute(0, 3, 1, 2)
-        for i in range(len(_CONV_FILTERS)):
-            x = F.relu(getattr(self, f"Conv_{i}")(_pad_same(x, 3, 2)))
-        points, _ = spatial_softmax(x.permute(0, 2, 3, 1))
+        frames = image.reshape((batch * steps,) + tuple(image.shape[2:]))
+        points = remat.segments_over_batch(self._embed_frames, frames, REMAT_FRAMES)
         x = torch.cat([points.reshape(batch, steps, -1), pose], dim=-1)
         x = self.encoder(self.embed(x))
         action = self.action_head(x)

@@ -11,9 +11,10 @@ params converted by utils/jax_params.py).
 
 A restore reads durable steps only, as the JAX predictor does
 (`latest_durable_step_in`): it walks the steps newest first and skips,
-with a warning naming the file, any that does not load (a torn or
-truncated file under its final name). It serves the newest step that
-loads, or keeps the version it serves when none newer does.
+with a warning naming the file, any that does not verify against its
+durability manifest or does not load (train/durability.py). It serves the
+newest step that does, or keeps the version it serves when none newer
+does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from tensor2robot_tpu_torch.specs import (
     filter_required_flat_tensor_spec,
     flatten_spec_structure,
 )
+from tensor2robot_tpu_torch.train import durability
 from tensor2robot_tpu_torch.train import state as state_lib
 from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -107,15 +109,18 @@ class CheckpointPredictor(AbstractPredictor):
         for step in reversed(state_lib.checkpoint_steps(self._checkpoint_dir)):
             if step == self._version:
                 return True
-            try:
-                checkpoint = state_lib.load_checkpoint(self._checkpoint_dir, step)
-                params = checkpoint["params"]
-            except Exception as err:  # noqa: BLE001 — any unreadable file
-                # is torn for a reader: never served, never raised on.
+            reason = durability.validate(self._checkpoint_dir, step)
+            if reason is None:
+                try:
+                    checkpoint = durability.load_durable(self._checkpoint_dir, step)
+                    params = checkpoint["params"]
+                except (durability.TornCheckpoint, KeyError) as err:
+                    reason = f"{type(err).__name__}: {err}"
+            if reason is not None:
+                # A torn step is never served, never raised on.
                 logging.warning(
-                    "Skipping torn checkpoint %s: %s: %s",
-                    state_lib.checkpoint_path(self._checkpoint_dir, step),
-                    type(err).__name__, err,
+                    "Skipping torn checkpoint %s: %s",
+                    state_lib.checkpoint_path(self._checkpoint_dir, step), reason,
                 )
                 continue
             if self._use_ema and checkpoint["ema_params"] is not None:

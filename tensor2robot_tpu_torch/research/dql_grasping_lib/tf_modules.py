@@ -22,7 +22,10 @@ LAYER_NORM_EPS = 1e-6
 class FlaxLayerNorm(nn.Module):
     """flax.linen.LayerNorm: normalizes over the LAST axis only (channels
     of an NHWC map), epsilon 1e-6, an optional scale (`weight`; flax's
-    use_scale=False has none) and a bias."""
+    use_scale=False has none) and a bias. As flax promotes a bf16 input
+    with its float32 parameters, the norm computes and returns float32
+    under any autocast (CUDA's autocast does so by itself; the CPU's would
+    mix bf16 and float32 in the backward)."""
 
     def __init__(self, features: int, use_scale: bool = True,
                  eps: float = LAYER_NORM_EPS):
@@ -38,7 +41,9 @@ class FlaxLayerNorm(nn.Module):
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            x = x.to(torch.promote_types(x.dtype, self.bias.dtype))
+            return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
 
 
 def conv2d_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

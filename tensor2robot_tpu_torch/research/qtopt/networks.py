@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensor2robot_tpu_torch import flags
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.batch_norm import BatchNorm
 from tensor2robot_tpu_torch.ops import pooling
 
@@ -187,6 +188,18 @@ class Grasping44(nn.Module):
                 elif isinstance(module, BatchNorm):
                     module.init_own_parameters()
 
+    # The image convs run as four remat segments (layers/remat.py): the
+    # stem, and each conv stage with its pool.
+
+    def _stem(self, net, is_training):
+        net = F.relu(self.bn1(self.conv1_1(net), is_training))
+        return pooling.max_pool(net, (3, 3))
+
+    def _stage(self, net, first, count, pool, is_training):
+        for i in range(count):
+            net = getattr(self, f"conv{first + i}")(net, is_training)
+        return net if pool is None else pooling.max_pool(net, (pool, pool))
+
     def forward(self, images, grasp_params, is_training=False, softmax=False):
         end_points: Dict[str, torch.Tensor] = {}
         tile_batch = grasp_params.ndim == 3
@@ -194,12 +207,8 @@ class Grasping44(nn.Module):
         if tile_batch:
             grasp_params = grasp_params.reshape(-1, grasp_params.shape[-1])
 
-        net = images.permute(0, 3, 1, 2)
-        net = F.relu(self.bn1(self.conv1_1(net), is_training))
-        net = pooling.max_pool(net, (3, 3))
-        for i in range(self.num_convs[0]):
-            net = getattr(self, f"conv{2 + i}")(net, is_training)
-        net = pooling.max_pool(net, (3, 3))
+        net = remat.segment(self._stem, images.permute(0, 3, 1, 2), is_training)
+        net = remat.segment(self._stage, net, 2, self.num_convs[0], 3, is_training)
         end_points["pool2"] = net
 
         fcgrasp = None
@@ -218,12 +227,10 @@ class Grasping44(nn.Module):
         end_points["vsum"] = net
 
         first = 2 + self.num_convs[0]
-        for i in range(self.num_convs[1]):
-            net = getattr(self, f"conv{first + i}")(net, is_training)
-        net = pooling.max_pool(net, (2, 2))
+        net = remat.segment(self._stage, net, first, self.num_convs[1], 2, is_training)
         first += self.num_convs[1]
-        for i in range(self.num_convs[2]):
-            net = getattr(self, f"conv{first + i}")(net, is_training)
+        net = remat.segment(self._stage, net, first, self.num_convs[2], None,
+                            is_training)
         end_points["final_conv"] = net
 
         # Flatten in NHWC order, as the JAX package does.

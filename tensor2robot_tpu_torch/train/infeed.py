@@ -7,8 +7,9 @@ of batch N+1 runs while step N computes; the consumer's stream waits on
 the copy's event before it reads the batch. A tensor that is already
 pinned (a record dataset parses uint8 images into a `PinnedRing`) is
 copied as it is; anything else is first copied into fresh pinned memory.
-dtypes are kept: uint8 images stay uint8 until the card. Multi-step batch
-stacking (iterations_per_loop) is not ported (ROADMAP.md A4).
+dtypes are kept: uint8 images stay uint8 until the card. The trainer's
+iterations_per_loop regime reads these batches one by one: eager steps
+gain nothing from a stacked [K, B, ...] copy.
 """
 
 from __future__ import annotations

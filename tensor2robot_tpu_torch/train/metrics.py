@@ -12,6 +12,13 @@ import os
 import time
 from typing import Dict, List
 
+#: Train metrics under these prefixes carry a leading batch dimension:
+#: `golden/` tags tensors for golden capture (add_golden_tensor), and
+#: grad-accum concatenates both back to the full batch.
+GOLDEN_PREFIX = "golden/"
+PER_EXAMPLE_PREFIX = "per_example/"
+BATCH_CARRYING_METRIC_PREFIXES = (GOLDEN_PREFIX, PER_EXAMPLE_PREFIX)
+
 
 class MetricsWriter:
     """Appends {step, wall_time, metrics...} lines to <log_dir>/<filename>."""

@@ -13,10 +13,9 @@ dict, buffers (batch-norm statistics) included, and `ema_params` covers
 the parameters only. Each is written under a temporary name, fsynced,
 renamed into place and the directory fsynced, so a crash leaves either
 the whole file under its final name or none; the directory is pruned to
-the newest `keep_checkpoint_max`. Readers still skip a final name that
-does not load (predictors/checkpoint_predictor.py): a copy or a disk
-can tear a file after it was written. The JAX package's manifests and
-quarantine sweep (train/durability.py there) are not ported.
+the newest `keep_checkpoint_max` (each with its durability manifest,
+`<step>.durable.json`, train/durability.py). Readers take durable steps
+only: a copy or a disk can tear a file after it was written.
 
 The flat (one concatenated vector) EMA layout of the JAX package's
 flatten_optimizer_update regime is not ported (ROADMAP.md A9).
@@ -34,6 +33,7 @@ from torch import nn
 
 CHECKPOINT_SUBDIR = "checkpoints"
 _CHECKPOINT = re.compile(r"^(\d+)\.pt$")
+MANIFEST_SUFFIX = ".durable.json"
 
 
 def init_ema(network: nn.Module) -> Dict[str, torch.Tensor]:
@@ -76,9 +76,11 @@ class TrainState:
         return state
 
     def restore(self, checkpoint: Mapping[str, Any]) -> None:
-        """Loads a checkpoint written by save_checkpoint in place."""
+        """Loads a checkpoint written by save_checkpoint in place (one
+        saved without an optimizer state leaves the optimizer's as is)."""
         self.network.load_state_dict(checkpoint["params"])
-        self.optimizer.load_state_dict(checkpoint["optimizer"])
+        if checkpoint.get("optimizer") is not None:
+            self.optimizer.load_state_dict(checkpoint["optimizer"])
         ema = checkpoint.get("ema_params")
         if (ema is None) != (self.ema_params is None):
             raise ValueError(
@@ -99,6 +101,11 @@ def checkpoint_dir(model_dir: str) -> str:
 
 def checkpoint_path(model_dir: str, step: int) -> str:
     return os.path.join(checkpoint_dir(model_dir), f"{int(step)}.pt")
+
+
+def manifest_path(model_dir: str, step: int) -> str:
+    """Where train/durability.py publishes the step's manifest."""
+    return os.path.join(checkpoint_dir(model_dir), f"{int(step)}{MANIFEST_SUFFIX}")
 
 
 def checkpoint_steps(model_dir: str) -> List[int]:
@@ -153,10 +160,16 @@ def save_checkpoint(
         )
         f.flush()
         os.fsync(f.fileno())
+    # A manifest left by an earlier file of this step would not describe
+    # this one (train/durability.py publishes the new file's).
+    if os.path.exists(manifest_path(model_dir, step)):
+        os.remove(manifest_path(model_dir, step))
     os.replace(tmp, path)
     _fsync_dir(checkpoint_dir(model_dir))
     if keep_checkpoint_max is not None:
         for old in checkpoint_steps(model_dir)[:-keep_checkpoint_max]:
+            if os.path.exists(manifest_path(model_dir, old)):
+                os.remove(manifest_path(model_dir, old))
             os.remove(checkpoint_path(model_dir, old))
     return path
 

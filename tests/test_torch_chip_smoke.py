@@ -19,7 +19,6 @@ import pathlib
 import pytest
 import torch
 
-from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -46,13 +45,7 @@ def chip_smoke(monkeypatch):
     monkeypatch.setattr(module, "CRITIC",
                         dict(image_size=(96, 96), num_convs=(2, 2, 1), width=8))
     monkeypatch.setattr(module, "CRITIC_BATCH", 4)
-    monkeypatch.setattr(
-        module, "full_width_model",
-        lambda use_flash: TransformerBCModel(
-            episode_length=16, image_size=(16, 16), d_model=32, num_layers=2,
-            num_heads=2, head_dim=16, use_flash=use_flash,
-        ),
-    )
+    monkeypatch.setattr(module, "BC_WIDTH", dict(image_size=(16, 16), d_model=32))
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
@@ -117,7 +110,7 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data")
+        "data", "cli")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -200,3 +193,32 @@ def test_data_phase(chip_smoke, tmp_path, monkeypatch, capsys):
                  "[data] critic train step fed from records",
                  "on the card: 12.500 ms"):
         assert line in out, line
+
+
+def test_cli_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The binaries as child processes at a tiny width on the CPU: the BC
+    learner (remat, grad-accum 2, 5 steps a loop, six hook builders)
+    beside the continuous-eval job, the regimes in process (launches per
+    step, the gradient gate, iterations_per_loop 5 vs 1), and the shipped
+    pose_env configs (12 episodes, 2 steps of batch 4) and the
+    reward-bearing bf16 step of run_train_reg.gin's model."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.setattr(chip_smoke, "CLI_POSE",
+                        dict(collect=12, steps=2, eval_steps=1, batch=4))
+    launches = chip_smoke.phase_cli(str(tmp_path))
+    layers = 2
+    steps = chip_smoke.CLI_IPL_STEPS * 2
+    assert launches == {"flash_fwd": 0, "flash_fwd_tile": 4 * layers + steps * layers,
+                        "flash_bwd_dq": 2 * layers + steps * layers,
+                        "flash_bwd_dkv": 2 * layers + steps * layers}
+    out = capsys.readouterr().out
+    for line in ("[cli] remat + grad_accum_steps 2 vs plain on CPU rehearsal",
+                 "[cli] 10 steps at iterations_per_loop 5 vs 1 (deterministic cuDNN convs): "
+                 "parameters bit-equal",
+                 "[cli] trainer binary on CPU rehearsal: 20 steps",
+                 "[cli] continuous-eval binary: steps [10, 20]",
+                 "[cli] steps/s of remat + grad_accum_steps 2 on CPU rehearsal",
+                 "[cli] pose_env configs on CPU rehearsal: run_random_collect.gin 12",
+                 "[cli] run_train_reg.gin's model, a reward-bearing bf16 step vs f32 on "
+                 "CPU rehearsal: loss"):
+        assert line in out, out

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no JAX package, no protobuf or PIL, no
-library attention, no native library of the JAX package, and the card by
-default.
+absl or gin, no library attention, no native library of the JAX package,
+and the card by default.
 
 The import check runs in a SUBPROCESS: blocking jax in this process would
 break every JAX test that later shares the pytest worker.
@@ -21,7 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "tensor2robot_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensor2robot_tpu",
-             "google", "PIL")
+             "google", "PIL", "absl", "gin")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,6 +157,34 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
 def test_the_subprocess_import_covers_the_policy_slice(module):
     """Every module of the policy slice is among those the blocked-jax
     subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.bin.cli",
+    "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+    "tensor2robot_tpu_torch.bin.run_continuous_eval",
+    "tensor2robot_tpu_torch.bin.run_collect_eval",
+    "tensor2robot_tpu_torch.config.defaults",
+    "tensor2robot_tpu_torch.hooks.async_export_hook_builder",
+    "tensor2robot_tpu_torch.hooks.checkpoint_hooks",
+    "tensor2robot_tpu_torch.hooks.gin_config_hook_builder",
+    "tensor2robot_tpu_torch.hooks.golden_values_hook_builder",
+    "tensor2robot_tpu_torch.hooks.hook_builder",
+    "tensor2robot_tpu_torch.hooks.profiling_hook_builder",
+    "tensor2robot_tpu_torch.hooks.td3",
+    "tensor2robot_tpu_torch.hooks.variable_logger_hook",
+    "tensor2robot_tpu_torch.layers.remat",
+    "tensor2robot_tpu_torch.models.checkpoint_init",
+    "tensor2robot_tpu_torch.train.continuous_eval",
+    "tensor2robot_tpu_torch.train.durability",
+    "tensor2robot_tpu_torch.utils.mocks",
+])
+def test_the_subprocess_import_covers_the_cli_slice(module):
+    """Every module of the trainer's command-line slice is among those the
+    blocked-jax subprocess imports and the import scans parse."""
     assert module in set(_modules())
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in SOURCES

@@ -321,7 +321,7 @@ class TestTrainEvalModel:
         assert seen[0].ys.max() <= 40 and seen[0].xs.max() <= 168
 
     def test_checkpoint_ema_eval_and_restore(self, tmp_path):
-        model = Critic(**SMALL)
+        model = Critic(**SMALL, device_type="cpu")
         final = train_eval.train_eval_model(
             model, DefaultRandomInputGenerator(batch_size=4, seed=0),
             DefaultRandomInputGenerator(batch_size=4, seed=1000),

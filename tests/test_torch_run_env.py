@@ -208,7 +208,7 @@ def test_pose_loop_on_the_cpu(tmp_path):
     records = glob.glob(str(collect / "*.tfrecord"))
     model_dir = tmp_path / "model"
     train_eval_model(
-        pose_env.PoseEnvRegressionModel(),
+        pose_env.PoseEnvRegressionModel(device_type="cpu"),
         DefaultRecordInputGenerator(file_patterns=records, batch_size=2, seed=0,
                                     num_parse_workers=0),
         model_dir=str(model_dir), max_train_steps=2, save_checkpoints_steps=2,

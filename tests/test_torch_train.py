@@ -194,7 +194,7 @@ def _generators():
 
 
 def _train(model_dir, steps, **kw):
-    model = TransformerBCModel(**{**SMALL, **kw.pop("model", {})})
+    model = TransformerBCModel(**{**SMALL, "device_type": "cpu", **kw.pop("model", {})})
     train, evaluate = _generators()
     result = train_eval.train_eval_model(
         model, train, evaluate, model_dir=str(model_dir), max_train_steps=steps,
@@ -334,6 +334,11 @@ class TestExporters:
             reference.predict(dict(features.items()))["action"], atol=1e-5, rtol=1e-5)
 
 
+class _NoHooks:
+    def create_hooks(self, t2r_model, trainer=None):
+        return []
+
+
 class TestUnportedArguments:
     @pytest.mark.parametrize(
         "kw,item",
@@ -341,9 +346,6 @@ class TestUnportedArguments:
             (dict(mesh=object()), "A9"), (dict(plan=object()), "A9"),
             (dict(shard_weight_update=True), "A9"),
             (dict(flatten_optimizer_update=True), "A9"),
-            (dict(remat=True), "A4"), (dict(grad_accum_steps=2), "A4"),
-            (dict(iterations_per_loop=2), "A4"),
-            (dict(hook_builders=[object()]), "A5"),
             (dict(create_exporters_fn=lambda m: create_default_exporters(
                 m, serve_quant=("int8",))), "A10"),
         ],
@@ -357,6 +359,23 @@ class TestUnportedArguments:
                 device="cpu", **kw,
             )
         assert not os.path.exists(tmp_path / "checkpoints")
+
+    @pytest.mark.parametrize(
+        "kw",
+        [dict(remat=True), dict(grad_accum_steps=2), dict(iterations_per_loop=2),
+         dict(hook_builders=[_NoHooks()])],
+        ids=lambda x: next(iter(x)),
+    )
+    def test_ported_regimes_train(self, tmp_path, kw):
+        """The regimes and hooks ported from A4 and A5 train and
+        checkpoint (tests/test_torch_train_regimes.py holds them to JAX)."""
+        train, _ = _generators()
+        train_eval.train_eval_model(
+            TransformerBCModel(**SMALL, device_type="cpu"), train,
+            model_dir=str(tmp_path), max_train_steps=2, save_checkpoints_steps=2,
+            device="cpu", **kw,
+        )
+        assert state_lib.checkpoint_steps(str(tmp_path)) == [2]
 
     def test_needs_a_train_generator(self, tmp_path):
         with pytest.raises(ValueError, match="input_generator_train"):
