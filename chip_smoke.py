@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -145,6 +145,23 @@ Phases, each fatal on failure (exit code 1, no result line):
                 process, the same model takes a reward-bearing bf16 step
                 against the f32 step from the same weights, then 4 more
                 that must lower the loss.
+ 10. meta     — MAML (meta_learning/): the shipped run_train_reg_maml.gin's
+                model, PoseEnvRegressionModelMAML at its widths (64x64x3,
+                8 tasks of 3 condition + 3 inference samples, one inner
+                step): (a) a second- and a first-order outer step on the
+                card against the CPU from the same weights (loss 1e-5
+                rel, gradients 1e-4 of max; TF32 off, cuDNN
+                deterministic), then each order's synced step and peak
+                memory; (b) the config through run_t2r_trainer (bf16
+                wrapper) beside run_continuous_eval, random task batches,
+                cut to 40 steps and 1 eval batch; (c) 64 hidden-drift
+                PoseToyEnv tasks written as meta-example records
+                (make_meta_example), 40 steps from them through
+                RecordDataset and FixedLenMetaExamplePreprocessor, then
+                run_meta_env (10 tasks x 2 adaptations) with
+                MAMLRegressionPolicy over CheckpointPredictor: actions
+                finite and in the box, the policy's action equal to a
+                direct forward. No flash kernel runs.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -168,7 +185,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data", "cli")
+          "data", "cli", "meta")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -2770,7 +2787,9 @@ def torch_device_type() -> str:
     return torch.device(DEVICE).type
 
 
-def _synced_step_ms(trainer, state, batch) -> tuple:
+def _synced_step_ms(trainer, state, batch, steps=None) -> tuple:
+    """Median synced train step ms over `steps` (CLI_TIMED_STEPS) after two
+    warm-up steps, and the peak memory of those steps."""
     import torch
 
     for _ in range(2):
@@ -2778,7 +2797,7 @@ def _synced_step_ms(trainer, state, batch) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(CLI_TIMED_STEPS):
+    for _ in range(steps or CLI_TIMED_STEPS):
         t0 = time.perf_counter()
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
@@ -3066,6 +3085,306 @@ def phase_cli(model_dir: str) -> dict:
     return launches
 
 
+# The meta phase (slice 10): the shipped run_train_reg_maml.gin's model,
+# PoseEnvRegressionModelMAML over PoseEnvRegressionModel, at its widths:
+# 64x64x3 images, batch 8 (tasks), and the samples dim (None) that the
+# random generator fills with 3 condition and 3 inference samples a task.
+# (a) an outer step on the card against the CPU from the same weights on
+# the same batch, second and first order, held to the BC gradient gate
+# (LOSS_TOL, GRAD_TOL; set before the first card run), TF32 off and cuDNN
+# deterministic; (b) the config through the binaries, cut from 5000 steps
+# to META_CLI["steps"] and from 100 eval batches to 1; (c) meta-example
+# records of collected hidden-drift tasks, META_RECORD_STEPS steps from
+# them, and run_meta_env over the trained checkpoint.
+META_TASKS = 8
+META_SAMPLES = 3  # make_random_numpy's sequence_length
+META_TIMED_STEPS = 10
+META_CLI = dict(steps=40, eval_steps=1)
+META_CONFIG = os.path.join(ROOT, "tensor2robot_tpu_torch", "research", "pose_env",
+                           "configs", "run_train_reg_maml.gin")
+META_RECORD_TASKS = 64
+META_RECORD_STEPS = 40
+META_ENV = dict(tasks=10, adaptations=2)
+# A collected episode's reward: 1 when the random action lands within
+# this distance of the target (the JAX package's pose tests' threshold).
+META_SUCCESS = -1.5
+
+
+def meta_model(use_second_order: bool = True, device_type: str = "gpu", **kwargs):
+    from tensor2robot_tpu_torch.research.pose_env import (
+        PoseEnvRegressionModel,
+        PoseEnvRegressionModelMAML,
+    )
+
+    return PoseEnvRegressionModelMAML(
+        base_model=PoseEnvRegressionModel(device_type=device_type),
+        num_inner_loop_steps=1, use_second_order=use_second_order, **kwargs)
+
+
+def meta_card_vs_cpu() -> None:
+    """A second- and a first-order outer step from the same seeded weights
+    on the same random task batch, on the card and on the CPU; then each
+    order's synced step and peak memory on the card."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    generator = DefaultRandomInputGenerator(batch_size=META_TASKS, seed=0)
+    generator.set_specification_from_model(meta_model(), "train")
+    batch = next(iter(generator.create_dataset("train")))
+    shape = tuple(batch["features/condition/features/state"].shape)
+    if shape != (META_TASKS, META_SAMPLES, 64, 64, 3):
+        raise AssertionError(f"task batch of shape {shape}")
+    weights = meta_model().init_network(torch.Generator().manual_seed(0), "cpu").state_dict()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rows, timed = [], {}
+    try:
+        for name, second in (("second order", True), ("first order", False)):
+            grads = {}
+            for device in ("cpu", DEVICE):
+                trainer = Trainer(meta_model(second), device=device)
+                network = trainer.init_state(params=weights).network
+                features, labels = trainer.preprocess_train(to_device(batch, device))
+                loss, metrics = trainer.backward(network, features, labels)
+                grads[device] = (float(loss), {k: p.grad.detach().cpu()
+                                               for k, p in network.named_parameters()})
+            (want, want_grads), (got, got_grads) = grads["cpu"], grads[DEVICE]
+            loss_err = abs(got - want) / abs(want)
+            if not loss_err <= LOSS_TOL:
+                raise AssertionError(f"{name}: card loss {got} vs CPU {want}")
+            worst = 0.0
+            for key, ref in want_grads.items():
+                scale = float(ref.abs().max())
+                err = float((got_grads[key] - ref).abs().max())
+                if not err <= GRAD_TOL * scale + 1e-7:
+                    raise AssertionError(f"{name}: {key} gradient off the CPU's by {err} "
+                                         f"(max {scale})")
+                worst = max(worst, err / max(scale, 1e-30))
+            rows.append(f"{name} loss {got:.7f} vs {want:.7f} (rel {loss_err:.2e}), worst "
+                        f"gradient at {worst:.2e} of its max")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    device_batch = to_device(batch, DEVICE)
+    for name, second in (("second order", True), ("first order", False)):
+        trainer = Trainer(meta_model(second), device=DEVICE)
+        state = trainer.init_state(params=weights)
+        timed[name] = _synced_step_ms(trainer, state, device_batch, META_TIMED_STEPS)
+        if second:
+            # A launch-bound step: the busy share says how far the host
+            # holds the card back.
+            device_profile("meta second-order step",
+                           lambda: trainer.train_step(state, device_batch))
+        del state
+        torch.cuda.empty_cache()
+    log(f"[meta] card vs CPU, {META_TASKS} tasks x ({META_SAMPLES} condition + "
+        f"{META_SAMPLES} inference) at 64x64, one inner step, f32: " + "; ".join(rows))
+    log(f"[meta] synced outer step (on-device batch, median of {META_TIMED_STEPS}) on "
+        f"{card_line()}: " + "; ".join(
+            f"{name} {ms:.3f} ms = {1e3 / ms:.3f} steps/s, peak {peak / 2**30:.3f} GiB"
+            for name, (ms, peak) in timed.items()))
+    MEASURED["meta_timed"] = timed
+
+
+def meta_binaries(model_dir: str) -> None:
+    """The port's run_train_reg_maml.gin through run_t2r_trainer (its
+    device_type 'tpu': the bf16 wrapper) beside run_continuous_eval, random
+    task batches standing in for meta-example shards as the JAX package's
+    test_maml_gin_config_trains binds them."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+
+    run_dir = os.path.join(model_dir, "maml")
+    steps = META_CLI["steps"]
+    common = [f"--gin_configs={META_CONFIG}"] + [f"--gin_bindings={b}" for b in (
+        _bindings("train_rand/DefaultRandomInputGenerator",
+                  dict(batch_size=META_TASKS, seed=0))
+        + _bindings("eval_rand/DefaultRandomInputGenerator",
+                    dict(batch_size=META_TASKS, seed=1000)))]
+    trainer_flags = common + [f"--gin_bindings={b}" for b in (
+        ["train_eval_model.input_generator_train = "
+         "@train_rand/DefaultRandomInputGenerator()",
+         "train_eval_model.input_generator_eval = @eval_rand/DefaultRandomInputGenerator()",
+         "train_eval_model.hook_builders = [@StepTimingHookBuilder()]"]
+        + _bindings("train_eval_model", dict(
+            model_dir=run_dir, max_train_steps=steps, eval_steps=META_CLI["eval_steps"],
+            log_every_steps=10, device=DEVICE))
+        + _bindings("StepTimingHookBuilder", dict(sync_every=max(1, min(10, steps - 1)))))]
+    eval_flags = common + [f"--gin_bindings={b}" for b in (
+        ["continuous_eval.t2r_model = @PoseEnvRegressionModelMAML()",
+         "continuous_eval.input_generator_eval = "
+         "{'cli': @eval_rand/DefaultRandomInputGenerator()}"]
+        + _bindings("continuous_eval", dict(
+            model_dir=run_dir, eval_steps=META_CLI["eval_steps"], max_train_steps=steps,
+            timeout=float(CLI_TIMEOUT), poll_interval=0.2, device=DEVICE)))]
+    os.makedirs(run_dir, exist_ok=True)
+    # Both start at once: the learner checkpoints only at its last step,
+    # which the eval job (polling by then) evaluates.
+    children = [_Child("trainer_maml", "run_t2r_trainer", trainer_flags, model_dir)]
+    try:
+        children.append(_Child("continuous_eval_maml", "run_continuous_eval", eval_flags,
+                               model_dir))
+    finally:
+        _run_children(children)
+    trainer, evaluator = children
+    if "dtype=torch.bfloat16" not in trainer.output():
+        raise AssertionError("run_train_reg_maml.gin did not train under the bf16 wrapper")
+    checkpoints = state_lib.checkpoint_steps(run_dir)
+    train = read_metrics(os.path.join(run_dir, "train"))
+    evals = [row["step"] for row in read_metrics(os.path.join(run_dir, "eval_cli"))]
+    if checkpoints != [steps] or evals != checkpoints:
+        raise AssertionError(f"checkpoints {checkpoints}, continuous eval steps {evals}")
+    if not train or not all(np.isfinite(row["loss"]) for row in train):
+        raise AssertionError(f"train metrics {train}")
+    timing = [json.loads(line) for line in open(
+        os.path.join(run_dir, "profiling", "step_timing.jsonl"))]
+    rate = float(np.median([row["steps_per_sec"] for row in timing]))
+    log(f"[meta] run_train_reg_maml.gin through the binaries on {card_line()} (cut: "
+        f"max_train_steps 5000 -> {steps}, eval_steps 100 -> {META_CLI['eval_steps']}; "
+        f"random task batches of {META_TASKS}; bf16 wrapper): {steps} steps in "
+        f"{trainer.seconds:.1f}s with start-up, last loss {train[-1]['loss']:.6f}, "
+        f"inner losses {train[-1]['inner_loss_0']:.6f} -> {train[-1]['inner_loss_1']:.6f}; "
+        f"StepTimingHook {', '.join(f'{r['steps_per_sec']:.3f}' for r in timing)} "
+        f"steps/s (median {rate:.3f}); continuous eval steps {evals} done "
+        f"{evaluator.seconds:.1f}s after its start")
+
+
+def collect_meta_records(path: str, num_tasks: int, seed: int = 0) -> int:
+    """Hidden-drift PoseToyEnv tasks as meta-example records: per task one
+    condition and one inference episode of the random policy, each its
+    transition Example (rewards 1 within META_SUCCESS of the target), joined
+    by make_meta_example."""
+    from tensor2robot_tpu_torch.data import tfrecord
+    from tensor2robot_tpu_torch.meta_learning.meta_example import make_meta_example
+    from tensor2robot_tpu_torch.research.pose_env import (
+        PoseEnvRandomPolicy,
+        PoseToyEnv,
+        episode_to_transitions_pose_toy,
+    )
+
+    env = PoseToyEnv(hidden_drift=True, seed=seed)
+    policy = PoseEnvRandomPolicy(seed=seed + 1)
+    records = []
+    for _ in range(num_tasks):
+        env.reset_task()
+        examples = []
+        for _ in range(2):
+            obs = env.reset()
+            action, _ = policy.sample_action(obs, 1.0)
+            new_obs, reward, done, debug = env.step(action)
+            examples += episode_to_transitions_pose_toy(
+                [(obs, action, reward, new_obs, done, debug)],
+                binary_success_threshold=META_SUCCESS)
+        records.append(make_meta_example(examples[:1], examples[1:]))
+    return tfrecord.write_tfrecords(path, records)
+
+
+class _RecordedEnv:
+    """An env that keeps every action it is given."""
+
+    def __init__(self, env):
+        self._env = env
+        self.actions = []
+
+    def reset_task(self):
+        self._env.reset_task()
+
+    def reset(self):
+        return self._env.reset()
+
+    def step(self, action):
+        self.actions.append(action)
+        return self._env.step(action)
+
+
+def unbatched_pack(pack_features):
+    """A model's pack_features (batch 1 columns) as a policy pack_fn: the
+    policy adds the batch dim itself."""
+    return lambda state, context, timestep: {
+        key: value[0] for key, value in pack_features(state, context, timestep).items()}
+
+
+def meta_records_to_policy(model_dir: str) -> None:
+    """Collect -> meta-example records -> META_RECORD_STEPS steps through
+    RecordDataset and FixedLenMetaExamplePreprocessor -> run_meta_env with
+    MAMLRegressionPolicy over CheckpointPredictor."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.meta_learning import (
+        FixedLenMetaExamplePreprocessor,
+        MAMLRegressionPolicy,
+        run_meta_env,
+    )
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+    from tensor2robot_tpu_torch.research.pose_env import PoseToyEnv
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    root = os.path.join(model_dir, "maml_records")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "tasks.tfrecord")
+    t0 = time.monotonic()
+    written = collect_meta_records(path, META_RECORD_TASKS)
+    collect_s = time.monotonic() - t0
+    model = meta_model(preprocessor_cls=FixedLenMetaExamplePreprocessor)
+    run_dir = os.path.join(root, "run")
+    t0 = time.monotonic()
+    train_eval_model(
+        model, DefaultRecordInputGenerator(file_patterns=path, batch_size=META_TASKS, seed=0),
+        model_dir=run_dir, max_train_steps=META_RECORD_STEPS,
+        save_checkpoints_steps=META_RECORD_STEPS, log_every_steps=10, device=DEVICE)
+    train_s = time.monotonic() - t0
+    predictor = CheckpointPredictor(model, checkpoint_dir=run_dir, device=DEVICE)
+    if not predictor.restore() or predictor.global_step != META_RECORD_STEPS:
+        raise AssertionError(f"the predictor serves step {predictor.global_step}")
+    policy = MAMLRegressionPolicy(predictor, pack_fn=unbatched_pack(model.pack_features))
+    env = _RecordedEnv(PoseToyEnv(hidden_drift=True, seed=2))
+    t0 = time.monotonic()
+    stats = run_meta_env(env, policy, num_tasks=META_ENV["tasks"],
+                         num_adaptations_per_task=META_ENV["adaptations"])
+    env_s = time.monotonic() - t0
+    actions = np.stack(env.actions)
+    episodes = META_ENV["tasks"] * META_ENV["adaptations"]
+    if len(actions) != episodes or not np.all(np.isfinite(actions)) or not np.all(
+            np.abs(actions) <= 1.0):
+        raise AssertionError(f"meta-env actions {actions}")
+    # The policy's action is the model's inference_output on the same
+    # packed features, run directly.
+    obs = env.reset()
+    action = policy.SelectAction(obs)
+    packed = model.pack_features(obs, policy.prev_episode_data, 0)
+    with torch.no_grad():
+        features, _ = model.preprocessor.preprocess(TensorSpecStruct(
+            {k: torch.from_numpy(v).to(DEVICE) for k, v in packed.items()}), None,
+            mode="predict")
+        outputs, _ = model.inference_network_fn(predictor._network, features, "predict")
+    direct = outputs["inference_output"][0, 0].cpu().numpy()
+    gap = float(np.max(np.abs(action - direct) / (1.0 + np.abs(direct))))
+    if not gap <= POLICY_TOL:
+        raise AssertionError(f"policy action {action} vs direct forward {direct}")
+    log(f"[meta] records to a policy on {card_line()}: {written} meta-example records "
+        f"of hidden-drift tasks in {collect_s:.1f}s; {META_RECORD_STEPS} steps of batch "
+        f"{META_TASKS} from them (RecordDataset, FixedLenMetaExamplePreprocessor) in "
+        f"{train_s:.1f}s with set-up; run_meta_env {META_ENV['tasks']} tasks x "
+        f"{META_ENV['adaptations']} adaptations over CheckpointPredictor: "
+        + ", ".join(f"{k.split('/', 1)[1]} {v:.6f}" for k, v in sorted(stats.items()))
+        + f"; {episodes / env_s:.3f} episodes/s; policy vs direct forward {gap:.2e}")
+
+
+def phase_meta(model_dir: str) -> None:
+    meta_card_vs_cpu()
+    meta_binaries(model_dir)
+    meta_records_to_policy(model_dir)
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -3135,6 +3454,8 @@ def main() -> int:
                 for name, count in timed_phase(
                         "cli", phase_cli, os.path.join(model_dir, "cli")).items():
                     launches[name] = launches.get(name, 0) + count
+            if "meta" in phases:
+                timed_phase("meta", phase_meta, os.path.join(model_dir, "meta"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

@@ -123,7 +123,7 @@ run_env = external_configurable(_run_env.run_env, "run_env")
 run_tfagents_env = external_configurable(
     _run_env.run_tfagents_env, "run_tfagents_env"
 )
-run_meta_env = _unported("run_meta_env", "A8")
+from tensor2robot_tpu_torch.meta_learning import run_meta_env as _rme  # noqa: F401
 
 # -- research model zoo -------------------------------------------------------
 from tensor2robot_tpu_torch.research import pose_env as _pose_env  # noqa: F401
@@ -131,9 +131,8 @@ from tensor2robot_tpu_torch.research.qtopt import t2r_models as _qtopt_models
 
 _critic = _qtopt_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom
 globals()[_critic.__name__] = external_configurable(_critic, _critic.__name__)
+globals()["Grasp2VecModel"] = _unported("Grasp2VecModel", "A8(b)")
 for _name in (
-    "Grasp2VecModel",
-    "PoseEnvRegressionModelMAML",
     "VRGripperRegressionModel",
     "VRGripperDomainAdaptiveModel",
     "VRGripperEnvTecModel",
@@ -143,7 +142,7 @@ for _name in (
     "episode_to_transitions_metareacher",
     "make_fixed_length",
 ):
-    globals()[_name] = _unported(_name, "A8")
+    globals()[_name] = _unported(_name, "A8(c)")
 
 # -- transformer model family -------------------------------------------------
 from tensor2robot_tpu_torch.models import transformer_models as _transformer_models

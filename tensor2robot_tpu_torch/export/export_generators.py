@@ -118,7 +118,9 @@ class AbstractExportGenerator:
         self._model = None
 
     def set_specification_from_model(self, model) -> None:
-        """Takes the predict-mode raw in-specs off the model's preprocessor."""
+        """Takes the predict-mode raw in-specs off the model's preprocessor
+        (a model that cannot be exported yet raises here)."""
+        getattr(model, "assert_exportable", lambda: None)()
         preprocessor = model.preprocessor
         self._model = model
         self._feature_spec = preprocessor.get_in_feature_specification(MODE_PREDICT)

@@ -101,6 +101,10 @@ class AbstractT2RModel(ModelInterface):
             return self._init_from_checkpoint_fn(state_dict)
         return state_dict
 
+    def assert_exportable(self) -> None:
+        """Raises for a model whose predict path cannot be exported yet
+        (export_generators checks it before anything is traced)."""
+
     @property
     def preprocessor(self) -> AbstractPreprocessor:
         if self._preprocessor_cls is not None:

@@ -75,6 +75,9 @@ class BFloat16ModelWrapper(AbstractT2RModel):
     def maybe_init_from_checkpoint(self, state_dict):
         return self._model.maybe_init_from_checkpoint(state_dict)
 
+    def assert_exportable(self) -> None:
+        self._model.assert_exportable()
+
     # -- the hooks: autocast, and float32 at the boundaries ------------------
 
     def inference_network_fn(self, network, features, mode, labels=None):

@@ -9,7 +9,9 @@ them. Tensors are NHWC as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +19,8 @@ from torch import nn
 
 #: flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
+
+_STATE = threading.local()
 
 
 class FlaxLayerNorm(nn.Module):
@@ -43,7 +47,35 @@ class FlaxLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.autocast(device_type=x.device.type, enabled=False):
             x = x.to(torch.promote_types(x.dtype, self.bias.dtype))
+            if getattr(_STATE, "decomposed", False):
+                return self._decomposed(x)
             return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
+
+    def _decomposed(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's own formula, in elementwise ops and means."""
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min(torch.square(x).mean(dim=-1, keepdim=True)
+                              - torch.square(mean), 0.0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight
+        return y + self.bias
+
+
+@contextlib.contextmanager
+def decomposed_layer_norms() -> Iterator[None]:
+    """FlaxLayerNorm computes flax's formula in elementwise ops in this
+    thread. Second derivatives need it: layer_norm's double backward
+    raises for a norm without a scale under autograd, and under torch.func's
+    vmap of grad it gives wrong second derivatives for one with a scale
+    (MAML's second order over tasks; checked against float64 central
+    differences)."""
+    previous = getattr(_STATE, "decomposed", False)
+    _STATE.decomposed = True
+    try:
+        yield
+    finally:
+        _STATE.decomposed = previous
 
 
 def conv2d_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

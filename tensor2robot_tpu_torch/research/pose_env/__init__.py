@@ -8,6 +8,9 @@ from tensor2robot_tpu_torch.research.pose_env.pose_env import (
     PoseEnvRandomPolicy,
     PoseToyEnv,
 )
+from tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models import (
+    PoseEnvRegressionModelMAML,
+)
 from tensor2robot_tpu_torch.research.pose_env.pose_env_models import (
     DefaultPoseEnvContinuousPreprocessor,
     DefaultPoseEnvRegressionPreprocessor,
@@ -15,5 +18,6 @@ from tensor2robot_tpu_torch.research.pose_env.pose_env_models import (
     PoseEnvRegressionModel,
 )
 
-for _cls in (PoseEnvContinuousMCModel, PoseEnvRegressionModel):
+for _cls in (PoseEnvContinuousMCModel, PoseEnvRegressionModel,
+             PoseEnvRegressionModelMAML):
     external_configurable(_cls, _cls.__name__)

@@ -6,7 +6,7 @@ scores a whole CEM population per state) and `PoseEnvRegressionModel`
 (image -> pose, reward-weighted MSE), with their uint8 -> [0, 1]
 preprocessors. Modules are named as the flax modules are, so
 utils/jax_params.py converts the JAX package's variables onto them. The
-MAML variant (pose_env_maml_models.py) waits for meta_learning/.
+MAML variant is pose_env_maml_models.py.
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ and a `batch_stats` tree (BatchNorm `mean`, `var`) maps onto the buffers
 of the same names (layers/batch_norm.py). `load_flax_variables` loads a
 whole variables dict into a network and names every key that does not
 match, in either direction.
+
+A MAML model's variables (meta_learning/maml_model.py) are
+{'params': {'base': ..., 'inner_lrs': ...}, 'batch_stats': ...}: the base
+tree maps under `base.` by the rules above, the base's batch_stats under
+`base.` too, and each learned inner rate (a scalar at the flax path of the
+base parameter it steps) onto `inner_lrs.<that path>` of the port's
+MAMLNetwork. An optax Adam state over that tree maps the same way.
 """
 
 from __future__ import annotations
@@ -25,9 +32,30 @@ import numpy as np
 import torch
 
 
+def _is_maml_tree(params: cabc.Mapping) -> bool:
+    return set(params) == {"base", "inner_lrs"}
+
+
+def _flax_paths(node: cabc.Mapping, prefix: str = ""):
+    """(the '/'-joined path, leaf) of every leaf of a nested mapping."""
+    for key, value in node.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, cabc.Mapping):
+            yield from _flax_paths(value, path)
+        else:
+            yield path, value
+
+
 def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
     """`params` is the flax 'params' collection (not the variables dict
-    around it), as nested mappings of numpy arrays."""
+    around it), as nested mappings of numpy arrays; a MAML tree's
+    `inner_lrs` map by their flax paths."""
+    if _is_maml_tree(params):
+        state = {f"base.{k}": v
+                 for k, v in flax_params_to_state_dict(params["base"]).items()}
+        for path, value in _flax_paths(params["inner_lrs"]):
+            state[f"inner_lrs.{path}"] = torch.tensor(np.asarray(value))
+        return state
     state: Dict[str, torch.Tensor] = {}
 
     def walk(node: cabc.Mapping, prefix: str) -> None:
@@ -77,7 +105,8 @@ def flax_variables_to_state_dict(
             else:
                 state[path] = torch.tensor(np.asarray(value))
 
-    walk(variables.get("batch_stats", {}), "")
+    is_maml = _is_maml_tree(variables.get("params", {}))
+    walk(variables.get("batch_stats", {}), "base" if is_maml else "")
     return state
 
 

@@ -110,7 +110,7 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data", "cli")
+        "data", "cli", "meta")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -222,3 +222,29 @@ def test_cli_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "[cli] run_train_reg.gin's model, a reward-bearing bf16 step vs f32 on "
                  "CPU rehearsal: loss"):
         assert line in out, out
+
+
+def test_meta_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The meta phase on the CPU at the model's widths with 2 tasks a
+    batch: card-vs-CPU (here CPU against CPU) for both orders, the shipped
+    run_train_reg_maml.gin through the binaries for 2 steps, and 4 tasks of
+    meta-example records, 2 steps from them and run_meta_env over 2
+    tasks."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.setattr(chip_smoke, "META_TASKS", 2)
+    monkeypatch.setattr(chip_smoke, "META_TIMED_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "META_CLI", dict(steps=2, eval_steps=1))
+    monkeypatch.setattr(chip_smoke, "META_RECORD_TASKS", 4)
+    monkeypatch.setattr(chip_smoke, "META_RECORD_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "META_ENV", dict(tasks=2, adaptations=2))
+    chip_smoke.phase_meta(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[meta] card vs CPU, 2 tasks x (3 condition + 3 inference) at 64x64",
+                 "second order loss", "first order loss",
+                 "[meta] synced outer step (on-device batch, median of 2) on CPU rehearsal",
+                 "[meta] run_train_reg_maml.gin through the binaries on CPU rehearsal",
+                 "continuous eval steps [2]",
+                 "[meta] records to a policy on CPU rehearsal: 4 meta-example records",
+                 "step_1_improvement", "policy vs direct forward"):
+        assert line in out, out
+    assert set(chip_smoke.MEASURED["meta_timed"]) == {"second order", "first order"}

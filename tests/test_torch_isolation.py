@@ -188,3 +188,25 @@ def test_the_subprocess_import_covers_the_cli_slice(module):
     assert module in set(_modules())
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.meta_learning",
+    "tensor2robot_tpu_torch.meta_learning.meta_tfdata",
+    "tensor2robot_tpu_torch.meta_learning.preprocessors",
+    "tensor2robot_tpu_torch.meta_learning.maml_inner_loop",
+    "tensor2robot_tpu_torch.meta_learning.maml_model",
+    "tensor2robot_tpu_torch.meta_learning.meta_example",
+    "tensor2robot_tpu_torch.meta_learning.meta_policies",
+    "tensor2robot_tpu_torch.meta_learning.run_meta_env",
+    "tensor2robot_tpu_torch.meta_learning.meta_models",
+    "tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models",
+    "tensor2robot_tpu_torch.utils.keypath",
+])
+def test_the_subprocess_import_covers_the_meta_slice(module):
+    """Every module of the meta-learning slice is among those the
+    blocked-jax subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + (
+        "/__init__.py" if module.endswith("meta_learning") else ".py"))
+    assert path in SOURCES
