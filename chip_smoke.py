@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -162,6 +162,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                 MAMLRegressionPolicy over CheckpointPredictor: actions
                 finite and in the box, the policy's action equal to a
                 direct forward. No flash kernel runs.
+ 11. stream   — KV-cache streaming serving (the shape of the JAX bench's
+                streaming_bc_policy_steps_per_sec): full-width BC (episode
+                1024, 64x64x3, d_model 256, 4 layers, 8 heads of 32, f32,
+                seed-0 weights) at batch 1, attention windows 128 and
+                None: StreamingBCPolicy streams the whole episode, one CUDA
+                graph replay a step, every action within 1e-4 abs + rel of
+                the full forward's row (einsum path); reset() reproduces
+                step 0; steps/s (median of 5 windows of 20) and p50/p90
+                per step; the eager step over 64 steps; the streaming
+                export (torch.export of the step) restored with no model
+                code, within 1e-5 of the in-process policy, its steps/s.
+                Then 4 experts at window 128 against its own full forward.
+                No flash kernel runs (decode attends through the einsum
+                oracle, as the JAX package's decode does).
+ 12. moe      — full-width BC (batch 8, T = 1024) with 4 experts, k = 2,
+                flash on, Adam: one step's loss and every gradient through
+                B1/B3/B4 against the einsum path under the BC gate, with
+                the routing picks that differ between the two counted (one
+                under a top-2 margin of 1e-5 takes its episode out of the
+                comparison; any other fails); B1, B3, B4 exactly 4 a step;
+                the synced step (median of 10), steps/s, peak memory, a
+                profile, beside the dense step; loss/moe_aux finite and
+                no aux in eval outputs or the checkpoint.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -185,7 +208,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data", "cli", "meta")
+          "data", "cli", "meta", "stream", "moe")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -827,6 +850,7 @@ def time_train_step(model_dir: str) -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     median = sorted(times)[len(times) // 2]
+    MEASURED["bc_step_ms"] = median
     log(f"[training] train step (batch {SLICE['batch']}, on-device batch) on "
         f"{card_line()}: "
         f"median {median:.3f} ms over {TIMED_STEPS} synced steps "
@@ -3385,6 +3409,371 @@ def phase_meta(model_dir: str) -> None:
     meta_records_to_policy(model_dir)
 
 
+# The stream phase: the JAX package's streaming bench shape (bench.py:
+# 1328-1330): full-width BC at batch 1 over a 1024-step episode, windows
+# 128 and None, and experts at window 128. Each streamed action is held
+# to the full-sequence forward's row under SERVE_TOL (the served-action
+# gate, set before the first card run), the exported policy to the
+# in-process one under STREAM_EXPORT_TOL (the same f32 ops, loaded from
+# the program). Steps/s is the median of STREAM_WINDOWS windows of
+# STREAM_WINDOW steps after a reset, as bench.py:1358-1368 takes it.
+STREAM_ATTENTION_WINDOWS = (128, None)
+STREAM_EXPERTS = 4
+STREAM_EXPORT_TOL = 1e-5
+STREAM_WINDOWS, STREAM_WINDOW = 5, 20
+STREAM_EAGER_STEPS = 64
+# The moe phase: full-width BC with 4 experts (k = 2, the JAX package's
+# test count) through the kernels. Routing is discontinuous: a token
+# whose k-th and (k+1)-th router probabilities lie within the two
+# attention paths' rounding may pick another expert on each path. A
+# differing pick under MOE_FLIP_MARGIN takes its episode (its routing
+# group, the only one it reaches) out of the comparison; any other fails.
+MOE_EXPERTS = 4
+MOE_FLIP_MARGIN = 1e-5
+
+
+def stream_model(window, num_experts: int = 1):
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+
+    return TransformerBCModel(**bc_model_kwargs(use_flash=False),
+                              attention_window=window, num_experts=num_experts)
+
+
+def _stream(policy, images, poses) -> tuple:
+    """Actions [T, A] and per-step wall seconds of one episode."""
+    import numpy as np
+
+    actions, times = [], []
+    for t in range(len(images)):
+        t0 = time.perf_counter()
+        actions.append(policy.step(images[t], poses[t])[0])
+        times.append(time.perf_counter() - t0)
+    return np.stack(actions), times
+
+
+def _steps_per_s(policy, images, poses) -> float:
+    """bench.py's rate: the median per-step time of windows of steps from
+    an episode's start."""
+    import statistics
+
+    per_step = []
+    for _ in range(STREAM_WINDOWS):
+        policy.reset()
+        t0 = time.perf_counter()
+        for t in range(STREAM_WINDOW):
+            policy.step(images[t], poses[t])
+        per_step.append((time.perf_counter() - t0) / STREAM_WINDOW)
+    return 1.0 / statistics.median(per_step)
+
+
+def _check_replays(runner, steps: int, label: str) -> str:
+    """One graph replay per step on the card (one build); eager steps on
+    the CPU rehearsal."""
+    graph = torch_device_type() == "cuda"
+    ran = runner.graph_replays if graph else runner.eager_steps
+    if ran != steps or (graph and runner.graph_builds != 1):
+        raise AssertionError(f"{label}: {ran} graph replays for {steps} steps, "
+                             f"{runner.graph_builds} builds")
+    return f"{'graph replays' if graph else 'eager steps'} {ran} = steps"
+
+
+def stream_one(window, num_experts: int, model_dir: str, full_routes: bool) -> None:
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import (
+        StreamingExportedPolicy,
+        save_streaming_export,
+    )
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+
+    model = stream_model(window, num_experts)
+    network = model.init_network(torch.Generator().manual_seed(0), device=DEVICE)
+    network.eval()
+    episode = make_random_numpy(model.get_feature_specification("predict"),
+                                batch_size=1, seed=0)
+    with torch.no_grad():
+        full = network({k: torch.from_numpy(np.asarray(v)).to(DEVICE)
+                        for k, v in episode.items()}, "predict")["action"][0].cpu().numpy()
+    state = network.state_dict()
+    images, poses = np.asarray(episode["image"])[0], np.asarray(episode["gripper_pose"])[0]
+    steps = len(images)
+    label = (f"window {window}" + (f", {num_experts} experts" if num_experts > 1 else ""))
+
+    reset_launches()
+    policy = model.create_streaming_policy(state, device=DEVICE)
+    streamed, times = _stream(policy, images, poses)
+    err = _close(streamed, full, SERVE_TOL)
+    policy.reset()
+    again = policy.step(images[0], poses[0])[0]
+    reset_err = _close(again, full[0], SERVE_TOL)
+    _close(again, streamed[0], STREAM_EXPORT_TOL)
+    rate = _steps_per_s(policy, images, poses)
+    replays = _check_replays(policy, steps + 1 + STREAM_WINDOWS * STREAM_WINDOW, label)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"streaming launched flash kernels {launches}")
+    log(f"[stream] {label} on {card_line()}: {steps} steps at batch 1 within "
+        f"{SERVE_TOL} abs + rel of the full forward (max |err| {err:.3e}); reset "
+        f"reproduces step 0 (|err| {reset_err:.3e}); first step (warm-up + capture) "
+        f"{times[0] * 1e3:.1f} ms; {rate:.3f} steps/s (median of {STREAM_WINDOWS} "
+        f"windows of {STREAM_WINDOW}); p50 {_percentile_ms(times[1:], 50):.4f} ms, "
+        f"p90 {_percentile_ms(times[1:], 90):.4f} ms over steps 1-{steps - 1}; "
+        f"{replays}; no flash launch")
+    if not full_routes:
+        return
+
+    eager = model.create_streaming_policy(state, device=DEVICE, graph=False)
+    eager_actions, eager_times = _stream(eager, images[:STREAM_EAGER_STEPS],
+                                         poses[:STREAM_EAGER_STEPS])
+    eager_err = _close(eager_actions, streamed[:STREAM_EAGER_STEPS], STREAM_EXPORT_TOL)
+    log(f"[stream] {label} eager (no graph): {len(eager_times) / sum(eager_times):.3f} "
+        f"steps/s over {STREAM_EAGER_STEPS}, p50 {_percentile_ms(eager_times, 50):.4f} "
+        f"ms; actions within {STREAM_EXPORT_TOL} of the graph's (max |err| "
+        f"{eager_err:.3e})")
+    # Host launches vs device time of one step, each route.
+    for name, route in (("graph", policy), ("eager", eager)):
+        device_profile(f"stream step ({label}, {name})",
+                       lambda route=route: route.step(images[0], poses[0]), rows=5)
+
+    export_dir = os.path.join(model_dir, f"stream_{window}")
+    t0 = time.monotonic()
+    save_streaming_export(export_dir, model, state)
+    export_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    loaded = StreamingExportedPolicy(export_dir, device=DEVICE)
+    load_s = time.monotonic() - t0
+    exported, _ = _stream(loaded, images, poses)
+    export_err = _close(exported, streamed, STREAM_EXPORT_TOL)
+    export_rate = _steps_per_s(loaded, images, poses)
+    replays = _check_replays(loaded, steps + STREAM_WINDOWS * STREAM_WINDOW,
+                             label + " export")
+    log(f"[stream] {label} export: written in {export_s:.2f}s, loaded with no model "
+        f"code in {load_s:.2f}s; {steps} steps within {STREAM_EXPORT_TOL} of the "
+        f"in-process policy (max |err| {export_err:.3e}); {export_rate:.3f} steps/s; "
+        f"{replays}")
+
+
+def phase_stream(model_dir: str) -> None:
+    """KV-cache streaming serving at full width (no flash kernel runs:
+    decode attends through the einsum oracle, as JAX's _decode_step)."""
+    for window in STREAM_ATTENTION_WINDOWS:
+        stream_one(window, 1, model_dir, full_routes=True)
+    stream_one(STREAM_ATTENTION_WINDOWS[0], STREAM_EXPERTS, model_dir, full_routes=False)
+
+
+def moe_model(use_flash: bool):
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+
+    return TransformerBCModel(**bc_model_kwargs(use_flash), num_experts=MOE_EXPERTS)
+
+
+class _RouterRecorder:
+    """Records the router logits of every top_k_routing call while on."""
+
+    def __init__(self):
+        from tensor2robot_tpu_torch.ops import moe as moe_ops
+
+        self.logits = []
+        self._ops = moe_ops
+        self._route = moe_ops.top_k_routing
+
+    def __enter__(self):
+        def recorded(router_logits, num_selected, capacity):
+            self.logits.append(router_logits.detach().float())
+            return self._route(router_logits, num_selected, capacity)
+
+        self._ops.top_k_routing = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.top_k_routing = self._route
+
+    def picks(self, k: int):
+        """Per layer: the top-k experts [G, T, k] and each token's top-k
+        margin p_k - p_(k+1) [G, T], as top_k_routing picks them."""
+        import torch
+
+        out = []
+        for logits in self.logits:
+            probs, order = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                                      descending=True, stable=True)
+            out.append((order[..., :k], probs[..., k - 1] - probs[..., k]))
+        return out
+
+
+def _moe_backward(trainer, network, batch):
+    import torch
+
+    with _RouterRecorder() as recorder:
+        loss, metrics = trainer.forward_loss(network, batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    return loss, metrics, recorder.picks(2)
+
+
+def moe_gradient_check() -> dict:
+    """One step's loss and gradients through B1/B3/B4 against the einsum
+    path on the same batch and weights, with routing flips counted."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model, ref_model = moe_model(True), moe_model(False)
+    trainer, ref_trainer = Trainer(model, device=DEVICE), Trainer(ref_model, device=DEVICE)
+    weights = trainer.init_state(torch.Generator().manual_seed(0)).network.state_dict()
+    generator = DefaultRandomInputGenerator(batch_size=SLICE["batch"], seed=0)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+    episodes = list(range(SLICE["batch"]))
+    dropped = []
+    for _ in range(2):
+        part = TensorSpecStruct()
+        for key, value in batch.items():
+            part[key] = value[episodes]
+        network = trainer.init_state(params=weights).network
+        ref_network = ref_trainer.init_state(params=weights).network
+        reset_launches()
+        loss, metrics, picks = _moe_backward(trainer, network, part)
+        launches = read_launches()
+        ref_loss, _, ref_picks = _moe_backward(ref_trainer, ref_network, part)
+        margin = min(m.min().item() for _, m in picks)
+        flips = []
+        for layer, ((ids, m), (ref_ids, _)) in enumerate(zip(picks, ref_picks)):
+            differ = (ids != ref_ids).any(dim=-1)
+            for g, t in differ.nonzero().tolist():
+                flips.append((layer, episodes[g], t, m[g, t].item()))
+        wide = [f for f in flips if f[3] >= MOE_FLIP_MARGIN]
+        if wide:
+            raise AssertionError(f"routing differs past the margin {MOE_FLIP_MARGIN}: "
+                                 f"(layer, episode, step, margin) {wide}")
+        if not flips:
+            break
+        # Each episode is its own routing group and attention context, so a
+        # flip reaches nothing outside it.
+        dropped += sorted({f[1] for f in flips})
+        episodes = [e for e in episodes if e not in dropped]
+        log(f"[moe] routing flips under the margin {MOE_FLIP_MARGIN} "
+            f"(layer, episode, step, margin) {flips}: episodes {dropped} left "
+            "out of the comparison")
+    else:
+        raise AssertionError("routing still flips after leaving episodes out")
+    expected = {"flash_fwd": 0, "flash_fwd_tile": NUM_LAYERS,
+                "flash_bwd_dq": NUM_LAYERS, "flash_bwd_dkv": NUM_LAYERS}
+    if launches != expected:
+        raise AssertionError(f"MoE step launches {launches} != {expected}")
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if not loss_err <= LOSS_TOL:
+        raise AssertionError(f"MoE loss {loss.item()} vs einsum {ref_loss.item()}")
+    aux = metrics["loss/moe_aux"].item()
+    if not math.isfinite(aux):
+        raise AssertionError(f"loss/moe_aux {aux}")
+    worst, worst_name = 0.0, ""
+    ref_params = dict(ref_network.named_parameters())
+    for name, p in network.named_parameters():
+        g, g_ref = p.grad, ref_params[name].grad
+        if g is None or g_ref is None:
+            raise AssertionError(f"{name}: no gradient")
+        scale = g_ref.abs().max().item()
+        err = (g - g_ref).abs().max().item()
+        if not err <= GRAD_TOL * scale + 1e-7:
+            raise AssertionError(
+                f"{name}: MoE gradient off the einsum path by {err} (max {scale})")
+        ratio = err / max(scale, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"[moe] {MOE_EXPERTS} experts (k = 2) gradient check on {card_line()}: loss "
+        f"{loss.item():.7f} vs einsum {ref_loss.item():.7f} (rel {loss_err:.2e}), "
+        f"loss/moe_aux {aux:.7f}; worst gradient {worst_name} at {worst:.2e} of its "
+        f"max; routing picks differing {len(flips)} over {len(episodes)} episodes "
+        f"(episodes left out: {dropped or 'none'}), smallest top-2 margin "
+        f"{margin:.3e}; launches {launches}")
+    return launches
+
+
+def phase_moe(model_dir: str) -> dict:
+    """Full-width BC with experts: the gradient gate through the kernels,
+    the launches and cost of a step, and the aux loss kept out of eval
+    outputs and checkpoints."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    launches = moe_gradient_check()
+    torch.cuda.empty_cache()
+    model = moe_model(True)
+    trainer = Trainer(model, device=DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    generator = DefaultRandomInputGenerator(batch_size=SLICE["batch"], seed=7)
+    generator.set_specification_from_model(model, "train")
+    batch = to_device(next(iter(generator.create_dataset("train"))), DEVICE)
+    reset_launches()
+    median, peak = _synced_step_ms(trainer, state, batch, TIMED_STEPS)
+    steps = 2 + TIMED_STEPS
+    counted = read_launches()
+    per_step = {"flash_fwd": 0, "flash_fwd_tile": NUM_LAYERS,
+                "flash_bwd_dq": NUM_LAYERS, "flash_bwd_dkv": NUM_LAYERS}
+    if counted != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"{steps} MoE steps launched {counted}")
+    dense = MEASURED.get("bc_step_ms")
+    log(f"[moe] train step (batch {SLICE['batch']}, {MOE_EXPERTS} experts, on-device "
+        f"batch) on {card_line()}: median {median:.3f} ms over {TIMED_STEPS} synced "
+        f"steps = {1e3 / median:.3f} steps/s; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB; the dense step "
+        + (f"{dense:.3f} ms (training phase)" if dense else "not measured in this run")
+        + f"; launches {counted} over {steps} steps")
+    for name, count in counted.items():
+        launches[name] += count
+
+    reset_launches()
+    start = state.step
+    device_profile("MoE train step", lambda: trainer.train_step(state, batch), rows=20)
+    metrics = trainer.train_step(state, batch)
+    aux = metrics["loss/moe_aux"].item()
+    if not math.isfinite(aux) or not math.isfinite(metrics["loss"].item()):
+        raise AssertionError(f"MoE train metrics {metrics}")
+    evals = trainer.eval_step(state, batch)
+    if set(evals) != {"eval/mse"}:
+        raise AssertionError(f"MoE eval metrics {sorted(evals)}")
+    with torch.inference_mode():
+        features, _ = trainer.preprocess_train(batch)
+        outputs = model.packed_inference(state.network, features, "eval")[2]
+    if set(outputs) != {"inference_output", "action"}:
+        raise AssertionError(f"MoE eval outputs {sorted(outputs)}")
+    state_lib.save_checkpoint(model_dir, state.step, state.params())
+    saved = state_lib.load_checkpoint(model_dir, state.step)["params"]
+    if set(saved) != set(state.network.state_dict()) or any("aux" in k for k in saved):
+        raise AssertionError(f"MoE checkpoint keys {sorted(saved)}")
+    counted = read_launches()
+    ran = state.step - start
+    expected = {"flash_fwd": 2 * NUM_LAYERS, "flash_fwd_tile": NUM_LAYERS * ran,
+                "flash_bwd_dq": NUM_LAYERS * ran, "flash_bwd_dkv": NUM_LAYERS * ran}
+    if counted != expected:
+        raise AssertionError(f"{ran} MoE steps and two eval forwards launched "
+                             f"{counted} != {expected}")
+    log(f"[moe] loss/moe_aux {aux:.7f} finite; eval metrics {sorted(evals)} and eval "
+        f"outputs {sorted(outputs)} carry no aux, nor the checkpoint's "
+        f"{len(saved)} tensors; launches {counted} over {ran} steps and two eval "
+        "forwards")
+    for name, count in counted.items():
+        launches[name] += count
+    return launches
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -3456,6 +3845,12 @@ def main() -> int:
                     launches[name] = launches.get(name, 0) + count
             if "meta" in phases:
                 timed_phase("meta", phase_meta, os.path.join(model_dir, "meta"))
+            if "stream" in phases:
+                timed_phase("stream", phase_stream, os.path.join(model_dir, "stream"))
+            if "moe" in phases:
+                for name, count in timed_phase(
+                        "moe", phase_moe, os.path.join(model_dir, "moe")).items():
+                    launches[name] = launches.get(name, 0) + count
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

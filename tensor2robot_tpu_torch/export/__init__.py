@@ -25,3 +25,9 @@ from tensor2robot_tpu_torch.export.saved_model import (
     list_export_dirs,
     save_exported_model,
 )
+from tensor2robot_tpu_torch.export.streaming import (
+    StreamingExportedPolicy,
+    StreamingStepRunner,
+    is_streaming_export,
+    save_streaming_export,
+)

@@ -4,51 +4,79 @@ Port of tensor2robot_tpu/layers/transformer.py: a pre-norm transformer
 whose single-device attention routes through ops/flash_attention — the
 einsum path (`reference_attention`) or the flash path (the CUDA kernel on
 the card, its plain recurrence on the CPU). Parameter names and layouts
-mirror the flax modules (qkv/out, ln_attn/ln_mlp, mlp_in/mlp_out,
+mirror the flax modules (qkv/out, ln_attn/ln_mlp, mlp_in/mlp_out or moe,
 pos_embedding, block_<i>, ln_final), so utils/jax_params.py maps a flax
 params tree onto these modules one to one.
 
-Not ported yet, and rejected with NotImplementedError naming their
-ROADMAP.md item: KV-cache decode (A6), mixture-of-experts feed-forwards
-(A8), and the mesh paths — sequence-parallel ring/ulysses attention and
-pipelining (A9).
+`num_experts > 1` swaps a block's dense feed-forward for the MoE of
+layers/moe.py. Its router aux loss is part of what the block returns
+(`(y, aux_loss)`, aux_loss None for a dense block), and the encoder returns
+every block's, so remat's rerun and torch.func see it as an output.
+
+Decode (`decode=True`) is the streaming-serving mode: each call carries ONE
+new step, appended to a K/V cache and attended against the cached prefix.
+The cache is an explicit `DecodeCache` over a flat dict of tensors, keyed
+by the flax "cache" collection's paths ('block_0/attention/cached_key'),
+threaded through the forward; every counter stays a device tensor, so a
+step can be captured as one CUDA graph or traced by torch.export.
+
+Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
+A9: the mesh paths (sequence-parallel ring/ulysses attention, expert
+parallelism and pipelining).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tensor2robot_tpu_torch.layers import remat
+from tensor2robot_tpu_torch.layers.moe import MoEBlock
 from tensor2robot_tpu_torch.ops import flash_attention as flash_lib
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
 
 
-def _reject_unported(
-    decode: bool = False,
-    mesh: Optional[object] = None,
-    num_experts: int = 1,
-    pipeline_stages: int = 1,
-) -> None:
-    if decode:
-        raise NotImplementedError(
-            "KV-cache decode is not ported yet (ROADMAP.md A6)"
-        )
+def _reject_mesh(mesh: Optional[object] = None, pipeline_stages: int = 1) -> None:
     if mesh is not None or pipeline_stages > 1:
         raise NotImplementedError(
-            "mesh paths (sequence-parallel attention, pipelining) are not "
-            "ported yet (ROADMAP.md A9)"
+            "mesh paths (sequence-parallel attention, expert parallelism, "
+            "pipelining) are not ported yet (ROADMAP.md A9)"
         )
-    if num_experts > 1:
-        raise NotImplementedError(
-            "mixture-of-experts feed-forwards are not ported yet "
-            "(ROADMAP.md A8)"
-        )
+
+
+class DecodeCache:
+    """One decode step's view of the cache: reads the incoming tensors and
+    records the new ones, in one flat dict keyed by '/'-joined paths.
+
+    `tensors` is copied on entry; a module reads its own entries before it
+    writes them, and `child(name)` scopes a submodule's keys under
+    `name/`. After the step, `tensors` holds the whole updated cache.
+    """
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], prefix: str = ""):
+        self.tensors = tensors
+        self.prefix = prefix
+
+    def child(self, name: str) -> "DecodeCache":
+        return DecodeCache(self.tensors, f"{self.prefix}{name}/")
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.tensors[self.prefix + name]
+
+    def __setitem__(self, name: str, value: torch.Tensor) -> None:
+        self.tensors[self.prefix + name] = value
+
+
+def _check_decode(decode: bool, cache: Optional[DecodeCache]) -> None:
+    if decode and cache is None:
+        raise ValueError("a decode-mode module needs the decode cache")
+    if not decode and cache is not None:
+        raise ValueError("a cache was given to a module not in decode mode")
 
 
 class MultiHeadAttention(nn.Module):
@@ -58,6 +86,10 @@ class MultiHeadAttention(nn.Module):
 
     use_flash: None = auto (flash at seq >= FLASH_AUTO_SEQ, else einsum),
     True = always the flash path, False = always the einsum path.
+
+    decode: one step per call against a K/V cache of `decode_max_len`
+    slots, `kv_heads` wide (GQA expands heads only at attend time); see
+    `_decode_step`.
     """
 
     def __init__(
@@ -70,10 +102,11 @@ class MultiHeadAttention(nn.Module):
         window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         decode: bool = False,
+        decode_max_len: int = 2048,
         mesh: Optional[object] = None,
     ):
         super().__init__()
-        _reject_unported(decode=decode, mesh=mesh)
+        _reject_mesh(mesh)
         kv_heads = num_kv_heads if num_kv_heads is not None else num_heads
         if num_heads % kv_heads != 0:
             raise ValueError(
@@ -86,6 +119,8 @@ class MultiHeadAttention(nn.Module):
         self.causal = causal
         self.use_flash = use_flash
         self.window = window
+        self.decode = decode
+        self.decode_max_len = decode_max_len
         inner = num_heads * head_dim
         self.qkv = nn.Linear(
             features, inner + 2 * kv_heads * head_dim, bias=False
@@ -98,7 +133,20 @@ class MultiHeadAttention(nn.Module):
         groups = self.num_heads // t.shape[2]
         return t if groups == 1 else t.repeat_interleave(groups, dim=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def init_cache(
+        self, batch: int, cache: DecodeCache, dtype: torch.dtype,
+        device: torch.device,
+    ) -> None:
+        """Writes this module's zeroed cache entries (the episode start)."""
+        shape = (batch, self.decode_max_len, self.kv_heads, self.head_dim)
+        cache["cached_key"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cached_value"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cache_index"] = torch.zeros((), dtype=torch.int32, device=device)
+
+    def forward(
+        self, x: torch.Tensor, cache: Optional[DecodeCache] = None
+    ) -> torch.Tensor:
+        _check_decode(self.decode, cache)
         batch, seq, _ = x.shape
         inner = self.num_heads * self.head_dim
         kv_inner = self.kv_heads * self.head_dim
@@ -106,8 +154,12 @@ class MultiHeadAttention(nn.Module):
         # Views into the fused projection; the flash kernel reads them by
         # stride without a copy.
         q = q.view(batch, seq, self.num_heads, self.head_dim)
-        k = self._expand_kv(k.view(batch, seq, self.kv_heads, self.head_dim))
-        v = self._expand_kv(v.view(batch, seq, self.kv_heads, self.head_dim))
+        k = k.view(batch, seq, self.kv_heads, self.head_dim)
+        v = v.view(batch, seq, self.kv_heads, self.head_dim)
+        if self.decode:
+            out = self._decode_step(q, k, v, cache)
+            return self.out(out.reshape(batch, seq, inner))
+        k, v = self._expand_kv(k), self._expand_kv(v)
         use_flash = self.use_flash
         if use_flash is None:
             use_flash = seq >= flash_lib.FLASH_AUTO_SEQ
@@ -118,10 +170,54 @@ class MultiHeadAttention(nn.Module):
         out = attend(q, k, v, causal=self.causal, window=self.window)
         return self.out(out.reshape(batch, seq, inner))
 
+    def _decode_step(self, q, k, v, cache: DecodeCache) -> torch.Tensor:
+        """Writes this step's k/v at slot `cache_index` and attends q
+        against the cache. With a window, attention reads only the last
+        `span = min(window, max_len)` slots from the clamped start
+        clip(i - span + 1, 0, max_len - span), so a step costs O(window).
+
+        Past capacity the slot clamps to the last one (as JAX's
+        dynamic_update_slice clamps its start) while `i`, the query's
+        position, keeps counting. Offsets stay device tensors.
+        """
+        if not self.causal:
+            raise ValueError("decode mode requires causal=True")
+        seq = q.shape[1]
+        if seq != 1:
+            raise ValueError(
+                f"decode mode consumes ONE step per call, got seq={seq}; "
+                "run the full-sequence forward for teacher forcing"
+            )
+        max_len = self.decode_max_len
+        i = cache["cache_index"]
+        slot = torch.clamp(i, max=max_len - 1).to(torch.int64).reshape(1)
+        cached_k = cache["cached_key"].index_copy(1, slot, k.to(cache["cached_key"].dtype))
+        cached_v = cache["cached_value"].index_copy(1, slot, v.to(cache["cached_value"].dtype))
+        cache["cached_key"] = cached_k
+        cache["cached_value"] = cached_v
+        cache["cache_index"] = i + 1
+        if self.window is not None:
+            span = min(self.window, max_len)
+            start = torch.clamp(i - span + 1, min=0, max=max_len - span)
+            rows = start.to(torch.int64) + torch.arange(span, device=q.device)
+            k_ctx = cached_k.index_select(1, rows)
+            v_ctx = cached_v.index_select(1, rows)
+        else:
+            start = 0
+            k_ctx, v_ctx = cached_k, cached_v
+        # GQA: the cache stays kv_heads wide; broadcast only here.
+        k_ctx, v_ctx = self._expand_kv(k_ctx), self._expand_kv(v_ctx)
+        return flash_lib.reference_attention(
+            q.float(), k_ctx.float(), v_ctx.float(), causal=True,
+            q_offset=i, k_offset=start, window=self.window,
+        ).to(q.dtype)
+
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)), dense FFN with the
-    tanh-approximated GELU (flax nn.gelu's default)."""
+    """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)). The FFN is dense
+    with the tanh-approximated GELU (flax nn.gelu's default), or with
+    `num_experts > 1` the MoE (a submodule named `moe`). Returns
+    (y, aux_loss): the router's aux loss, None for a dense block."""
 
     def __init__(
         self,
@@ -134,30 +230,52 @@ class TransformerBlock(nn.Module):
         window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         num_experts: int = 1,
+        num_selected_experts: int = 2,
         decode: bool = False,
+        decode_max_len: int = 2048,
         mesh: Optional[object] = None,
     ):
         super().__init__()
-        _reject_unported(num_experts=num_experts)
         self.attention = MultiHeadAttention(
             features, num_heads, head_dim, causal=causal, use_flash=use_flash,
-            window=window, num_kv_heads=num_kv_heads, decode=decode, mesh=mesh,
+            window=window, num_kv_heads=num_kv_heads, decode=decode,
+            decode_max_len=decode_max_len, mesh=mesh,
         )
         self.ln_attn = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
         self.ln_mlp = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
-        self.mlp_in = nn.Linear(features, mlp_ratio * features)
-        self.mlp_out = nn.Linear(mlp_ratio * features, features)
+        if num_experts > 1:
+            self.moe = MoEBlock(
+                features, num_experts, mlp_ratio * features,
+                num_selected=num_selected_experts,
+            )
+        else:
+            self.mlp_in = nn.Linear(features, mlp_ratio * features)
+            self.mlp_out = nn.Linear(mlp_ratio * features, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.ln_attn(x))
-        h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.mlp_out(h)
+    def forward(
+        self, x: torch.Tensor, cache: Optional[DecodeCache] = None
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        attention_cache = None if cache is None else cache.child("attention")
+        x = x + self.attention(self.ln_attn(x), attention_cache)
+        h = self.ln_mlp(x)
+        if hasattr(self, "moe"):
+            h, aux_loss = self.moe(h)
+        else:
+            h = F.gelu(self.mlp_in(h), approximate="tanh")
+            h, aux_loss = self.mlp_out(h), None
+        return x + h, aux_loss
 
 
 class TransformerEncoder(nn.Module):
     """N pre-norm blocks with learned positional embeddings over
     [batch, seq, features]; final LayerNorm. Each block is a remat
-    segment (layers/remat.py)."""
+    segment (layers/remat.py). Returns (y, aux_losses): the aux loss of
+    every MoE block ([] without experts).
+
+    decode: one step per call; the encoder's own counter `position`
+    picks the positional row (clamped to the last past capacity), and
+    the blocks decode against caches of max_seq_len slots.
+    """
 
     def __init__(
         self,
@@ -172,16 +290,15 @@ class TransformerEncoder(nn.Module):
         window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         num_experts: int = 1,
+        num_selected_experts: int = 2,
         decode: bool = False,
         mesh: Optional[object] = None,
         pipeline_stages: int = 1,
     ):
         super().__init__()
-        _reject_unported(
-            decode=decode, mesh=mesh, num_experts=num_experts,
-            pipeline_stages=pipeline_stages,
-        )
+        _reject_mesh(mesh, pipeline_stages)
         self.max_seq_len = max_seq_len
+        self.decode = decode
         self.pos_embedding = nn.Parameter(torch.zeros(max_seq_len, features))
         self.num_layers = num_layers
         for i in range(num_layers):
@@ -190,7 +307,9 @@ class TransformerEncoder(nn.Module):
                 TransformerBlock(
                     features, num_heads, head_dim, mlp_ratio=mlp_ratio,
                     causal=causal, use_flash=use_flash, window=window,
-                    num_kv_heads=num_kv_heads,
+                    num_kv_heads=num_kv_heads, num_experts=num_experts,
+                    num_selected_experts=num_selected_experts, decode=decode,
+                    decode_max_len=max_seq_len,
                 ),
             )
         self.ln_final = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
@@ -200,13 +319,43 @@ class TransformerEncoder(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def init_cache(
+        self, batch: int, cache: DecodeCache, dtype: torch.dtype,
+        device: torch.device,
+    ) -> None:
+        """Writes the zeroed position counter and every block's K/V cache."""
+        cache["position"] = torch.zeros((), dtype=torch.int32, device=device)
+        for i in range(self.num_layers):
+            getattr(self, f"block_{i}").attention.init_cache(
+                batch, cache.child(f"block_{i}").child("attention"), dtype,
+                device,
+            )
+
+    def forward(
+        self, x: torch.Tensor, cache: Optional[DecodeCache] = None
+    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        _check_decode(self.decode, cache)
         seq = x.shape[1]
         if seq > self.max_seq_len:
             raise ValueError(
                 f"sequence length {seq} exceeds max_seq_len={self.max_seq_len}"
             )
-        x = x + self.pos_embedding[None, :seq]
+        if self.decode:
+            position = cache["position"]
+            row = torch.clamp(position, max=self.max_seq_len - 1)
+            x = x + self.pos_embedding.index_select(
+                0, row.to(torch.int64).reshape(1)
+            )[None]
+            cache["position"] = position + 1
+        else:
+            x = x + self.pos_embedding[None, :seq]
+        aux_losses = []
         for i in range(self.num_layers):
-            x = remat.segment(getattr(self, f"block_{i}"), x)
-        return self.ln_final(x)
+            block = getattr(self, f"block_{i}")
+            if self.decode:
+                x, aux_loss = block(x, cache.child(f"block_{i}"))
+            else:
+                x, aux_loss = remat.segment(block, x)
+            if aux_loss is not None:
+                aux_losses.append(aux_loss)
+        return self.ln_final(x), aux_losses

@@ -2,28 +2,37 @@
 
 Port of tensor2robot_tpu/models/transformer_models.py: a per-step conv
 embed, a causal transformer over the episode and a per-step action head.
-Per-step image + proprioception in, per-step action out. The streaming
-(KV-cache decode) policy is not ported yet (ROADMAP.md A6).
+Per-step image + proprioception in, per-step action out. Optional
+mixture-of-experts feed-forwards (`num_experts > 1`) put the mean of the
+blocks' router aux losses into the TRAIN outputs only (`moe_aux_loss`),
+and model_train_fn folds it into the loss. StreamingBCPolicy serves one
+control step at a time from a KV cache (the decode network).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.export.streaming import StreamingStepRunner
 from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.spatial_softmax import spatial_softmax
-from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
-from tensor2robot_tpu_torch.models.abstract_model import TorchT2RModel
+from tensor2robot_tpu_torch.layers.transformer import DecodeCache, TransformerEncoder
+from tensor2robot_tpu_torch.models.abstract_model import (
+    MODE_PREDICT,
+    MODE_TRAIN,
+    TorchT2RModel,
+)
 from tensor2robot_tpu_torch.specs import (
     ExtendedTensorSpec,
     TensorSpecStruct,
     copy_tensorspec,
 )
+from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE
 
 _CONV_FILTERS = (32, 64)
 # Frames per remat segment of the per-frame conv embed, whose activations
@@ -45,7 +54,12 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 class _TransformerBCNet(nn.Module):
     """Per-step conv embed -> causal transformer over time -> action head.
-    Features are {'image': [B, T, H, W, 3], 'gripper_pose': [B, T, P]}."""
+    Features are {'image': [B, T, H, W, 3], 'gripper_pose': [B, T, P]}.
+
+    decode: the streaming twin (identical parameter names, so trained
+    weights load as they are): `decode_step` takes one step against the
+    cache of `init_cache`. Training always takes the full forward.
+    """
 
     def __init__(
         self,
@@ -62,6 +76,7 @@ class _TransformerBCNet(nn.Module):
         pipeline_stages: int = 1,
         attention_window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
+        decode: bool = False,
     ):
         super().__init__()
         in_channels = 3
@@ -75,7 +90,7 @@ class _TransformerBCNet(nn.Module):
             d_model, num_layers, num_heads, head_dim,
             max_seq_len=max_seq_len, causal=True, use_flash=use_flash,
             window=attention_window, num_kv_heads=num_kv_heads,
-            num_experts=num_experts, mesh=mesh,
+            num_experts=num_experts, decode=decode, mesh=mesh,
             pipeline_stages=pipeline_stages,
         )
         self.action_head = nn.Linear(d_model, action_size)
@@ -89,17 +104,48 @@ class _TransformerBCNet(nn.Module):
         points, _ = spatial_softmax(x.permute(0, 2, 3, 1))
         return points
 
-    def forward(self, features, mode):
-        del mode
+    def forward(self, features, mode, cache: Optional[DecodeCache] = None):
         image = features["image"]
         pose = features["gripper_pose"]
         batch, steps = image.shape[:2]
         frames = image.reshape((batch * steps,) + tuple(image.shape[2:]))
         points = remat.segments_over_batch(self._embed_frames, frames, REMAT_FRAMES)
         x = torch.cat([points.reshape(batch, steps, -1), pose], dim=-1)
-        x = self.encoder(self.embed(x))
+        x, aux_losses = self.encoder(
+            self.embed(x), None if cache is None else cache.child("encoder")
+        )
         action = self.action_head(x)
-        return {"inference_output": action, "action": action}
+        outputs = {"inference_output": action, "action": action}
+        # Train outputs only: eval and serving signatures (and exports)
+        # carry no aux scalar.
+        if mode == MODE_TRAIN and aux_losses:
+            outputs["moe_aux_loss"] = sum(aux_losses) / len(aux_losses)
+        return outputs
+
+    def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The zeroed decode cache (an episode's start) on the network's
+        device, in its parameters' dtype."""
+        weight = self.embed.weight
+        tensors: Dict[str, torch.Tensor] = {}
+        self.encoder.init_cache(
+            batch_size, DecodeCache(tensors).child("encoder"), weight.dtype,
+            weight.device,
+        )
+        return tensors
+
+    def decode_step(
+        self,
+        cache: Mapping[str, torch.Tensor],
+        image: torch.Tensor,
+        pose: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step: image [B, 1, H, W, 3], pose [B, 1, P] -> (action
+        [B, A], the new cache)."""
+        state = DecodeCache(dict(cache))
+        outputs = self.forward(
+            {"image": image, "gripper_pose": pose}, MODE_PREDICT, state
+        )
+        return outputs["action"][:, 0], state.tensors
 
 
 class TransformerBCModel(TorchT2RModel):
@@ -117,6 +163,7 @@ class TransformerBCModel(TorchT2RModel):
         num_heads: int = 4,
         head_dim: int = 16,
         num_experts: int = 1,
+        moe_aux_weight: float = 0.01,
         mesh: Optional[object] = None,
         use_flash: Optional[bool] = None,
         pipeline_stages: int = 1,
@@ -129,6 +176,8 @@ class TransformerBCModel(TorchT2RModel):
         self._pose_size = pose_size
         self._episode_length = episode_length
         self._image_size = tuple(image_size)
+        self._moe_aux_weight = moe_aux_weight
+        self._attention_window = attention_window
         self._net_kwargs = dict(
             d_model=d_model, num_layers=num_layers, num_heads=num_heads,
             head_dim=head_dim, max_seq_len=max(episode_length, 8),
@@ -163,11 +212,28 @@ class TransformerBCModel(TorchT2RModel):
         )
         return copy_tensorspec(spec, batch_size=self._episode_length)
 
-    def create_network(self) -> nn.Module:
+    def create_network(self, decode: bool = False) -> nn.Module:
+        kwargs = dict(self._net_kwargs)
+        if decode:
+            # Decoding is single-device serving: no mesh, no pipeline.
+            kwargs.update(mesh=None, pipeline_stages=1)
         return _TransformerBCNet(
             action_size=self._action_size,
             pose_size=self._pose_size,
-            **self._net_kwargs,
+            decode=decode,
+            **kwargs,
+        )
+
+    def create_streaming_policy(
+        self,
+        state_dict: Mapping[str, torch.Tensor],
+        batch_size: int = 1,
+        device: Union[str, torch.device] = DEFAULT_DEVICE,
+        graph: Optional[bool] = None,
+    ) -> "StreamingBCPolicy":
+        """Per-step serving over trained weights (KV-cache decode)."""
+        return StreamingBCPolicy(
+            self, state_dict, batch_size=batch_size, device=device, graph=graph
         )
 
     def model_train_fn(self, features, labels, inference_outputs, mode):
@@ -175,7 +241,13 @@ class TransformerBCModel(TorchT2RModel):
         mse = torch.mean(
             torch.square(inference_outputs["inference_output"] - labels["action"])
         )
-        return mse, {"loss/mse": mse}
+        metrics = {"loss/mse": mse}
+        loss = mse
+        if "moe_aux_loss" in inference_outputs:
+            aux = inference_outputs["moe_aux_loss"]
+            metrics["loss/moe_aux"] = aux
+            loss = loss + self._moe_aux_weight * aux
+        return loss, metrics
 
     def model_eval_fn(self, features, labels, inference_outputs):
         del features
@@ -186,3 +258,38 @@ class TransformerBCModel(TorchT2RModel):
                 )
             )
         }
+
+
+class StreamingBCPolicy(StreamingStepRunner):
+    """Stateful per-step serving for a trained TransformerBCModel.
+
+    Each step() consumes ONE observation (image + proprioception) and
+    returns that step's action: the conv embed runs on the single frame
+    and attention reads the K/V cache, O(attention_window) per step when
+    the model has one, never a full-episode recompute. On the card a step
+    is one CUDA graph replay over static buffers for the image, the pose,
+    the caches and the counters (StreamingStepRunner; `graph=False` steps
+    eagerly, the yardstick); on the CPU it runs eagerly.
+
+    Episodes are bounded by the model's capacity, max(episode_length, 8):
+    steps past it overwrite the last cache slot. Call reset() between
+    episodes.
+    """
+
+    def __init__(
+        self,
+        model: TransformerBCModel,
+        state_dict: Mapping[str, torch.Tensor],
+        batch_size: int = 1,
+        device: Union[str, torch.device] = DEFAULT_DEVICE,
+        graph: Optional[bool] = None,
+    ):
+        network = model.create_network(decode=True)
+        network.load_state_dict(state_dict)
+        network.eval()
+        super().__init__(
+            network.decode_step, network.init_cache(batch_size), batch_size,
+            tuple(model._image_size) + (3,), model._pose_size, device=device,
+            graph=graph,
+        )
+        self.network = network.to(self.device)

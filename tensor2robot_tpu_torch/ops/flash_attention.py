@@ -52,7 +52,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -213,14 +213,16 @@ def reference_attention(
     v: torch.Tensor,
     causal: bool = False,
     scale: Optional[float] = None,
-    q_offset: int = 0,
-    k_offset: int = 0,
+    q_offset: Union[int, torch.Tensor] = 0,
+    k_offset: Union[int, torch.Tensor] = 0,
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Materialized-logits attention over [B, S, H, D] in the input dtype.
     window=W restricts each query to the last W keys (q-W < k <= q);
     requires causal=True. Fully masked rows normalize against the finite
-    cap (uniform weights) instead of NaN-ing."""
+    cap (uniform weights) instead of NaN-ing. The offsets may be 0-dim
+    device tensors (a decode step's position, kept off the host so the
+    step can be graph-captured or traced)."""
     _check_window(window, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale

@@ -10,7 +10,9 @@ at 96x96 with num_convs (2, 2, 1), width 8 and batch 4; the data phase
 writes 8 train records (136x264 JPEG sources, 2 shards) and 4 eval
 records, checks the parsers and the codec (libjpeg here), times
 RecordDataset and trains the critic from the records with 96x96 crops at
-batch 4. The kernel phase needs the card and runs only there.
+batch 4. The stream phase streams a 16-step episode (windows 3 and None,
+and 4 experts) and the moe phase trains 4 experts at the same tiny BC
+width. The kernel phase needs the card and runs only there.
 """
 
 import importlib.util
@@ -110,7 +112,7 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data", "cli", "meta")
+        "data", "cli", "meta", "stream", "moe")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -248,3 +250,76 @@ def test_meta_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "step_1_improvement", "policy vs direct forward"):
         assert line in out, out
     assert set(chip_smoke.MEASURED["meta_timed"]) == {"second order", "first order"}
+
+
+def test_stream_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The stream phase at the tiny BC width: each window's 16-step episode
+    against the full forward, the eager route (the CPU's only one, so it
+    counts eager steps where the card counts graph replays), the streaming
+    export restored with no model code, and 4 experts."""
+    monkeypatch.setattr(chip_smoke, "STREAM_ATTENTION_WINDOWS", (3, None))
+    monkeypatch.setattr(chip_smoke, "STREAM_WINDOWS", 2)
+    monkeypatch.setattr(chip_smoke, "STREAM_WINDOW", 4)
+    monkeypatch.setattr(chip_smoke, "STREAM_EAGER_STEPS", 4)
+    chip_smoke.phase_stream(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[stream] window 3 on CPU rehearsal: 16 steps at batch 1 within 0.0001",
+                 "eager steps 25 = steps; no flash launch",
+                 "[stream] window 3 eager (no graph)", "[stream] window 3 export: written",
+                 "16 steps within 1e-05 of the in-process policy",
+                 "[stream] window None on CPU rehearsal", "[stream] window None export",
+                 "[stream] window 3, 4 experts on CPU rehearsal"):
+        assert line in out, out
+    assert "[stream] window 3, 4 experts export" not in out
+
+
+def test_moe_phase(chip_smoke, tmp_path, capsys):
+    """The moe phase at the tiny BC width with 4 experts: the gradient
+    gate through the (counted) plain kernels with routing flips counted,
+    B1/B3/B4 once per layer per step, and no aux outside the train
+    outputs."""
+    launches = chip_smoke.phase_moe(str(tmp_path))
+    layers, steps = 2, 2 + chip_smoke.TIMED_STEPS + 3
+    assert launches == {"flash_fwd": 2 * layers, "flash_fwd_tile": layers * (1 + steps),
+                        "flash_bwd_dq": layers * (1 + steps),
+                        "flash_bwd_dkv": layers * (1 + steps)}
+    out = capsys.readouterr().out
+    for line in ("[moe] 4 experts (k = 2) gradient check on CPU rehearsal: loss",
+                 "routing picks differing 0 over 2 episodes (episodes left out: none)",
+                 "[moe] train step (batch 2, 4 experts, on-device batch) on CPU rehearsal",
+                 "the dense step not measured in this run",
+                 "[moe] loss/moe_aux", "carry no aux"):
+        assert line in out, out
+
+
+def test_moe_flips_leave_their_episode_out(chip_smoke, monkeypatch, capsys):
+    """A pick that differs between the two paths under the margin takes its
+    episode out of the comparison; past the margin it fails the phase."""
+    picks = iter([])
+
+    def fake_backward(trainer, network, batch):
+        loss, metrics, real = real_backward(trainer, network, batch)
+        return loss, metrics, next(picks)(real)
+
+    real_backward = chip_smoke._moe_backward
+    monkeypatch.setattr(chip_smoke, "_moe_backward", fake_backward)
+
+    def flipped(margin):
+        def edit(real):
+            ids, m = real[0]
+            ids = ids.clone()
+            ids[0, 3] = ids[0, 3].flip(0)
+            m = m.clone()
+            m[0, 3] = margin
+            return [(ids, m)] + real[1:]
+        return edit
+
+    same = lambda real: real  # noqa: E731
+    picks = iter([flipped(1e-7), same, same, same])
+    chip_smoke.moe_gradient_check()
+    out = capsys.readouterr().out
+    assert "episodes [0] left out of the comparison" in out
+    assert "over 1 episodes (episodes left out: [0])" in out
+    picks = iter([flipped(1e-3), same])
+    with pytest.raises(AssertionError, match="routing differs past the margin"):
+        chip_smoke.moe_gradient_check()

@@ -7,6 +7,7 @@ interpret=True) while the port's runs its plain flash recurrence on CPU.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,8 +41,13 @@ def _flax_and_port(flax_module, port_module, x, seed=0):
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     port_module.load_state_dict(flax_params_to_state_dict(params))
     with torch.no_grad():
-        got = port_module(torch.from_numpy(x)).numpy()
-    return got, expected
+        got = port_module(torch.from_numpy(x))
+    if isinstance(got, tuple):
+        # Blocks and the encoder also return their MoE aux losses: none
+        # without experts.
+        got, aux = got
+        assert not aux
+    return got.numpy(), expected
 
 
 ATTENTION_CASES = {
@@ -128,16 +134,154 @@ class TestBlocks:
     @pytest.mark.parametrize(
         "kw,item",
         [
-            (dict(decode=True), "A6"),
             (dict(mesh=object()), "A9"),
             (dict(pipeline_stages=2), "A9"),
-            (dict(num_experts=2), "A8"),
         ],
-        ids=["decode", "mesh", "pipeline", "moe"],
+        ids=["mesh", "pipeline"],
     )
     def test_unported_paths_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             transformer.TransformerEncoder(FEATURES, 1, HEADS, HEAD_DIM, **kw)
+
+
+def _flax_decode(module, params, x):
+    """Steps a decode-mode flax module over x [B, T, F] one step at a time
+    from a zeroed cache (init runs a step, so its cache is zeroed, as the
+    JAX package's StreamingBCPolicy does). Returns ([B, T, F], the cache)."""
+    cache = module.init(jax.random.PRNGKey(0), x[:, :1])["cache"]
+    cache = jax.tree_util.tree_map(jnp.zeros_like, cache)
+    outs = []
+    for t in range(x.shape[1]):
+        y, mutated = module.apply(
+            {"params": params, "cache": cache}, x[:, t:t + 1], mutable=["cache"]
+        )
+        cache = mutated["cache"]
+        outs.append(np.asarray(y))
+    return np.concatenate(outs, axis=1), cache
+
+
+def _port_decode(module, cache, x):
+    outs = []
+    with torch.no_grad():
+        for t in range(x.shape[1]):
+            state = transformer.DecodeCache(dict(cache))
+            y = module(torch.from_numpy(x[:, t:t + 1]), state)
+            if isinstance(y, tuple):
+                y = y[0]
+            cache = state.tensors
+            outs.append(y.numpy())
+    return np.concatenate(outs, axis=1), cache
+
+
+def _flat_cache(tree, prefix=""):
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if hasattr(value, "items"):
+            flat.update(_flat_cache(value, path + "/"))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+# Decode vs JAX's decode, step by step: f32 attention over the cache in
+# another order on each side.
+DECODE_TOL = 1e-5
+# (window, kv heads, capacity, steps): steps past the capacity clamp.
+DECODE_CASES = {
+    "full": (None, 4, 16, 12),
+    "window3": (3, 4, 16, 12),
+    "gqa_full": (None, 2, 16, 12),
+    "gqa_window3": (3, 2, 16, 12),
+    "past_capacity": (None, 2, 8, 11),
+    "past_capacity_window3": (3, 2, 8, 11),
+}
+
+
+class TestDecode:
+    @pytest.mark.parametrize("case", list(DECODE_CASES.values()), ids=list(DECODE_CASES))
+    def test_attention_steps_match_flax(self, case):
+        window, kv_heads, capacity, steps = case
+        x = np.random.RandomState(11).randn(2, steps, FEATURES).astype(np.float32)
+        flax_mha = jax_transformer.MultiHeadAttention(
+            num_heads=4, head_dim=8, num_kv_heads=kv_heads, window=window,
+            decode=True, decode_max_len=capacity,
+        )
+        params = flax_mha.init(jax.random.PRNGKey(2), x[:, :1])["params"]
+        want, want_cache = _flax_decode(flax_mha, params, x)
+        mha = transformer.MultiHeadAttention(
+            FEATURES, 4, 8, num_kv_heads=kv_heads, window=window, decode=True,
+            decode_max_len=capacity,
+        )
+        mha.load_state_dict(
+            flax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+        )
+        cache = {}
+        mha.init_cache(2, transformer.DecodeCache(cache), torch.float32, torch.device("cpu"))
+        got, got_cache = _port_decode(mha, cache, x)
+        np.testing.assert_allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+        flat = _flat_cache(want_cache)
+        assert set(got_cache) == set(flat)
+        assert got_cache["cached_key"].shape == (2, capacity, kv_heads, 8)
+        for key, value in flat.items():
+            np.testing.assert_allclose(got_cache[key].numpy(), value, rtol=DECODE_TOL, atol=DECODE_TOL)
+
+    @pytest.mark.parametrize("window", [None, 3])
+    def test_decode_reproduces_the_full_forward(self, window):
+        x = np.random.RandomState(12).randn(1, 10, FEATURES).astype(np.float32)
+        full = transformer.MultiHeadAttention(FEATURES, 4, 8, num_kv_heads=2, window=window)
+        step = transformer.MultiHeadAttention(
+            FEATURES, 4, 8, num_kv_heads=2, window=window, decode=True, decode_max_len=10
+        )
+        step.load_state_dict(full.state_dict())
+        cache = {}
+        step.init_cache(1, transformer.DecodeCache(cache), torch.float32, torch.device("cpu"))
+        got, _ = _port_decode(step, cache, x)
+        with torch.no_grad():
+            want = full(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+
+    @pytest.mark.parametrize("experts", [1, 4])
+    def test_encoder_steps_match_flax(self, experts):
+        capacity, steps = 8, 10  # two steps past the capacity
+        x = np.random.RandomState(13).randn(2, steps, FEATURES).astype(np.float32)
+        kw = dict(num_layers=2, num_heads=HEADS, head_dim=HEAD_DIM, max_seq_len=capacity,
+                  window=3, num_kv_heads=1, num_experts=experts)
+        flax_encoder = jax_transformer.TransformerEncoder(**kw)
+        params = flax_encoder.init(jax.random.PRNGKey(4), x[:, :capacity])["params"]
+        want, want_cache = _flax_decode(jax_transformer.TransformerEncoder(decode=True, **kw), params, x)
+        encoder = transformer.TransformerEncoder(
+            FEATURES, 2, HEADS, HEAD_DIM, max_seq_len=capacity, window=3,
+            num_kv_heads=1, num_experts=experts, decode=True,
+        )
+        encoder.load_state_dict(
+            flax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+        )
+        cache = {}
+        encoder.init_cache(2, transformer.DecodeCache(cache), torch.float32, torch.device("cpu"))
+        got, got_cache = _port_decode(encoder, cache, x)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        flat = _flat_cache(want_cache)
+        assert set(got_cache) == set(flat)
+        assert int(got_cache["position"]) == steps == int(flat["position"])
+        assert int(got_cache["block_1/attention/cache_index"]) == steps
+
+    def test_one_step_per_call_and_causal_only(self):
+        mha = transformer.MultiHeadAttention(FEATURES, HEADS, HEAD_DIM, decode=True, decode_max_len=4)
+        cache = {}
+        mha.init_cache(1, transformer.DecodeCache(cache), torch.float32, torch.device("cpu"))
+        with pytest.raises(ValueError, match="ONE step"):
+            mha(torch.zeros(1, 2, FEATURES), transformer.DecodeCache(dict(cache)))
+        with pytest.raises(ValueError, match="needs the decode cache"):
+            mha(torch.zeros(1, 1, FEATURES))
+        acausal = transformer.MultiHeadAttention(
+            FEATURES, HEADS, HEAD_DIM, causal=False, decode=True, decode_max_len=4
+        )
+        with pytest.raises(ValueError, match="causal=True"):
+            acausal(torch.zeros(1, 1, FEATURES), transformer.DecodeCache(dict(cache)))
+        full = transformer.MultiHeadAttention(FEATURES, HEADS, HEAD_DIM)
+        with pytest.raises(ValueError, match="not in decode mode"):
+            full(torch.zeros(1, 1, FEATURES), transformer.DecodeCache(dict(cache)))
 
 
 class TestSpatialSoftmax:
