@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -185,6 +185,28 @@ Phases, each fatal on failure (exit code 1, no result line):
                 the synced step (median of 10), steps/s, peak memory, a
                 profile, beside the dense step; loss/moe_aux finite and
                 no aux in eval outputs or the checkpoint.
+ 13. grasp2vec — Grasp2VecModel at its defaults (ResNet-50, 472x472 crops
+                of 512x640 JPEG sources, n-pairs loss), f32, batch 8:
+                a batch of 2 through the same seeded weights on the card
+                and the CPU (embeddings, loss and batch-norm statistics
+                1e-4 of their max; gradients under the critic's f32
+                limit), 160 JPEG records, 20 steps through
+                train_eval_model from them (nvJPEG decode on the card),
+                the synced step's time, TFLOP/s against an analytic flop
+                count, peak memory and profile, the checkpoint's
+                embeddings served through CheckpointPredictor equal to the
+                in-process eval forward and turned into heatmaps, and one
+                triplet_embedding_loss step. No flash kernel runs.
+ 14. vrgripper — every VRGripper family at its JAX defaults (40-step
+                episodes of 100x100 crops of 220x300 uint8 sources):
+                regression with MSE and with a 3-component MDN,
+                domain-adaptive, TEC, the WTL trial model and a
+                second-order MAML over the regression model, each held
+                against the CPU (the meta phase's gate) and stepped on the
+                card (synced step, peak memory; the MAML step profiled);
+                then the MSE model through train_eval_model, served from
+                its checkpoint equal to the in-process eval forward. No
+                flash kernel runs.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -208,7 +230,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data", "cli", "meta", "stream", "moe")
+          "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -2200,11 +2222,13 @@ def roundtrip_error(frames, decoded):
 
 
 def write_records(model, directory: str, counts, image_hw, seed: int = 0):
-    """Records of the critic's in-spec (train) at `image_hw`: state/image a
-    q95 JPEG of camera_like_frames, every other feature and the label drawn
-    from the spec with the seed. counts = (train records, train shards,
-    eval records). Returns ({"train": pattern, "eval": pattern}, the first
-    shard's (frames, records, JPEGs), seconds to write)."""
+    """Records of a model's in-spec (train): every JPEG feature (the
+    critic's state/image, Grasp2Vec's three images) a q95 JPEG of
+    camera_like_frames at `image_hw`, every other feature and the label
+    drawn from the spec with the seed. counts = (train records, train
+    shards, eval records). Returns ({"train": pattern, "eval": pattern},
+    the first shard's (frames, records, JPEGs) of the first JPEG feature,
+    seconds to write)."""
     from tensor2robot_tpu_torch.data import codec, tfrecord
     from tensor2robot_tpu_torch.data.encoder import encode_example
     from tensor2robot_tpu_torch.specs import TensorSpecStruct, make_random_numpy
@@ -2215,6 +2239,7 @@ def write_records(model, directory: str, counts, image_hw, seed: int = 0):
         spec[f"features/{key}"] = value
     for key, value in model.preprocessor.get_in_label_specification("train").items():
         spec[f"labels/{key}"] = value
+    jpeg_keys = [key for key, value in spec.items() if value.data_format == "jpeg"]
     os.makedirs(directory, exist_ok=True)
     t0 = time.monotonic()
     sample = None
@@ -2223,14 +2248,17 @@ def write_records(model, directory: str, counts, image_hw, seed: int = 0):
     for index, (split, shard, n) in enumerate(layout):
         part_seed = seed + 1000 * index
         values = make_random_numpy(spec, batch_size=n, seed=part_seed)
-        frames = camera_like_frames(n, *image_hw, seed=part_seed)
-        jpegs = [codec.encode_jpeg(frame, quality=95) for frame in frames]
+        images = {}
+        for k, key in enumerate(jpeg_keys):
+            frames = camera_like_frames(n, *image_hw, seed=part_seed + 17 * k)
+            images[key] = (frames, [codec.encode_jpeg(f, quality=95) for f in frames])
         records = []
         for i in range(n):
             row = {key: value[i] for key, value in values.items()}
-            row["features/state/image"] = jpegs[i]
+            row.update({key: jpegs[i] for key, (_, jpegs) in images.items()})
             records.append(encode_example(spec, row))
         if sample is None:
+            frames, jpegs = images[jpeg_keys[0]]
             sample = (frames, records, jpegs)
         total = shards if split == "train" else 1
         tfrecord.write_tfrecords(
@@ -3774,6 +3802,485 @@ def phase_moe(model_dir: str) -> dict:
     return launches
 
 
+# -- grasp2vec: ResNet-50 embeddings trained from JPEG records ----------------------
+
+# The flagship Grasp2Vec configuration: the model's defaults (ResNet-50,
+# 472x472 crops of 512x640 JPEG sources, n-pairs loss) in float32, batch 8.
+G2V_MODEL = dict(scene_size=(472, 472), goal_size=(472, 472), resnet_size=50)
+G2V_BATCH = 8
+G2V_CHECK_BATCH = 2
+G2V_RECORDS = (160, 2, 16)
+G2V_SOURCE = (512, 640)
+# Card vs CPU at full width (TF32 off), a batch of 2: the card's float32
+# embeddings, loss and batch-norm statistics within G2V_TOL of their max
+# from the CPU's float32 ones. The gradients are held against the CPU in
+# float64: at batch 2 the goal tower's train-mode batch norms make float32
+# gradients of either device lie far from float64 (this phase on an H100
+# 80GB HBM3 at 700 W: the card's worst leaf 9.035e-02 of its max, relative
+# L2 1.454e-02; the CPU's 1.416e-01 and 1.577e-02), so card against CPU in
+# float32 would compare two roundings. Each leaf within G2V_GRAD_TOL of its
+# max (2.8x the card's reading); the relative L2 is printed.
+G2V_TOL = 1e-4
+G2V_GRAD_TOL = 0.25
+G2V_SERVE_TOL = 1e-6
+
+
+def grasp2vec_model(**kwargs):
+    from tensor2robot_tpu_torch.research.grasp2vec import Grasp2VecModel
+
+    return Grasp2VecModel(device_type="gpu", **G2V_MODEL, **kwargs)
+
+
+def resnet_conv_flops(hw, resnet_size: int = 50, num_filters: int = 64) -> float:
+    """Forward flops (2 a multiply-add) of the ResNet's convolutions and
+    final dense layer on one image of size `hw`, from its shapes: the 7x7/2
+    stem, the 3x3/2 SAME pool, then per block the 1x1/3x3/1x1 bottleneck
+    (3x3/3x3 basic below 50) and each block layer's strided projection."""
+    from tensor2robot_tpu_torch.layers.resnet import get_block_sizes
+
+    h, w = hw
+    flops = 0.0
+
+    def conv(h, w, cin, cout, k, stride=1):
+        nonlocal flops
+        h, w = -(-h // stride), -(-w // stride)
+        flops += 2.0 * h * w * cout * k * k * cin
+        return h, w
+
+    h, w = conv(h, w, 3, num_filters, 7, 2)
+    h, w = -(-h // 2), -(-w // 2)
+    bottleneck = resnet_size >= 50
+    channels = num_filters
+    for i, blocks in enumerate(get_block_sizes(resnet_size)):
+        filters = num_filters * 2 ** i
+        out = filters * (4 if bottleneck else 1)
+        for j in range(blocks):
+            stride = (1, 2, 2, 2)[i] if j == 0 else 1
+            if j == 0:
+                conv(h, w, channels, out, 1, stride)
+            if bottleneck:
+                conv(h, w, channels, filters, 1)
+                h, w = conv(h, w, filters, filters, 3, stride)
+                conv(h, w, filters, out, 1)
+            else:
+                h, w = conv(h, w, channels, filters, 3, stride)
+                conv(h, w, filters, filters, 3)
+            channels = out
+    return flops + 2.0 * channels
+
+
+def grasp2vec_train_flops(scene_size, goal_size, batch_size, resnet_size=50) -> float:
+    """Flops of one Grasp2Vec train step: the pre, post and goal images'
+    ResNet forwards, times 3 for forward and backward (the loss and the
+    norms are not counted)."""
+    per_example = (2 * resnet_conv_flops(scene_size, resnet_size)
+                   + resnet_conv_flops(goal_size, resnet_size))
+    return 3.0 * batch_size * per_example
+
+
+def _g2v_step(model, weights, batch, device, dtype):
+    """One train-mode forward and backward (center crops, no flips) from
+    `weights` on a raw batch, in `dtype`: (loss, embeddings, gradients,
+    batch-norm buffers) on the CPU."""
+    import torch
+
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    network = model.create_network()
+    network.load_state_dict(weights)
+    network = network.to(device=device, dtype=dtype)
+    trainer = Trainer(model, device=device)
+    features, _ = trainer.preprocess_train(to_device(batch, device))
+    network.train()
+    outputs = network({k: v.to(dtype) for k, v in features.items()}, "train")
+    loss, _ = model.model_train_fn(features, None, outputs, "train")
+    loss.backward()
+    vectors = {k: outputs[k].detach().cpu().double()
+               for k in ("pre_vector", "post_vector", "goal_vector")}
+    grads = {k: p.grad.cpu().double() for k, p in network.named_parameters()
+             if p.grad is not None}
+    buffers = {k: b.detach().cpu().double() for k, b in network.named_buffers()}
+    del network
+    return loss.item(), vectors, grads, buffers
+
+
+def _grad_distance(grads, ref) -> tuple:
+    """(worst leaf's max error over its max, that leaf, relative L2 of the
+    whole gradient) of `grads` against `ref`."""
+    shares = {k: float((grads[k] - g).abs().max() / max(float(g.abs().max()), 1e-30))
+              for k, g in ref.items()}
+    worst = max(shares, key=shares.get)
+    num = sum(float(((grads[k] - g) ** 2).sum()) for k, g in ref.items())
+    den = sum(float((g ** 2).sum()) for g in ref.values())
+    return shares[worst], worst, math.sqrt(num / den)
+
+
+def grasp2vec_card_vs_cpu() -> str:
+    """A batch of G2V_CHECK_BATCH at full width through the same seeded
+    weights: the card in float32 against the CPU in float32 (forward,
+    statistics) and in float64 (gradients)."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRandomInputGenerator
+
+    model = grasp2vec_model()
+    generator = DefaultRandomInputGenerator(batch_size=G2V_CHECK_BATCH, seed=0)
+    generator.set_specification_from_model(model, "train")
+    batch = next(iter(generator.create_dataset("train")))
+    weights = model.init_network(torch.Generator().manual_seed(0), "cpu").state_dict()
+    cpu32 = _g2v_step(model, weights, batch, "cpu", torch.float32)
+    cpu64 = _g2v_step(model, weights, batch, "cpu", torch.float64)
+    card = _g2v_step(model, weights, batch, DEVICE, torch.float32)
+    loss_err = abs(card[0] - cpu32[0]) / abs(cpu32[0])
+    if not loss_err <= G2V_TOL:
+        raise AssertionError(f"grasp2vec card loss {card[0]} vs CPU {cpu32[0]}")
+    parts = [f"loss {card[0]:.7f} vs {cpu32[0]:.7f} (rel {loss_err:.2e}; float64 "
+             f"{cpu64[0]:.7f})"]
+    for name, index in (("embeddings", 1), ("batch-norm statistics", 3)):
+        if set(card[index]) != set(cpu32[index]):
+            raise AssertionError(f"grasp2vec {name}: keys differ")
+        shares = {k: _share(card[index][k], ref, G2V_TOL) for k, ref in cpu32[index].items()}
+        key = max(shares, key=shares.get)
+        if not shares[key] <= 1.0:
+            raise AssertionError(f"grasp2vec {name}: {key} at {shares[key] * G2V_TOL:.3e} "
+                                 f"of its max from the CPU's")
+        parts.append(f"{name} worst {key} at {shares[key] * G2V_TOL:.2e} of its max")
+    if set(card[2]) != set(cpu64[2]):
+        raise AssertionError("grasp2vec gradients: keys differ")
+    worst, key, l2 = _grad_distance(card[2], cpu64[2])
+    if not worst <= G2V_GRAD_TOL:
+        raise AssertionError(f"grasp2vec gradients: {key} at {worst:.3e} of its max from "
+                             f"float64, relative L2 {l2:.3e}")
+    cpu_worst, cpu_key, cpu_l2 = _grad_distance(cpu32[2], cpu64[2])
+    parts.append(f"gradients vs float64: card worst {key} at {worst:.3e} of its max, "
+                 f"relative L2 {l2:.3e} (the CPU's float32: {cpu_key} at {cpu_worst:.3e}, "
+                 f"L2 {cpu_l2:.3e})")
+    return "; ".join(parts)
+
+
+def phase_grasp2vec(model_dir: str) -> None:
+    """Grasp2Vec at full width: card vs CPU, 20 steps from JPEG records
+    through train_eval_model, the step's cost, serving the checkpoint's
+    embeddings, a heatmap and a triplet-loss step."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+    from tensor2robot_tpu_torch.research.grasp2vec import triplet_embedding_loss
+    from tensor2robot_tpu_torch.research.grasp2vec.visualization import compute_heatmap
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+        train_eval_model,
+    )
+
+    reset_launches()
+    line = grasp2vec_card_vs_cpu()
+    log(f"[grasp2vec] card vs CPU, batch {G2V_CHECK_BATCH} at full width "
+        f"({G2V_MODEL}, f32, TF32 off): {line}")
+    torch.cuda.empty_cache()
+
+    model = grasp2vec_model()
+    patterns, _, seconds = write_records(model, os.path.join(model_dir, "records"),
+                                         G2V_RECORDS, G2V_SOURCE)
+    t0 = time.monotonic()
+    final_eval = train_eval_model(
+        model,
+        DefaultRecordInputGenerator(file_patterns=patterns["train"], batch_size=G2V_BATCH,
+                                    seed=1),
+        DefaultRecordInputGenerator(file_patterns=patterns["eval"], batch_size=G2V_BATCH),
+        model_dir=model_dir, max_train_steps=TRAIN_STEPS, save_checkpoints_steps=SAVE_EVERY,
+        eval_steps=1, log_every_steps=LOG_EVERY, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    steps = state_lib.checkpoint_steps(model_dir)
+    losses = [r["loss"] for r in read_metrics(os.path.join(model_dir, "train"))]
+    if (steps != [SAVE_EVERY, TRAIN_STEPS] or not all(math.isfinite(x) for x in losses)
+            or set(final_eval) != {"loss", "embed_loss"}
+            or not all(math.isfinite(v) for v in final_eval.values())):
+        raise AssertionError(f"grasp2vec checkpoints {steps}, losses {losses}, "
+                             f"eval {final_eval}")
+    log(f"[grasp2vec] train_eval_model on {card_line()}: {TRAIN_STEPS} steps of batch "
+        f"{G2V_BATCH} from {G2V_RECORDS[0]} JPEG records ({seconds:.1f}s to write), "
+        f"checkpoints {steps}, in {wall:.1f}s; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; eval {final_eval}")
+
+    trainer = Trainer(model, device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    records = DefaultRecordInputGenerator(file_patterns=patterns["eval"],
+                                          batch_size=G2V_BATCH)
+    records.set_specification_from_model(model, "eval")
+    dataset = records.create_record_dataset("eval")
+    try:
+        host_batch = {k: torch.as_tensor(v).clone() for k, v in next(iter(dataset)).items()}
+    finally:
+        dataset.close()
+    batch = to_device(host_batch, DEVICE)
+    median, peak = _synced_step_ms(trainer, state, batch, TIMED_STEPS)
+    flops = grasp2vec_train_flops(G2V_MODEL["scene_size"], G2V_MODEL["goal_size"],
+                                  G2V_BATCH, G2V_MODEL["resnet_size"])
+    achieved = flops / (median / 1e3)
+    log(f"[grasp2vec] train step (batch {G2V_BATCH}, on-device batch, crops and flips "
+        f"included) on {card_line()}: median {median:.3f} ms over {TIMED_STEPS} synced "
+        f"steps = {1e3 / median:.3f} steps/s; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB; {flops / 1e12:.4f} TFLOP a step (analytic) -> "
+        f"{achieved / 1e12:.2f} TFLOP/s, {100 * achieved / F32_ROUTES[SIMT_F32]:.1f}% of "
+        "the f32 peak outside the tensor cores (TF32 off)")
+    device_profile("grasp2vec train step", lambda: trainer.train_step(state, batch),
+                   rows=15)
+
+    # Serve the last checkpoint: the predictor's embeddings are the
+    # in-process eval forward's on the restored weights.
+    del state
+    torch.cuda.empty_cache()
+    restored = restore_or_init_state(model_dir, trainer)
+    predictor = CheckpointPredictor(model, checkpoint_dir=model_dir, device=DEVICE)
+    if not predictor.restore() or predictor.global_step != TRAIN_STEPS:
+        raise AssertionError(f"grasp2vec predictor at step {predictor.global_step}")
+    raw = {k[len("features/"):]: v for k, v in host_batch.items()
+           if k.startswith("features/")}
+    served = predictor.predict(raw)
+    with torch.inference_mode():
+        features, _ = model.preprocessor.preprocess(
+            {k: v.to(DEVICE) for k, v in raw.items()}, None, mode="predict")
+        direct = trainer.predict_step(restored.network, features)
+    worst = 0.0
+    for key, want in direct.items():
+        want = want.cpu().numpy()
+        err = float(np.abs(served[key] - want).max())
+        if served[key].shape != want.shape or not err <= G2V_SERVE_TOL * np.abs(want).max():
+            raise AssertionError(f"served {key} off the eval forward by {err}")
+        worst = max(worst, err)
+    heatmaps, softmaxed = compute_heatmap(torch.from_numpy(served["goal_vector"]),
+                                          torch.from_numpy(served["pre_spatial"]))
+    sums = softmaxed.sum(dim=(1, 2, 3))
+    if (not torch.isfinite(heatmaps).all()
+            or not torch.allclose(sums, torch.ones_like(sums), atol=1e-5)):
+        raise AssertionError(f"grasp2vec heatmaps: softmax sums {sums}")
+    log(f"[grasp2vec] CheckpointPredictor at step {predictor.global_step}: "
+        f"{len(served)} outputs ({', '.join(f'{k} {tuple(v.shape)}' for k, v in sorted(served.items()))}) "
+        f"within {worst:.3e} of the in-process eval forward; heatmaps "
+        f"{tuple(heatmaps.shape)} finite, their softmax sums to 1")
+
+    triplet = grasp2vec_model(embedding_loss_fn=triplet_embedding_loss)
+    trainer = Trainer(triplet, device=DEVICE)
+    state = trainer.init_state(params=restored.network.state_dict())
+    del restored
+    metrics = trainer.train_step(state, batch)
+    loss = metrics["loss"].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"grasp2vec triplet step loss {loss}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"grasp2vec launched flash kernels: {launches}")
+    log(f"[grasp2vec] one triplet_embedding_loss step from step {TRAIN_STEPS}: loss "
+        f"{loss:.6f}; flash launches {launches}")
+    del state
+    torch.cuda.empty_cache()
+
+
+# -- vrgripper: the BC, TEC, WTL and MAML families at their defaults ---------------
+
+# The VRGripper models at the JAX package's defaults (100x100 images cropped
+# and resized from uint8 220x300 sources, episodes of 40 steps, action 7,
+# gripper pose 14), float32, batches of VRG_BATCH episodes (VRG_TASKS tasks
+# for the meta models), seed-0 weights. Card vs CPU (TF32 off, cuDNN
+# deterministic): the loss within LOSS_TOL of the CPU's float32 loss, and
+# each gradient against the CPU's float64 one, within the critic's float32
+# limit (CRITIC_F32_GRAD_TOL of its leaf's max) or twice the CPU's own
+# float32 distance from float64 on that leaf, whichever is larger. The meta
+# phase's GRAD_TOL, set before the first card run, failed there: the
+# regression model's float32 gradient lay 1.401e-04 of a leaf's max from
+# the CPU's float32 one, the TEC's conv2 kernel 1.607e-04 of its max from
+# float64 where the CPU's lay 1.059e-05 (cuDNN's float32 conv gradients
+# round more than the CPU's, as the critic phase found), and leaves that
+# sum ~10^5 cancelling terms (the conv biases before the towers' layer
+# norms) lie 1.04e-02 of their max from float64 on either device.
+VRG_BATCH = 8
+VRG_TASKS = 4
+VRG_STEPS = 10
+VRG_SERVE_TOL = 1e-6
+
+
+def vrgripper_models() -> dict:
+    """name -> a fresh model of each trained family."""
+    from tensor2robot_tpu_torch.research import vrgripper
+
+    def maml():
+        return vrgripper.VRGripperEnvRegressionModelMAML(
+            base_model=vrgripper.VRGripperRegressionModel(device_type="gpu"),
+            num_inner_loop_steps=1, use_second_order=True)
+
+    return {
+        "regression_mse": lambda: vrgripper.VRGripperRegressionModel(device_type="gpu"),
+        "regression_mdn3": lambda: vrgripper.VRGripperRegressionModel(
+            num_mixture_components=3, device_type="gpu"),
+        "domain_adaptive": lambda: vrgripper.VRGripperDomainAdaptiveModel(device_type="gpu"),
+        "tec": lambda: vrgripper.VRGripperEnvTecModel(embed_loss_weight=0.1,
+                                                      device_type="gpu"),
+        "wtl_trial": lambda: vrgripper.VRGripperEnvSimpleTrialModel(device_type="gpu"),
+        "maml_second_order": maml,
+    }
+
+
+def _random_batch(model, batch_size: int, seed: int):
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRandomInputGenerator
+
+    generator = DefaultRandomInputGenerator(batch_size=batch_size, seed=seed)
+    generator.set_specification_from_model(model, "train")
+    return next(iter(generator.create_dataset("train")))
+
+
+def _backward_on(model, weights, batch, device, dtype):
+    """(loss, {name: gradient} on the CPU in float64) of one train-mode
+    backward (no random crop) from `weights`, computed in `dtype`."""
+    import torch
+
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    def cast(structure):
+        return TensorSpecStruct({k: v.to(dtype) if v.is_floating_point() else v
+                                 for k, v in structure.items()})
+
+    trainer = Trainer(model, device=device)
+    network = trainer.init_state(params=weights).network.to(dtype)
+    features, labels = trainer.preprocess_train(to_device(batch, device))
+    features, labels = cast(features), cast(labels)
+    network.train()
+    outputs, _ = model.inference_network_fn(network, features, "train", labels=labels)
+    loss, _ = model.model_train_fn(features, labels, outputs, "train")
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu().double()
+                         for k, p in network.named_parameters() if p.grad is not None}
+
+
+def card_vs_cpu_backward(make_model, batch) -> str:
+    """One train-mode backward from the same seed-0 weights on the same
+    batch, on the card and on the CPU: the card's loss within LOSS_TOL
+    relative of the CPU's float32 loss, and every gradient within
+    max(CRITIC_F32_GRAD_TOL, twice the CPU's float32 distance) of its
+    leaf's max from the CPU's float64 gradient."""
+    import torch
+
+    model = make_model()
+    weights = model.init_network(torch.Generator().manual_seed(0), "cpu").state_dict()
+    want, cpu_grads = _backward_on(model, weights, batch, "cpu", torch.float32)
+    _, ref = _backward_on(model, weights, batch, "cpu", torch.float64)
+    got, got_grads = _backward_on(model, weights, batch, DEVICE, torch.float32)
+    loss_err = abs(got - want) / abs(want)
+    if not loss_err <= LOSS_TOL or not set(got_grads) == set(cpu_grads) == set(ref):
+        raise AssertionError(f"card loss {got} vs CPU {want}")
+
+    def distance(grads, key):
+        return float((grads[key] - ref[key]).abs().max() / max(float(ref[key].abs().max()),
+                                                               1e-30))
+
+    card = {k: distance(got_grads, k) for k in ref}
+    cpu = {k: distance(cpu_grads, k) for k in ref}
+    for key in ref:
+        allowance = max(CRITIC_F32_GRAD_TOL, 2.0 * cpu[key])
+        if not card[key] <= allowance + 1e-7 / max(float(ref[key].abs().max()), 1e-30):
+            raise AssertionError(f"{key}: the card's gradient lies {card[key]:.3e} of its "
+                                 f"max from float64, the CPU's float32 {cpu[key]:.3e}")
+    worst = max(card, key=card.get)
+    return (f"loss {got:.7f} vs {want:.7f} (rel {loss_err:.2e}); gradients vs float64: "
+            f"card worst {worst} at {card[worst]:.2e} of its max (the CPU's float32 there "
+            f"{cpu[worst]:.2e}, its worst {max(cpu.values()):.2e})")
+
+
+def phase_vrgripper(model_dir: str) -> None:
+    """Each VRGripper family: card vs CPU, then steps on the card; the MSE
+    regression model through train_eval_model and served from its
+    checkpoint."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRandomInputGenerator
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+        train_eval_model,
+    )
+
+    reset_launches()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make_model in vrgripper_models().items():
+            meta = name in ("tec", "wtl_trial", "maml_second_order")
+            batch = _random_batch(make_model(), VRG_TASKS if meta else VRG_BATCH, seed=0)
+            line = card_vs_cpu_backward(make_model, batch)
+            trainer = Trainer(make_model(), device=DEVICE)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            device_batch = to_device(batch, DEVICE)
+            median, peak = _synced_step_ms(trainer, state, device_batch, VRG_STEPS)
+            loss = trainer.train_step(state, device_batch)["loss"].item()
+            if not math.isfinite(loss):
+                raise AssertionError(f"{name} loss {loss}")
+            log(f"[vrgripper] {name} ({VRG_TASKS if meta else VRG_BATCH} "
+                f"{'tasks' if meta else 'episodes'} of 40 steps): card vs CPU {line}; "
+                f"synced step on {card_line()}: median {median:.3f} ms over {VRG_STEPS} = "
+                f"{1e3 / median:.3f} steps/s, peak {peak / 2**30:.3f} GiB; loss after "
+                f"{VRG_STEPS + 3} steps {loss:.6f}")
+            if name == "maml_second_order":
+                device_profile("vrgripper MAML second-order step",
+                               lambda: trainer.train_step(state, device_batch))
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # The MSE regression model through the trainer, served from its checkpoint.
+    model = vrgripper_models()["regression_mse"]()
+    t0 = time.monotonic()
+    final_eval = train_eval_model(
+        model, DefaultRandomInputGenerator(batch_size=VRG_BATCH, seed=0),
+        DefaultRandomInputGenerator(batch_size=VRG_BATCH, seed=1000), model_dir=model_dir,
+        max_train_steps=VRG_STEPS, save_checkpoints_steps=VRG_STEPS // 2, eval_steps=1,
+        log_every_steps=VRG_STEPS // 2, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    steps = state_lib.checkpoint_steps(model_dir)
+    if steps != [VRG_STEPS // 2, VRG_STEPS] or not all(
+            math.isfinite(v) for v in final_eval.values()):
+        raise AssertionError(f"vrgripper checkpoints {steps}, eval {final_eval}")
+    predictor = CheckpointPredictor(model, checkpoint_dir=model_dir, device=DEVICE)
+    if not predictor.restore() or predictor.global_step != VRG_STEPS:
+        raise AssertionError(f"vrgripper predictor at step {predictor.global_step}")
+    raw = {k[len("features/"):]: v for k, v in _random_batch(model, 2, seed=5).items()
+           if k.startswith("features/")}
+    served = predictor.predict(raw)
+    trainer = Trainer(model, device=DEVICE)
+    restored = restore_or_init_state(model_dir, trainer)
+    with torch.inference_mode():
+        features, _ = model.preprocessor.preprocess(
+            {k: torch.as_tensor(v).to(DEVICE) for k, v in raw.items()}, None,
+            mode="predict")
+        direct = trainer.predict_step(restored.network, features)
+    action = direct["inference_output"].cpu().numpy()
+    err = float(np.abs(served["inference_output"] - action).max())
+    if served["inference_output"].shape != (2, 40, 7) or not err <= VRG_SERVE_TOL:
+        raise AssertionError(f"served actions off the eval forward by {err}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"vrgripper launched flash kernels: {launches}")
+    log(f"[vrgripper] regression_mse train_eval_model on {card_line()}: {VRG_STEPS} steps "
+        f"of batch {VRG_BATCH}, checkpoints {steps}, in {wall:.1f}s; eval {final_eval}; "
+        f"CheckpointPredictor at step {predictor.global_step}: actions "
+        f"{served['inference_output'].shape} within {err:.3e} of the in-process eval "
+        f"forward; flash launches {launches}")
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -3851,6 +4358,12 @@ def main() -> int:
                 for name, count in timed_phase(
                         "moe", phase_moe, os.path.join(model_dir, "moe")).items():
                     launches[name] = launches.get(name, 0) + count
+            if "grasp2vec" in phases:
+                timed_phase("grasp2vec", phase_grasp2vec,
+                            os.path.join(model_dir, "grasp2vec"))
+            if "vrgripper" in phases:
+                timed_phase("vrgripper", phase_vrgripper,
+                            os.path.join(model_dir, "vrgripper"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

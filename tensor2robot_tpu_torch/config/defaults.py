@@ -8,22 +8,9 @@ defaults register: the trainer and continuous eval, input generators,
 warm start, optimizers, mocks, hooks, exporters, predictors, policies,
 the collect/eval loop and writers, episode runners and the research
 models.
-
-Names whose module is not ported yet register a stub that raises
-NotImplementedError naming its ROADMAP.md item when called; a config that
-binds them but never calls them parses and runs.
 """
 
 from tensor2robot_tpu_torch.config.registry import external_configurable
-
-
-def _unported(name: str, item: str):
-    def stub(*args, **kwargs):
-        del args, kwargs
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md {item})")
-
-    stub.__name__ = stub.__qualname__ = name
-    return external_configurable(stub, name)
 
 
 # -- trainer ------------------------------------------------------------------
@@ -131,18 +118,19 @@ from tensor2robot_tpu_torch.research.qtopt import t2r_models as _qtopt_models
 
 _critic = _qtopt_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom
 globals()[_critic.__name__] = external_configurable(_critic, _critic.__name__)
-globals()["Grasp2VecModel"] = _unported("Grasp2VecModel", "A8(b)")
+from tensor2robot_tpu_torch.research import grasp2vec as _grasp2vec
+
+Grasp2VecModel = external_configurable(_grasp2vec.Grasp2VecModel, "Grasp2VecModel")
+from tensor2robot_tpu_torch.research import vrgripper as _vrgripper
+
 for _name in (
     "VRGripperRegressionModel",
     "VRGripperDomainAdaptiveModel",
     "VRGripperEnvTecModel",
     "VRGripperEnvSimpleTrialModel",
     "VRGripperEnvRegressionModelMAML",
-    "episode_to_transitions_reacher",
-    "episode_to_transitions_metareacher",
-    "make_fixed_length",
 ):
-    globals()[_name] = _unported(_name, "A8(c)")
+    globals()[_name] = external_configurable(getattr(_vrgripper, _name), _name)
 
 # -- transformer model family -------------------------------------------------
 from tensor2robot_tpu_torch.models import transformer_models as _transformer_models

@@ -2,13 +2,14 @@
 
 Port of tensor2robot_tpu/layers/spatial_softmax.py. Input is NHWC, as in
 the JAX package; output ordering is [x1..xN, y1..yN] with coordinates
-normalized to [-1, 1]. The JAX version's Gumbel sampling mode waits for
-the model that uses it.
+normalized to [-1, 1]. With a `generator`, locations are sampled: Gumbel
+noise drawn from it is added to logits / temperature (the JAX version's
+gumbel_rng mode).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,15 +28,26 @@ def _coordinate_grids(
     return x_pos, y_pos
 
 
+def draw_gumbel(generator: torch.Generator, shape, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform on [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(dtype).tiny)))
+
+
 def spatial_softmax(
     features: torch.Tensor,
     temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expected feature-point coordinates via a spatial softmax.
 
     Args:
       features: [batch, num_rows, num_cols, num_features] activations.
       temperature: Softmax temperature (logits are divided by it).
+      generator: If given, sample locations stochastically: Gumbel noise
+        of the logits' [batch * num_features, num_rows * num_cols] layout
+        (draw_gumbel) is added to logits / temperature.
 
     Returns:
       (expected_feature_points [batch, 2*num_features] ordered
@@ -52,6 +64,9 @@ def spatial_softmax(
         batch * num_features, num_rows * num_cols
     )
     logits = logits / temperature
+    if generator is not None:
+        logits = logits + draw_gumbel(generator, logits.shape, logits.dtype,
+                                      logits.device)
     softmax = torch.softmax(logits, dim=-1)
     x_out = (softmax * x_pos).sum(dim=1).reshape(batch, num_features)
     y_out = (softmax * y_pos).sum(dim=1).reshape(batch, num_features)

@@ -190,13 +190,13 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
 
 def init_parameters(network: nn.Module, generator: torch.Generator) -> None:
     """Initializes every parameter of `network` in place as flax would:
-    Linear/Conv2d kernels lecun-normal and biases zero, LayerNorm scale one
-    and bias zero, and modules with parameters of their own through their
-    `init_own_parameters(generator)`. The draws come from `generator`, so
-    the same seed gives the same weights on any device."""
+    Linear/Conv1d/Conv2d kernels lecun-normal and biases zero, LayerNorm
+    scale one and bias zero, and modules with parameters of their own
+    through their `init_own_parameters(generator)`. The draws come from
+    `generator`, so the same seed gives the same weights on any device."""
     with torch.no_grad():
         for module in network.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = module.weight[0].numel()
                 _lecun_normal_(module.weight, fan_in, generator)
                 if module.bias is not None:

@@ -49,6 +49,12 @@ class FlaxLayerNorm(nn.Module):
             x = x.to(torch.promote_types(x.dtype, self.bias.dtype))
             if getattr(_STATE, "decomposed", False):
                 return self._decomposed(x)
+            if self.weight is None:
+                # The bias is added outside the fused norm: with a bias and
+                # no weight, CUDA's fused backward returned an empty bias
+                # gradient on the card (torch 2.11; VRGripper's tower over
+                # 320 images of 100x100).
+                return F.layer_norm(x, (x.shape[-1],), None, None, self.eps) + self.bias
             return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
 
     def _decomposed(self, x: torch.Tensor) -> torch.Tensor:

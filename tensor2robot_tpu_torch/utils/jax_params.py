@@ -5,7 +5,7 @@ The port names its modules as the flax modules are named (Conv_0, embed,
 encoder.block_0.attention.qkv, grasping44.conv2.BatchNorm_0, ...), so a
 params tree given as nested dicts of numpy arrays maps leaf by leaf:
 
-  * Conv `kernel` HWIO -> `weight` OIHW
+  * Conv `kernel` HWIO -> `weight` OIHW; a 1-D Conv's WIO -> OIW
   * Dense `kernel` [in, out] -> Linear `weight` [out, in]
   * LayerNorm and BatchNorm `scale` -> `weight`; every `bias` as is
   * any other leaf (e.g. `pos_embedding`) as is
@@ -70,6 +70,8 @@ def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
                 name = "weight"
                 if array.ndim == 2:
                     array = array.T
+                elif array.ndim == 3:
+                    array = array.transpose(2, 1, 0)
                 elif array.ndim == 4:
                     array = array.transpose(3, 2, 0, 1)
                 else:

@@ -112,7 +112,7 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data", "cli", "meta", "stream", "moe")
+        "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -323,3 +323,44 @@ def test_moe_flips_leave_their_episode_out(chip_smoke, monkeypatch, capsys):
     picks = iter([flipped(1e-3), same])
     with pytest.raises(AssertionError, match="routing differs past the margin"):
         chip_smoke.moe_gradient_check()
+
+
+def test_grasp2vec_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The grasp2vec phase at ResNet-18 and 32x32 crops (of 512x640 JPEG
+    sources): card vs CPU (here CPU against CPU), 20 steps from 8 records,
+    the step's cost, the served embeddings and a triplet step; and the
+    full-width step's flop count."""
+    monkeypatch.setattr(chip_smoke, "G2V_MODEL",
+                        dict(scene_size=(32, 32), goal_size=(32, 32), resnet_size=18))
+    monkeypatch.setattr(chip_smoke, "G2V_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "G2V_RECORDS", (4, 2, 2))
+    chip_smoke.phase_grasp2vec(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[grasp2vec] card vs CPU, batch 2 at full width", "gradients vs float64",
+                 "[grasp2vec] train_eval_model on CPU rehearsal: 20 steps of batch 2",
+                 "[grasp2vec] train step (batch 2, on-device batch",
+                 "[grasp2vec] CheckpointPredictor at step 20: 6 outputs",
+                 "[grasp2vec] one triplet_embedding_loss step from step 20"):
+        assert line in out, out
+    # ResNet-50 at 472x472: ~36 GFLOP a forward per image (the conv count
+    # of the 224x224 network's 4.1 GMACs, scaled by (472 / 224)^2).
+    assert chip_smoke.resnet_conv_flops((224, 224)) == pytest.approx(8.2e9, rel=0.02)
+    assert chip_smoke.grasp2vec_train_flops((472, 472), (472, 472), 8) == pytest.approx(
+        2.6e12, rel=0.05)
+
+
+def test_vrgripper_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The vrgripper phase at its widths with 2 episodes (2 tasks) a batch
+    and 2 steps: card vs CPU (here CPU against CPU) and the steps of each
+    family, then the MSE model's trainer run and its served actions."""
+    monkeypatch.setattr(chip_smoke, "VRG_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "VRG_TASKS", 2)
+    monkeypatch.setattr(chip_smoke, "VRG_STEPS", 2)
+    chip_smoke.phase_vrgripper(str(tmp_path))
+    out = capsys.readouterr().out
+    for name in ("regression_mse", "regression_mdn3", "domain_adaptive", "tec",
+                 "wtl_trial", "maml_second_order"):
+        assert f"[vrgripper] {name} (2 " in out, out
+    for line in ("card vs CPU loss", "[vrgripper] regression_mse train_eval_model on CPU "
+                 "rehearsal: 2 steps of batch 2", "CheckpointPredictor at step 2"):
+        assert line in out, out

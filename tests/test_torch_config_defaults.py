@@ -2,9 +2,8 @@
 let the JAX package's shipped gin configs run on the port.
 
   * The port registers exactly the names the JAX package's defaults
-    register (64 after import; each side counted in a fresh interpreter).
-    Each ported name builds the port's own object; each name whose module
-    is not ported is a stub that raises naming its ROADMAP.md item.
+    register (64 after import; each side counted in a fresh interpreter),
+    and every name builds the port's own object.
   * D2: a config's `import tensor2robot_tpu.<m>` loads the port's
     `tensor2robot_tpu_torch.<m>`: parsing each shipped .gin file (and the
     port's copies) in a subprocess leaves neither jax nor
@@ -58,13 +57,6 @@ BF16_GRAD_TOL_TREE = 0.1
 # at most 0.32 of the leaf's largest here), so Adam's first step, the
 # learning rate times the gradient's sign, must agree on it.
 SIGN_POSED = 0.35
-STUBS = {
-    "Grasp2VecModel": "A8(b)",
-    "VRGripperRegressionModel": "A8(c)", "VRGripperDomainAdaptiveModel": "A8(c)",
-    "VRGripperEnvTecModel": "A8(c)", "VRGripperEnvSimpleTrialModel": "A8(c)",
-    "VRGripperEnvRegressionModelMAML": "A8(c)", "episode_to_transitions_reacher": "A8(c)",
-    "episode_to_transitions_metareacher": "A8(c)", "make_fixed_length": "A8(c)",
-}
 # The JAX package's registry after `import tensor2robot_tpu.config.defaults`.
 JAX_NAMES = (
     "AsyncExportHookBuilder", "BestExporter", "CEMPolicy", "CheckpointPredictor",
@@ -91,7 +83,7 @@ JAX_NAMES = (
     "make_fixed_length", "predict_from_model", "run_env", "run_meta_env",
     "run_tfagents_env", "train_eval_model",
 )
-PORTED = sorted(set(JAX_NAMES) - set(STUBS))
+PORTED = sorted(JAX_NAMES)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,15 +148,6 @@ def test_ported_names_build_the_ports_objects(name):
     if inspect.isclass(original):
         registered = cfg.get_configurable(name)
         assert issubclass(registered, original)
-
-
-@pytest.mark.parametrize("name", sorted(STUBS))
-def test_unported_names_raise_naming_their_item(name):
-    stub = cfg.get_configurable(name)
-    cfg.bind_parameter(f"{name}.anything", 1)  # bindings parse; the call raises
-    with pytest.raises(NotImplementedError, match=rf"{name} is not ported yet "
-                                                 rf"\(ROADMAP.md {re.escape(STUBS[name])}\)"):
-        stub()
 
 
 SHIPPED = [os.path.join(JAX_CONFIGS, f) for f in CONFIG_FILES] + [

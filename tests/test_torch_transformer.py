@@ -317,5 +317,10 @@ class TestJaxParams:
         assert state["pos_embedding"].shape == (10, 6)
 
     def test_rejects_unknown_kernel_rank(self):
-        with pytest.raises(ValueError, match="rank 3"):
-            flax_params_to_state_dict({"x": {"kernel": np.zeros((2, 2, 2))}})
+        with pytest.raises(ValueError, match="rank 5"):
+            flax_params_to_state_dict({"x": {"kernel": np.zeros((2, 2, 2, 2, 2))}})
+
+    def test_conv1d_kernel_to_torch_layout(self):
+        kernel = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)  # [k, in, out]
+        weight = flax_params_to_state_dict({"c": {"kernel": kernel}})["c.weight"]
+        np.testing.assert_array_equal(weight.numpy(), kernel.transpose(2, 1, 0))
