@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper,maml_export,stem_s2d,png]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -105,7 +105,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 PoseEnvContinuousMCModel export. No flash kernel runs.
   8. data     — the data stack: builds the native TFRecord codec and the
                 JPEG codec (libjpeg where the host has jpeglib.h, else
-                nvJPEG; the line names it) with g++, writes 512 train
+                nvJPEG; the line names it) with g++, writes 256 train
                 records in 4 shards and 64 eval records of the critic's
                 in-spec (512x640 q95 JPEGs of seeded camera-like frames),
                 holds FastSpecParser against SpecParser bit for bit (the
@@ -190,7 +190,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 a batch of 2 through the same seeded weights on the card
                 and the CPU (embeddings, loss and batch-norm statistics
                 1e-4 of their max; gradients under the critic's f32
-                limit), 160 JPEG records, 20 steps through
+                limit), 96 JPEG records, 20 steps through
                 train_eval_model from them (nvJPEG decode on the card),
                 the synced step's time, TFLOP/s against an analytic flop
                 count, peak memory and profile, the checkpoint's
@@ -207,6 +207,25 @@ Phases, each fatal on failure (exit code 1, no result line):
                 then the MSE model through train_eval_model, served from
                 its checkpoint equal to the in-process eval forward. No
                 flash kernel runs.
+ 15. maml_export — MAML models exported as static-batch programs (make_fx
+                records the inner backward as aten ops): the shipped
+                run_train_reg_maml.gin model (8 tasks of 3 + 3 at 64x64)
+                at batches 1 and 8, VRGripper's MAML model at its JAX
+                defaults (4 tasks), and the policy's model at 1; each
+                program held to the checkpoint forward on the same
+                weights, export, load and warm predict timed; then one
+                MAML policy episode on PoseToyEnv from the export, acting
+                as the checkpoint policy does.
+ 16. stem_s2d — the full-width critic (batch 64, f32, TF32 off) with the
+                space-to-depth stem against the plain stem on the same
+                weights (stem output and eval logits), 5 S2D train steps,
+                a synced step of each stem; then one PCGrad step over the
+                critic's loss split into two tasks, card vs CPU with
+                every relu and pool pinned to the card's choices.
+ 17. png      — 512x640 RGB PNG records of the critic's in-spec through
+                the port's encoder, parsed back bit for bit; PNG decode
+                MB/s beside JPEG's on one thread; RecordDataset feeding
+                the critic from them (decode whole, crop 472x472).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -217,6 +236,7 @@ of the phases prints no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -230,7 +250,8 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper")
+          "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
+          "stem_s2d", "png")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -307,7 +328,7 @@ CRITIC_EVAL_STEPS = 1
 # The data phase: full-width JPEG records of the critic's in-spec (train
 # records, train shards, eval records), timed batches of RecordDataset
 # alone, and the steps profiled when fed from records.
-DATA_RECORDS = (512, 4, 64)
+DATA_RECORDS = (256, 4, 64)
 DATA_BATCHES = 32
 PROFILED_FED_STEPS = 5
 GOLDEN_RECORDS = os.path.join(ROOT, "tests", "golden", "qtopt_train.tfrecord")
@@ -2221,14 +2242,16 @@ def roundtrip_error(frames, decoded):
     return float(diff.mean()), int(diff.max())
 
 
-def write_records(model, directory: str, counts, image_hw, seed: int = 0):
+def write_records(model, directory: str, counts, image_hw, seed: int = 0,
+                  image_format: str = "jpeg"):
     """Records of a model's in-spec (train): every JPEG feature (the
-    critic's state/image, Grasp2Vec's three images) a q95 JPEG of
-    camera_like_frames at `image_hw`, every other feature and the label
+    critic's state/image, Grasp2Vec's three images) a q95 JPEG (or, with
+    image_format "png", a PNG, which the decoder tells by its signature)
+    of camera_like_frames at `image_hw`, every other feature and the label
     drawn from the spec with the seed. counts = (train records, train
     shards, eval records). Returns ({"train": pattern, "eval": pattern},
-    the first shard's (frames, records, JPEGs) of the first JPEG feature,
-    seconds to write)."""
+    the first shard's (frames, records, encoded images) of the first image
+    feature, seconds to write)."""
     from tensor2robot_tpu_torch.data import codec, tfrecord
     from tensor2robot_tpu_torch.data.encoder import encode_example
     from tensor2robot_tpu_torch.specs import TensorSpecStruct, make_random_numpy
@@ -2251,7 +2274,9 @@ def write_records(model, directory: str, counts, image_hw, seed: int = 0):
         images = {}
         for k, key in enumerate(jpeg_keys):
             frames = camera_like_frames(n, *image_hw, seed=part_seed + 17 * k)
-            images[key] = (frames, [codec.encode_jpeg(f, quality=95) for f in frames])
+            images[key] = (frames, [codec.encode_jpeg(f, quality=95) if image_format == "jpeg"
+                                    else codec.encode_image(f, image_format)
+                                    for f in frames])
         records = []
         for i in range(n):
             row = {key: value[i] for key, value in values.items()}
@@ -3809,7 +3834,7 @@ def phase_moe(model_dir: str) -> dict:
 G2V_MODEL = dict(scene_size=(472, 472), goal_size=(472, 472), resnet_size=50)
 G2V_BATCH = 8
 G2V_CHECK_BATCH = 2
-G2V_RECORDS = (160, 2, 16)
+G2V_RECORDS = (96, 2, 16)
 G2V_SOURCE = (512, 640)
 # Card vs CPU at full width (TF32 off), a batch of 2: the card's float32
 # embeddings, loss and batch-norm statistics within G2V_TOL of their max
@@ -4281,6 +4306,439 @@ def phase_vrgripper(model_dir: str) -> None:
         f"forward; flash launches {launches}")
 
 
+# -- the maml_export phase: MAML models exported and served ---------------------
+
+# The shipped run_train_reg_maml.gin model (8 tasks of 3 condition + 3
+# inference samples at 64x64) is exported as static-batch programs at one
+# task (a robot) and the meta batch, VRGripper's MAML model (JAX defaults)
+# at VRG_TASKS, and the policy's model (FixedLenMetaExamplePreprocessor, one
+# sample a side) at one task. Each program is held to the same weights'
+# checkpoint forward under SERVE_TOL (the served-action gate, set before
+# the first card run).
+MAML_EXPORT_BATCHES = (1, META_TASKS)
+MAML_TIMED_PREDICTS = 5
+
+
+def _flat_request(generator, tasks: int, seed: int) -> dict:
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+
+    return dict(make_random_numpy(generator.serving_input_spec(), batch_size=tasks,
+                                  seed=seed).items())
+
+
+def _synced_call_ms(fn, iters: int) -> float:
+    """Median ms of `fn()` over iters synced calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def export_maml(label: str, model, root: str, batches, tasks: int, warmup: bool = True,
+                timed=()):
+    """Exports seed-0 weights of a MAML model as one program per batch in
+    `batches` (with the warmup ladder, and its requests unless `warmup` is
+    False: the record encoder, as the JAX package's, writes a stack of
+    images but not a stack of image sequences), holds the program against
+    the checkpoint forward on `tasks` tasks and times both at the task
+    counts in `timed`; returns the export dir and the weights."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import saved_model
+    from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+
+    weights = model.init_network(torch.Generator().manual_seed(0), DEVICE).state_dict()
+    generator = DefaultExportGenerator()
+    generator.set_specification_from_model(model)
+    serving = generator.create_serving_fn(weights, device=torch.device(DEVICE))
+    t0 = time.monotonic()
+    path = saved_model.save_exported_model(
+        root, weights, generator.serving_input_spec(), serving_module=serving,
+        example_features=generator.create_example_features(),
+        metadata={"warmup_batch_sizes": list(batches)}, program_batches=batches)
+    export_s = time.monotonic() - t0
+    if warmup:
+        generator.write_warmup_requests(generator.generate_warmup_batches(batches), path)
+    t0 = time.monotonic()
+    loaded = saved_model.ExportedModel(path, device=DEVICE)
+    load_s = time.monotonic() - t0
+    if not loaded.has_program or loaded.program_batches != sorted(batches):
+        raise AssertionError(f"{label} export has no programs at {batches}: "
+                             f"{loaded.metadata.get('program_error')}")
+    reference = CheckpointPredictor(model, device=DEVICE)
+    reference.load_state_dict(weights)
+    request = _flat_request(generator, tasks, seed=1)
+    got, want = loaded.predict(request), reference.predict(request)
+    worst = 0.0
+    for key in ("inference_output", "condition_output"):
+        err = np.abs(got[key] - want[key]) / (SERVE_TOL * (1.0 + np.abs(want[key])))
+        worst = max(worst, float(err.max()))
+        if got[key].shape != want[key].shape or not np.all(np.isfinite(got[key])):
+            raise AssertionError(f"{label} {key}: {got[key].shape} vs {want[key].shape}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{label} export off the checkpoint forward at {worst:.3f} "
+                             f"of {SERVE_TOL} abs + rel")
+    times = {}
+    for size in timed:
+        one = {k: torch.as_tensor(v[:size]).to(DEVICE) for k, v in request.items()}
+        times[size] = (
+            _synced_call_ms(lambda: loaded.traced_predict(one), MAML_TIMED_PREDICTS),
+            _synced_call_ms(lambda: serving(one), MAML_TIMED_PREDICTS))
+    mb = sum(os.path.getsize(saved_model.static_program_path(path, b))
+             for b in batches) / 1e6
+    log(f"[maml_export] {label} on {card_line()}: programs at batches {list(batches)} "
+        f"traced (make_fx, inner backward included) and saved in {export_s:.1f}s "
+        f"({mb:.1f} MB), loaded in {load_s:.1f}s; {tasks} task(s) within {worst:.3f} of "
+        f"the {SERVE_TOL} abs + rel gate of the checkpoint forward"
+        + "".join(f"; warm predict of {size} task(s) {ms:.3f} ms, the eager module "
+                  f"{eager:.3f} ms (median of {MAML_TIMED_PREDICTS} synced)"
+                  for size, (ms, eager) in times.items()))
+    return os.path.dirname(path), weights
+
+
+def maml_policy_from_export(root: str, model, weights) -> None:
+    """A MAML policy episode on PoseToyEnv from the export, acting as the
+    same weights' checkpoint policy does."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.meta_learning import MAMLRegressionPolicy, run_meta_env
+    from tensor2robot_tpu_torch.predictors import (
+        CheckpointPredictor,
+        ExportedSavedModelPredictor,
+    )
+    from tensor2robot_tpu_torch.research.pose_env import PoseToyEnv
+
+    predictor = ExportedSavedModelPredictor(root, timeout=0, device=DEVICE)
+    if not predictor.restore() or not predictor.loaded_model.has_program:
+        raise AssertionError("the MAML policy export did not restore with its program")
+    policy = MAMLRegressionPolicy(predictor, pack_fn=unbatched_pack(model.pack_features))
+    env = _RecordedEnv(PoseToyEnv(hidden_drift=True, seed=3))
+    t0 = time.monotonic()
+    stats = run_meta_env(env, policy, num_tasks=1, num_adaptations_per_task=2)
+    env_s = time.monotonic() - t0
+    actions = np.stack(env.actions)
+    if not np.all(np.isfinite(actions)) or not np.all(np.abs(actions) <= 1.0):
+        raise AssertionError(f"policy actions {actions}")
+    reference = CheckpointPredictor(model, device=DEVICE)
+    reference.load_state_dict(weights)
+    twin = MAMLRegressionPolicy(reference, pack_fn=unbatched_pack(model.pack_features))
+    twin.adapt(policy.prev_episode_data)
+    obs = env.reset()
+    action, want = policy.SelectAction(obs), twin.SelectAction(obs)
+    gap = float(np.max(np.abs(action - want) / (1.0 + np.abs(want))))
+    if not gap <= SERVE_TOL:
+        raise AssertionError(f"export policy action {action} vs checkpoint {want}")
+    log(f"[maml_export] MAML policy from the export on {card_line()}: run_meta_env 1 "
+        f"task x 2 adaptations in {env_s:.2f}s ("
+        + ", ".join(f"{k.split('/', 1)[1]} {v:.6f}" for k, v in sorted(stats.items()))
+        + f"); action vs the checkpoint policy's {gap:.2e}")
+
+
+def phase_maml_export(model_dir: str) -> None:
+    from tensor2robot_tpu_torch.meta_learning import FixedLenMetaExamplePreprocessor
+
+    reset_launches()
+    export_maml("pose MAML (run_train_reg_maml.gin model, 3 + 3 samples at 64x64)",
+                meta_model(), os.path.join(model_dir, "pose"), MAML_EXPORT_BATCHES,
+                META_TASKS, timed=(1, META_TASKS))
+    export_maml("VRGripper MAML (JAX defaults)", vrgripper_models()["maml_second_order"](),
+                os.path.join(model_dir, "vrgripper"), (VRG_TASKS,), VRG_TASKS, warmup=False,
+                timed=(VRG_TASKS,))
+    policy_model = meta_model(preprocessor_cls=FixedLenMetaExamplePreprocessor)
+    root, weights = export_maml("pose MAML policy model (1 + 1 samples)", policy_model,
+                                os.path.join(model_dir, "policy"), (1,), 1)
+    maml_policy_from_export(root, policy_model, weights)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"maml_export launched flash kernels: {launches}")
+
+
+# -- the stem_s2d phase: the space-to-depth stem and PCGrad on the critic --------
+
+# The S2D stem's output against the plain stem's on the same weights: the
+# CPU tests' float32 limit (tests/test_torch_s2d_conv.py), of the output's
+# largest magnitude; the critic's eval-mode logits under SERVE_TOL of
+# their largest, on weights of a trained critic's scale (scaled_params:
+# the package's init leaves the logits at ~0). The PCGrad step's gradients against the CPU's, every relu and
+# pool pinned to the card's choices, under CRITIC_F32_GRAD_TOL of each
+# leaf's largest (those 0 in exact arithmetic: ZERO_GRAD of the largest).
+S2D_STEM_TOL = 2e-5
+S2D_STEPS = 5
+PCGRAD_BATCH = 4
+
+
+@contextlib.contextmanager
+def stem_flag(s2d: bool):
+    """T2R_STEM_S2D set while a critic network is built (the stem is chosen
+    then)."""
+    saved = os.environ.get("T2R_STEM_S2D")
+    os.environ["T2R_STEM_S2D"] = "1" if s2d else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("T2R_STEM_S2D", None)
+        else:
+            os.environ["T2R_STEM_S2D"] = saved
+
+
+def s2d_stem_check() -> None:
+    """The S2D stem against the plain one on the same weights (seeded at a
+    trained critic's scale, scaled_params) and batch: the stem's output
+    and the eval-mode logits; then S2D_STEPS train steps with S2D and a
+    synced step of each stem."""
+    import torch
+
+    from tensor2robot_tpu_torch.layers.s2d_conv import SpaceToDepthConv
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = critic_model()
+    batch = to_device(_random_batch(model, CRITIC_BATCH, seed=3), DEVICE)
+    stems, logits, states, trainers = {}, {}, {}, {}
+    weights = None
+    for name in ("plain", "s2d"):
+        with stem_flag(name == "s2d"):
+            trainers[name] = Trainer(critic_model(), device=DEVICE)
+            if weights is None:
+                weights = scaled_params(trainers[name].init_state(
+                    torch.Generator().manual_seed(0)).network.state_dict())
+            states[name] = trainers[name].init_state(params=weights)
+        network = states[name].network
+        if isinstance(network.grasping44.conv1_1, SpaceToDepthConv) != (name == "s2d"):
+            raise AssertionError(f"the {name} critic built another stem")
+        with torch.no_grad():
+            features, _ = trainers[name].preprocessor.preprocess(
+                batch["features"], None, mode="eval")
+            stems[name] = network.grasping44.conv1_1(
+                features["state/image"].permute(0, 3, 1, 2))
+            logits[name] = network(features, "eval")["q_predicted"]
+
+    def share(values):
+        return float((values["s2d"] - values["plain"]).abs().max()
+                     / values["plain"].abs().max())
+
+    stem_err, logit_err = share(stems), share(logits)
+    if not stem_err <= S2D_STEM_TOL or not logit_err <= SERVE_TOL:
+        raise AssertionError(f"S2D stem off the plain stem: {stem_err:.3e} of the "
+                             f"stem's max, logits {logit_err:.3e}")
+    losses = [trainers["s2d"].train_step(states["s2d"], batch)["loss"].item()
+              for _ in range(S2D_STEPS)]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"S2D critic losses {losses}")
+    timed = {name: _synced_step_ms(trainers[name], states[name], batch, S2D_STEPS)
+             for name in ("plain", "s2d")}
+    log(f"[stem_s2d] critic (batch {CRITIC_BATCH}, {CRITIC['image_size'][0]}x"
+        f"{CRITIC['image_size'][1]}, f32, TF32 off) on {card_line()}: S2D stem vs plain "
+        f"on the same weights {stem_err:.3e} of the stem's max (limit {S2D_STEM_TOL}), "
+        f"eval logits {logit_err:.3e} of their max (limit {SERVE_TOL}); {S2D_STEPS} S2D "
+        f"steps, losses " + ", ".join(f"{v:.6f}" for v in losses) + "; synced step "
+        + ", ".join(f"{name} {ms:.3f} ms (peak {peak / 2**30:.3f} GiB)"
+                    for name, (ms, peak) in timed.items())
+        + f" (median of {S2D_STEPS})")
+
+
+def critic_pcgrad(model, weights, batch, device, routing_context):
+    """One PCGrad step of the critic with its loss split into two tasks (the
+    halves of the batch, center crop): (losses, the combined gradients by
+    flax path as float64 on the CPU)."""
+    import torch
+
+    from tensor2robot_tpu_torch.research.qtopt import pcgrad
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+    from tensor2robot_tpu_torch.utils.keypath import flax_parameter_paths
+
+    trainer = Trainer(model, device=device)
+    network = trainer.init_state(params=weights).network
+    on_device = to_device(batch, device)
+    features, labels = trainer.preprocessor.preprocess(
+        on_device["features"], on_device["labels"], mode="train")
+    names = {path: name for name, path in flax_parameter_paths(network).items()}
+    params = {path: dict(network.named_parameters())[name] for path, name in names.items()}
+    half = len(labels["reward"]) // 2
+
+    def task(part):
+        f = TensorSpecStruct({k: v[part] for k, v in features.items()})
+        lab = TensorSpecStruct({k: v[part] for k, v in labels.items()})
+
+        def loss(p):
+            outputs = torch.func.functional_call(
+                network, {names[k]: v for k, v in p.items()}, (f, "train"))
+            return model.model_train_fn(f, lab, outputs, "train")[0]
+        return loss
+
+    with routing_context:
+        total, grads = pcgrad.pcgrad_gradients(
+            [task(slice(0, half)), task(slice(half, None))], params)
+    return float(total), {k: v.detach().double().cpu() for k, v in grads.items()}
+
+
+def pcgrad_card_vs_cpu() -> None:
+    """PCGrad over the full-width critic's loss split into two tasks, on
+    the card and on the CPU from the same weights and batch."""
+    import torch
+
+    from tensor2robot_tpu_torch.research.qtopt.routing import pinned_routing, record_routing
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = critic_model()
+    weights = {k: v.cpu() for k, v in Trainer(model, device="cpu").init_state(
+        torch.Generator().manual_seed(0)).network.state_dict().items()}
+    batch = _random_batch(model, PCGRAD_BATCH, seed=5)
+    t0 = time.monotonic()
+    with record_routing() as routing:
+        card_loss, card = critic_pcgrad(model, weights, batch, DEVICE,
+                                        contextlib.nullcontext())
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    cpu_loss, cpu = critic_pcgrad(model, weights, batch, "cpu",
+                                  pinned_routing(routing.to("cpu")))
+    largest = max(g.abs().max().item() for g in cpu.values())
+    worst, worst_name, zeros = 0.0, None, 0
+    for name, ref in cpu.items():
+        scale = ref.abs().max().item()
+        if scale <= ZERO_GRAD * largest:
+            zeros += 1
+            share = card[name].abs().max().item() / (ZERO_GRAD * largest)
+        else:
+            share = (card[name] - ref).abs().max().item() / (
+                CRITIC_F32_GRAD_TOL * scale + 1e-7)
+        if share > worst:
+            worst, worst_name = share, name
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not worst <= 1.0 or not loss_err <= LOSS_TOL:
+        raise AssertionError(f"PCGrad card vs CPU: {worst_name} at {worst:.3f} of its "
+                             f"allowance, loss rel {loss_err:.2e}")
+    log(f"[stem_s2d] PCGrad step (critic loss split into 2 tasks of "
+        f"{PCGRAD_BATCH // 2}, full width) on {card_line()} in {card_s:.2f}s: card vs "
+        f"CPU (relus and pools pinned to the card's choices) loss {card_loss:.7f} vs "
+        f"{cpu_loss:.7f} (rel {loss_err:.2e}); combined gradients worst {worst_name} at "
+        f"{worst:.3f} of its allowance ({CRITIC_F32_GRAD_TOL} of the leaf's max; {zeros} "
+        f"leaves 0 in exact arithmetic held to {ZERO_GRAD} of the largest)")
+
+
+def phase_stem_s2d(model_dir: str) -> None:
+    del model_dir
+    reset_launches()
+    s2d_stem_check()
+    pcgrad_card_vs_cpu()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"stem_s2d launched flash kernels: {launches}")
+
+
+# -- the png phase: PNG image records feeding the critic ----------------------------
+
+# (train records, shards, eval records) of 512x640 PNG sources; fed steps.
+PNG_RECORDS = (64, 2, 8)
+PNG_STEPS = 5
+PNG_BATCHES = 8
+
+
+def time_decoders(frames) -> str:
+    """One thread's decode MB/s (decoded bytes) of the frames as PNG and as
+    q95 JPEG through the codec; PNG must give the frames back exactly."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.data import codec
+
+    pngs = [codec.encode_image(f, "png") for f in frames]
+    jpegs = [codec.encode_jpeg(f, quality=95) for f in frames]
+    out = np.empty_like(frames[0])
+    rates = {}
+    for name, blobs in (("PNG", pngs), ("JPEG", jpegs)):
+        codec.decode_into(blobs[0], out)
+        t0 = time.perf_counter()
+        for data, frame in zip(blobs, frames):
+            codec.decode_into(data, out)
+            if name == "PNG" and not np.array_equal(out, frame):
+                raise AssertionError("a PNG decode differs from its source frame")
+        rates[name] = (len(blobs) * frames[0].nbytes / (time.perf_counter() - t0) / 1e6,
+                       sum(map(len, blobs)) / len(blobs) / 1e3)
+    return ", ".join(f"{name} {mbs:.1f} MB/s ({kb:.1f} KB a file)"
+                     for name, (mbs, kb) in rates.items())
+
+
+def phase_png(model_dir: str) -> None:
+    """Writes 512x640 RGB PNG records of the critic's in-spec through the
+    port's encoder, reads them back bit for bit, feeds the critic from them
+    through RecordDataset, and times PNG decode beside JPEG's."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.data import codec, png
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.data.parser import SpecParser
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+    from tensor2robot_tpu_torch.train import infeed
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    def png_record(image_spec, data):
+        from tensor2robot_tpu_torch.data.encoder import encode_example
+
+        return encode_example(TensorSpecStruct({"features/state/image": image_spec}),
+                              {"features/state/image": data})
+
+    reset_launches()
+    codec.COUNTS.reset()
+    model = critic_model()
+    spec = model.preprocessor.get_in_feature_specification("train")["state/image"]
+    source_hw = tuple(spec.shape[:2])
+    patterns, (frames, _, pngs), write_s = write_records(
+        model, model_dir, PNG_RECORDS, source_hw, image_format="png")
+    if codec.COUNTS.png_encodes != sum(PNG_RECORDS[::2]) or not png.is_png(pngs[0]):
+        raise AssertionError(f"{codec.COUNTS.png_encodes} PNG encodes")
+    parsed = SpecParser(TensorSpecStruct({"features/state/image": spec})).parse_batch(
+        [png_record(spec, data) for data in pngs[:4]])
+    if not np.array_equal(np.asarray(parsed["features/state/image"]), frames[:4]):
+        raise AssertionError("parsed PNG records differ from their frames")
+    rates = time_decoders(frames[:16])
+
+    generator = DefaultRecordInputGenerator(file_patterns=patterns["train"],
+                                            batch_size=CRITIC_BATCH, seed=0)
+    generator.set_specification_from_model(model, "train")
+    dataset = generator.create_record_dataset("train")
+    it = iter(dataset)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(PNG_BATCHES):
+        next(it)
+    records_s = PNG_BATCHES * CRITIC_BATCH / (time.perf_counter() - t0)
+    trainer = Trainer(model, device=DEVICE)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    fed = infeed.device_prefetch(it, DEVICE, depth=infeed.resolve_depth())
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(state, next(fed))["loss"].item() for _ in range(PNG_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / PNG_STEPS * 1e3
+    dataset.close()
+    if not all(math.isfinite(v) for v in losses) or not codec.COUNTS.png_decodes:
+        raise AssertionError(f"critic from PNG records: losses {losses}, "
+                             f"{codec.COUNTS.png_decodes} PNG decodes")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"png launched flash kernels: {launches}")
+    log(f"[png] {sum(PNG_RECORDS[::2])} records of {source_hw[0]}x{source_hw[1]} RGB "
+        f"PNG sources written in "
+        f"{write_s:.1f}s, parsed back bit for bit; decode on one thread: {rates}; "
+        f"RecordDataset (ROI crops of whole PNG decodes, batch {CRITIC_BATCH}) "
+        f"{records_s:.1f} records/s; {PNG_STEPS} critic steps fed from PNG records on "
+        f"{card_line()}: {step_ms:.3f} ms a step with the feed, losses "
+        + ", ".join(f"{v:.6f}" for v in losses)
+        + f"; {codec.COUNTS.png_decodes} PNG decodes, flash launches {launches}")
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -4364,6 +4822,13 @@ def main() -> int:
             if "vrgripper" in phases:
                 timed_phase("vrgripper", phase_vrgripper,
                             os.path.join(model_dir, "vrgripper"))
+            if "maml_export" in phases:
+                timed_phase("maml_export", phase_maml_export,
+                            os.path.join(model_dir, "maml_export"))
+            if "stem_s2d" in phases:
+                timed_phase("stem_s2d", phase_stem_s2d, os.path.join(model_dir, "stem_s2d"))
+            if "png" in phases:
+                timed_phase("png", phase_png, os.path.join(model_dir, "png"))
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

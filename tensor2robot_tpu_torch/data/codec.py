@@ -1,4 +1,5 @@
-"""JPEG decode and encode through the native codec.
+"""Image decode and encode: JPEG through the native codec, PNG through
+data/png.py.
 
 The codec is `data/csrc/jpeg_codec.cc` over libjpeg where the host has
 `<jpeglib.h>`, else `data/csrc/jpeg_codec_nvjpeg.cc` over nvJPEG (picked
@@ -12,8 +13,10 @@ there is no Python decoder.
 empty bytes give the zero image (replay buffers hold empty camera slots),
 the result has the spec's image shape and dtype, and a one-channel spec
 takes PIL's luma of the decoded RGB, (19595 R + 38470 G + 7471 B +
-0x8000) >> 16. No spec of the repo stores PNG; PNG raises
-NotImplementedError (ROADMAP.md A12).
+0x8000) >> 16. As PIL does there, the bytes pick the decoder: a PNG
+signature decodes through data/png.py (converted as PIL's convert("RGB")
+or convert("L")), anything else through the JPEG codec. A PNG crop
+decodes the whole image and cuts the window.
 
 With the nvJPEG codec a decode runs on the card: the process backend of
 data/dataset.py then leaves image decoding to the parent process
@@ -28,11 +31,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from tensor2robot_tpu_torch.data import native
+from tensor2robot_tpu_torch.data import native, png
 from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, parse_dtype
 
 _INT_P = ctypes.POINTER(ctypes.c_int)
-_PNG_NOT_PORTED = "PNG image features are not ported yet (ROADMAP.md A12)"
 
 
 class JpegDecodeError(ValueError):
@@ -46,6 +48,7 @@ class _Counts:
     def __init__(self):
         self._lock = threading.Lock()
         self.decodes = self.roi_decodes = self.encodes = 0
+        self.png_decodes = self.png_encodes = 0
 
     def add(self, field: str) -> None:
         with self._lock:
@@ -54,6 +57,7 @@ class _Counts:
     def reset(self) -> None:
         with self._lock:
             self.decodes = self.roi_decodes = self.encodes = 0
+            self.png_decodes = self.png_encodes = 0
 
 
 COUNTS = _Counts()
@@ -102,12 +106,26 @@ def _check_out(out: np.ndarray) -> None:
         raise ValueError("decode target must be a writeable C-contiguous array")
 
 
+def _png_rgb(data: bytes, source_hw: Sequence[int]) -> np.ndarray:
+    """A PNG decoded to RGB; PngDecodeError unless it measures source_hw."""
+    rgb = png.to_rgb(png.decode_png(data))
+    COUNTS.add("png_decodes")
+    if rgb.shape[:2] != tuple(source_hw):
+        raise png.PngDecodeError(
+            f"Decoded image shape {rgb.shape} does not match the target shape "
+            f"{tuple(source_hw) + (3,)}")
+    return rgb
+
+
 def decode_into(data: bytes, out: np.ndarray) -> None:
-    """Decodes a JPEG as RGB straight into `out` (uint8 HxWx3, C order);
-    raises JpegDecodeError when the codec refuses it or its size is not
-    out's."""
+    """Decodes an image as RGB straight into `out` (uint8 HxWx3, C order);
+    raises JpegDecodeError (PngDecodeError for a PNG) when the decoder
+    refuses it or its size is not out's."""
     _check_out(out)
     data = bytes(data)
+    if png.is_png(data):
+        out[...] = _png_rgb(data, out.shape[:2])
+        return
     h, w = ctypes.c_int(), ctypes.c_int()
     rc = _lib().t2r_decode_jpeg(data, len(data), out.ctypes.data, out.nbytes,
                                 ctypes.byref(h), ctypes.byref(w))
@@ -124,9 +142,13 @@ def decode_into(data: bytes, out: np.ndarray) -> None:
 def decode_roi_into(data: bytes, out: np.ndarray, y: int, x: int,
                     source_hw: Sequence[int]) -> None:
     """Decodes the (y, x) window of out's size into `out`; the source must
-    measure `source_hw` (the spec's H, W), else JpegDecodeError."""
+    measure `source_hw` (the spec's H, W), else JpegDecodeError (or
+    PngDecodeError)."""
     _check_out(out)
     data = bytes(data)
+    if png.is_png(data):
+        out[...] = _png_rgb(data, source_hw)[y:y + out.shape[0], x:x + out.shape[1]]
+        return
     fh, fw = ctypes.c_int(), ctypes.c_int()
     rc = _lib().t2r_decode_jpeg_roi(
         data, len(data), out.ctypes.data, out.nbytes, int(y), int(x),
@@ -150,15 +172,14 @@ def image_shape(spec: ExtendedTensorSpec) -> Tuple[int, ...]:
     return shape
 
 
-def _check_format(spec: ExtendedTensorSpec) -> None:
-    if spec.data_format is not None and spec.data_format.lower() == "png":
-        raise NotImplementedError(_PNG_NOT_PORTED)
-
-
-def _luma(rgb: np.ndarray) -> np.ndarray:
-    """PIL's RGB -> L conversion, integer for integer."""
-    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
-    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+def _decode_png(data: bytes, shape: Tuple[int, ...], channels: int) -> np.ndarray:
+    image = png.decode_png(data)
+    COUNTS.add("png_decodes")
+    arr = png.to_rgb(image) if channels == 3 else png.to_luma(image)
+    if arr.size != int(np.prod(shape)) or arr.shape[:2] != tuple(shape[:2]):
+        raise png.PngDecodeError(
+            f"Decoded image shape {arr.shape} does not match the spec's shape {shape}")
+    return arr.reshape(shape)
 
 
 def decode_image(data: bytes, spec: ExtendedTensorSpec) -> np.ndarray:
@@ -168,16 +189,18 @@ def decode_image(data: bytes, spec: ExtendedTensorSpec) -> np.ndarray:
     dtype = parse_dtype(spec)
     if not data:
         return np.zeros(shape, dtype=dtype)
-    _check_format(spec)
     channels = shape[-1] if len(shape) == 3 else 1
     if len(shape) not in (2, 3) or channels not in (1, 3):
         raise ValueError(
             f"Image spec {spec.name!r} shape {shape} is not HxW, HxWx1 or HxWx3")
+    if png.is_png(data):
+        arr = _decode_png(bytes(data), shape, channels)
+        return arr if dtype == np.uint8 else arr.astype(dtype)
     rgb = np.empty(tuple(shape[:2]) + (3,), np.uint8)
     decode_into(data, rgb)
     if channels == 3:
         return rgb if dtype == np.uint8 else rgb.astype(dtype)
-    return _luma(rgb).reshape(shape).astype(dtype)
+    return png.luma(rgb).reshape(shape).astype(dtype)
 
 
 def decode_image_roi(data: bytes, spec: ExtendedTensorSpec, y: int, x: int,
@@ -188,7 +211,6 @@ def decode_image_roi(data: bytes, spec: ExtendedTensorSpec, y: int, x: int,
     dtype = parse_dtype(spec)
     if not data:
         return np.zeros((th, tw) + tuple(shape[2:]), dtype=dtype)
-    _check_format(spec)
     if len(shape) == 3 and shape[-1] == 3 and dtype == np.uint8:
         out = np.empty((th, tw, 3), np.uint8)
         decode_roi_into(data, out, y, x, shape[:2])
@@ -226,7 +248,9 @@ def encode_jpeg(array: np.ndarray, quality: int = 95) -> bytes:
 
 
 def encode_image(array: np.ndarray, data_format: str, quality: int = 95) -> bytes:
-    """Encodes an image for a spec's data_format ('jpeg' or 'jpg')."""
+    """Encodes an image for a spec's data_format ('jpeg', 'jpg' or 'png';
+    quality is JPEG's)."""
     if data_format.lower() == "png":
-        raise NotImplementedError(_PNG_NOT_PORTED)
+        COUNTS.add("png_encodes")
+        return png.encode_png(np.asarray(array, dtype=np.uint8))
     return encode_jpeg(array, quality)

@@ -1,11 +1,12 @@
 """Builds the data stack's native libraries with g++ at first use.
 
-Two sources under `data/csrc/`: `tfrecord_io.cc` (CRC32-C and record
-framing) and the JPEG codec. The codec is picked once per process by a
-probe of the host's headers: `jpeg_codec.cc` over libjpeg where
-`<jpeglib.h>` exists (with libjpeg-turbo's cropped-scanline API when the
-header declares it), else `jpeg_codec_nvjpeg.cc` over the CUDA toolkit's
-nvJPEG where `nvjpeg.h` exists, else the build raises. There is no
+Three sources under `data/csrc/`: `tfrecord_io.cc` (CRC32-C and record
+framing), `png_unfilter.cc` (PNG row filters) and the JPEG codec. The
+JPEG codec is picked once per process by a probe of the host's headers:
+`jpeg_codec.cc` over libjpeg where `<jpeglib.h>` exists (with
+libjpeg-turbo's cropped-scanline API when the header declares it), else
+`jpeg_codec_nvjpeg.cc` over the CUDA toolkit's nvJPEG where `nvjpeg.h`
+exists, else the build raises. There is no
 fallback from one codec to the other at run time, and none to Python.
 
 Each library goes to `build/native/` (gitignored) under a name that
@@ -96,8 +97,8 @@ def build(name: str, source: str, flags: Sequence[str] = (),
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
-    if name == "tfrecord_io":
-        path = build("tfrecord_io", "tfrecord_io.cc")
+    if name in ("tfrecord_io", "png_unfilter"):
+        path = build(name, f"{name}.cc")
     else:
         codec, source, flags, libs = codec_build()
         path = build(f"codec_{codec}", source, flags, libs)
@@ -105,7 +106,7 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library 'tfrecord_io' or 'jpeg_codec', built first if
-    needed (thread-safe; once per process)."""
+    """The loaded library 'tfrecord_io', 'png_unfilter' or 'jpeg_codec',
+    built first if needed (thread-safe; once per process)."""
     with _LOCK:
         return _load(name)

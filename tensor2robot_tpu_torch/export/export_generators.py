@@ -52,6 +52,7 @@ class ServingModule(nn.Module):
         self._model = model
         self._preprocessor = model.preprocessor
         self._raw = raw
+        self.takes_gradients = model.forward_takes_gradients
 
     def forward(self, features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         features = TensorSpecStruct(dict(features))
@@ -92,10 +93,12 @@ class QuantizedServingModule(nn.Module):
             self._layout.append((name, axis, shape))
             owner, _, leaf = name.rpartition(".")
             module = serving.network.get_submodule(owner)
-            # The f32 weight leaves the module; forward supplies it.
-            del module._parameters[leaf]
-            setattr(module, leaf, None)
+            # The f32 weight leaves the module; forward supplies it into the
+            # parameter's slot, so named_parameters() lists it inside the
+            # call (a MAML forward adapts every parameter it lists).
+            module._parameters[leaf] = None
         self.serving = serving
+        self.takes_gradients = serving.takes_gradients
 
     def forward(self, features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         weights = {
@@ -118,9 +121,8 @@ class AbstractExportGenerator:
         self._model = None
 
     def set_specification_from_model(self, model) -> None:
-        """Takes the predict-mode raw in-specs off the model's preprocessor
-        (a model that cannot be exported yet raises here)."""
-        getattr(model, "assert_exportable", lambda: None)()
+        """Takes the predict-mode raw in-specs off the model's
+        preprocessor."""
         preprocessor = model.preprocessor
         self._model = model
         self._feature_spec = preprocessor.get_in_feature_specification(MODE_PREDICT)

@@ -156,6 +156,7 @@ class Exporter:
             quantize_weights=self._quantize_weights,
             quantize_bits=self._quantize_bits,
             max_batch=max(self._warmup_batch_sizes + (DEFAULT_MAX_BATCH,)),
+            program_batches=self._warmup_batch_sizes or None,
         )
         if self._warmup_batch_sizes:
             generator.write_warmup_requests(

@@ -14,6 +14,9 @@ regimes and AOT executables, ROADMAP.md A10), in the port's own format:
         program/predict_fn.pt2         torch.export.save of preprocess +
                                        network in predict mode, weights
                                        inside, the batch dim dynamic
+        program/predict_fn_b<N>.pt2    or, for a forward that takes
+                                       gradients (MAML), one program per
+                                       static batch N (`program_batches`)
         warmup/warmup_requests.tfrecord  (exporters) one batch per bucket
 
 A version is written under `temp-<ts>` and renamed, so pollers never see
@@ -30,6 +33,17 @@ load (torch.export.passes.move_to_device_pass). Python-side state read in
 `forward` is frozen in at trace time; the BC and critic forwards read no
 `T2R_*` flag (T2R_STEM_S2D is read when the critic's network is built,
 T2R_POOL_BACKWARD only by gradients).
+
+A MAML forward adapts the weights with an inner gradient
+(`torch.func.grad` under `torch.func.vmap` over tasks), which
+`torch.export` cannot trace: it refuses `autograd.grad`, and vmap's
+batching rules pin the batch dim. Such a serving module says so
+(`takes_gradients`); it is traced with `make_fx`, which records the
+forward and its inner backward as plain aten ops, at each batch of a
+ladder, and each graph is saved as a program with no autograd left in it.
+A request is served by the program of its batch, or padded up to the
+next one (rows are independent: a MAML task adapts on its own data) and
+cut back.
 """
 
 from __future__ import annotations
@@ -39,7 +53,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -64,10 +78,16 @@ FORMAT_VERSION = 1
 #: serves (the JAX exports are batch-polymorphic without a bound).
 EXAMPLE_BATCH = 2
 DEFAULT_MAX_BATCH = 64
+#: The batches of a static program set when the exporter names none.
+STATIC_BATCHES = (1, 2, 4, 8)
 
 
 def program_path(export_dir: str) -> str:
     return os.path.join(export_dir, PROGRAM_DIR, PROGRAM_FILENAME)
+
+
+def static_program_path(export_dir: str, batch: int) -> str:
+    return os.path.join(export_dir, PROGRAM_DIR, f"predict_fn_b{int(batch)}.pt2")
 
 
 def is_valid_export_dir(path: str) -> bool:
@@ -161,6 +181,27 @@ def export_program(
         )
 
 
+def export_static_program(
+    module: torch.nn.Module,
+    example_features: Mapping[str, Any],
+    batch: int,
+) -> torch.export.ExportedProgram:
+    """A program of `module(features) -> outputs` at one static batch, for
+    a forward that takes gradients: make_fx records it (the inner backward
+    as aten ops) from the first example row repeated `batch` times, and
+    torch.export saves the graph."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    device = module_device(module)
+    examples = {
+        key: torch.as_tensor(np.repeat(np.asarray(value)[:1], batch, axis=0)).to(device)
+        for key, value in example_features.items()
+    }
+    with TRACE_LOCK, torch.no_grad():
+        graph = make_fx(module, tracing_mode="fake", _allow_non_fake_inputs=True)(examples)
+        return torch.export.export(graph, (examples,))
+
+
 def save_exported_model(
     export_root: str,
     variables: Mapping[str, torch.Tensor],
@@ -174,6 +215,7 @@ def save_exported_model(
     quantize_weights: bool = False,
     quantize_bits: int = 8,
     max_batch: int = DEFAULT_MAX_BATCH,
+    program_batches: Optional[Sequence[int]] = None,
 ) -> str:
     """Writes one export version; returns its final path.
 
@@ -196,6 +238,8 @@ def save_exported_model(
       quantize_weights / quantize_bits: store variables.pt weight-only
         quantized (export/quantization.py).
       max_batch: the program's largest batch.
+      program_batches: the static batches of a serving module that takes
+        gradients (STATIC_BATCHES when None); ignored otherwise.
     """
     quantization.check_bits(quantize_bits)
     in_module = getattr(serving_module, "quantized_variables", None)
@@ -222,15 +266,23 @@ def save_exported_model(
     )
     torch.save(_host_variables(stored), os.path.join(tmp_path, VARIABLES_FILENAME))
 
-    program_ok, program_error, traced_on = False, None, None
+    program_ok, program_error, traced_on, static = False, None, None, None
     if export_program_file and serving_module is not None and example_features is not None:
         try:
-            program = export_program(serving_module, example_features, max_batch)
-            # The example batch would ride in the file (100 MB for a
-            # full-width BC episode pair); the program does not need it.
-            program.example_inputs = None
             os.makedirs(os.path.join(tmp_path, PROGRAM_DIR))
-            torch.export.save(program, program_path(tmp_path))
+            if getattr(serving_module, "takes_gradients", False):
+                static = sorted({int(b) for b in (program_batches or STATIC_BATCHES)})
+                programs = {b: export_static_program(serving_module, example_features, b)
+                            for b in static}
+            else:
+                programs = {None: export_program(serving_module, example_features,
+                                                 max_batch)}
+            for batch, program in programs.items():
+                # The example batch would ride in the file (100 MB for a
+                # full-width BC episode pair); the program does not need it.
+                program.example_inputs = None
+                torch.export.save(program, program_path(tmp_path) if batch is None
+                                  else static_program_path(tmp_path, batch))
             program_ok = True
             traced_on = str(module_device(serving_module))
         except Exception as err:  # noqa: BLE001 — the program is best-effort;
@@ -243,6 +295,7 @@ def save_exported_model(
         "program": program_ok,
         "program_error": program_error,
         "program_device": traced_on,
+        "program_batches": static if program_ok else None,
         "weights_int8": bool(quantize_weights),
         **({"weights_quantize_bits": int(quantize_bits)} if quantize_weights else {}),
         "format_version": FORMAT_VERSION,
@@ -279,38 +332,66 @@ class ExportedModel:
             for key, spec in flatten_spec_structure(self.feature_spec).items()
             if isinstance(spec, ExtendedTensorSpec) and not spec.is_optional
         ]
-        self._module = self._load_program() if self.metadata.get("program") else None
+        #: {None: the dynamic-batch program} or {batch: static program}.
+        self._modules: Dict[Optional[int], torch.nn.Module] = {}
+        if self.metadata.get("program"):
+            batches = self.metadata.get("program_batches")
+            paths = ({None: program_path(export_dir)} if not batches else
+                     {int(b): static_program_path(export_dir, b) for b in batches})
+            self._modules = {b: self._load_program(path) for b, path in paths.items()}
 
-    def _load_program(self) -> torch.nn.Module:
+    def _load_program(self, path: str) -> torch.nn.Module:
         # Registers t2r_torch::flash_fwd, which the program may call.
         import torch.export.passes
 
         from tensor2robot_tpu_torch.ops import flash_attention  # noqa: F401
 
-        program = torch.export.load(program_path(self.export_dir))
+        program = torch.export.load(path)
         if self.metadata.get("program_device") != str(self.device):
             program = torch.export.passes.move_to_device_pass(program, self.device)
         return program.module()
 
     @property
     def has_program(self) -> bool:
-        return self._module is not None
+        return bool(self._modules)
+
+    @property
+    def program_batches(self) -> Optional[List[int]]:
+        """The static batches of a program set (None for one dynamic
+        program or none)."""
+        return sorted(self._modules) if self._modules and None not in self._modules else None
+
+    def _run_static(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = next(iter(inputs.values())).shape[0]
+        fits = [b for b in sorted(self._modules) if b >= batch]
+        if not fits:
+            raise ValueError(f"batch {batch} exceeds the export's program batches "
+                             f"{sorted(self._modules)}")
+        size = fits[0]
+        if size != batch:
+            inputs = {key: torch.cat([value] + [value[-1:]] * (size - batch))
+                      for key, value in inputs.items()}
+        out = self._modules[size](inputs)
+        return {key: value[:batch] for key, value in out.items()}
 
     def traced_predict(self, features: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The program on tensors already on `device` (no host copies), so
         a caller can keep a loop on the card."""
-        if self._module is None:
+        if not self._modules:
             raise RuntimeError(
                 f"Export {self.export_dir} has no program; serving it needs "
                 f"model code ({self.metadata.get('program_error')})."
             )
+        inputs = {key: features[key] for key, _ in self._inputs}
         with torch.no_grad():
-            return dict(self._module({key: features[key] for key, _ in self._inputs}))
+            if None in self._modules:
+                return dict(self._modules[None](inputs))
+            return self._run_static(inputs)
 
     def predict(self, flat_features: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         """Host numpy in, host numpy out (each input cast to its spec's
         dtype and copied to `device`)."""
-        if self._module is None:
+        if not self._modules:
             return self.traced_predict({})  # raises, naming why
         tensors = {
             key: torch.from_numpy(

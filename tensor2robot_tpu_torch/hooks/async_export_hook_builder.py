@@ -70,6 +70,7 @@ def default_create_export_fn(
             quantize_weights=quantize_weights,
             quantize_bits=quantize_bits,
             max_batch=max(sizes + (DEFAULT_MAX_BATCH,)),
+            program_batches=sizes or None,
         )
         if sizes:
             generator.write_warmup_requests(

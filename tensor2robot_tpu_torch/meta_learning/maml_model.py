@@ -22,6 +22,11 @@ the bf16 wrapper's autocast, which does not reach inside vmap, the
 forward applies autocast's casts of convolutions and dense layers as a
 torch function mode; FlaxLayerNorm takes its decomposed formula inside
 (tf_modules.decomposed_layer_norms), whose second derivatives hold.
+
+Because the predict forward takes gradients (`forward_takes_gradients`),
+its export is traced by make_fx per static batch of tasks, inner backward
+included, rather than by torch.export over a dynamic batch
+(export/saved_model.py).
 """
 
 from __future__ import annotations
@@ -45,10 +50,6 @@ from tensor2robot_tpu_torch.research.dql_grasping_lib.tf_modules import (
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE
 from tensor2robot_tpu_torch.utils.keypath import flax_parameter_paths
-
-#: ROADMAP.md's item for exporting a MAML model (the inner gradient inside
-#: an exported program).
-EXPORT_ITEM = "A8(f)"
 
 
 class MAMLNetwork(nn.Module):
@@ -126,6 +127,8 @@ class MAMLModel(AbstractT2RModel):
     """Base class for MAML meta models. Subclasses implement
     `_select_inference_output` to pick the `condition_output` and
     `inference_output` keys that meta policies consume."""
+
+    forward_takes_gradients = True
 
     def __init__(
         self,
@@ -335,12 +338,6 @@ class MAMLModel(AbstractT2RModel):
     def model_eval_fn(self, features, labels, inference_outputs):
         return self._base_model.model_eval_fn(
             *self._flat_inference(features, labels, inference_outputs))
-
-    def assert_exportable(self) -> None:
-        raise NotImplementedError(
-            "exporting a MAML model (its inner gradient inside the exported "
-            f"program) is not ported yet (ROADMAP.md {EXPORT_ITEM}); serve it "
-            "from its checkpoints with CheckpointPredictor")
 
     def create_optimizer(self):
         return self._base_model.create_optimizer()

@@ -101,9 +101,10 @@ class AbstractT2RModel(ModelInterface):
             return self._init_from_checkpoint_fn(state_dict)
         return state_dict
 
-    def assert_exportable(self) -> None:
-        """Raises for a model whose predict path cannot be exported yet
-        (export_generators checks it before anything is traced)."""
+    #: True for a model whose predict forward takes gradients inside (MAML's
+    #: inner loop): its export is traced per static batch
+    #: (export/saved_model.py).
+    forward_takes_gradients = False
 
     @property
     def preprocessor(self) -> AbstractPreprocessor:

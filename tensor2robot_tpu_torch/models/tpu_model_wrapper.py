@@ -75,8 +75,9 @@ class BFloat16ModelWrapper(AbstractT2RModel):
     def maybe_init_from_checkpoint(self, state_dict):
         return self._model.maybe_init_from_checkpoint(state_dict)
 
-    def assert_exportable(self) -> None:
-        self._model.assert_exportable()
+    @property
+    def forward_takes_gradients(self) -> bool:
+        return self._model.forward_takes_gradients
 
     # -- the hooks: autocast, and float32 at the boundaries ------------------
 

@@ -33,9 +33,9 @@ What follows the JAX package exactly, for parity and for its checkpoints:
     f32 parameters; batch-norm statistics stay f32 and the logit head
     computes and emits f32.
 
-The space-to-depth lowering of the stem (JAX layers/s2d_conv.py) is off by
-default there (T2R_STEM_S2D=auto resolves off); here T2R_STEM_S2D=1
-raises NotImplementedError.
+With T2R_STEM_S2D=1 the stem lowers via space-to-depth
+(layers/s2d_conv.py), as in the JAX package; auto and 0 keep the plain
+strided stem. Both stems store `conv1_1.weight` alike.
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensor2robot_tpu_torch import flags
 from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.batch_norm import BatchNorm
+from tensor2robot_tpu_torch.layers.s2d_conv import SpaceToDepthConv, stem_s2d_enabled
 from tensor2robot_tpu_torch.ops import pooling
 
 # Named grasp-param sub-blocks of the E2E variant: {name: (offset, size)}.
@@ -63,18 +63,6 @@ E2E_GRASP_PARAM_BLOCKS: Dict[str, Tuple[int, int]] = {
 }
 
 CONV_INIT_STD = 0.01
-
-
-def stem_s2d_enabled() -> bool:
-    """T2R_STEM_S2D: auto and 0 take the plain strided stem; 1 asks for
-    the space-to-depth lowering, which is not ported."""
-    mode = flags.get_enum("T2R_STEM_S2D")
-    if mode == "1":
-        raise NotImplementedError(
-            "T2R_STEM_S2D=1 (the space-to-depth stem, JAX layers/"
-            "s2d_conv.py) is not ported yet (ROADMAP.md A11)"
-        )
-    return False
 
 
 def pad_same(x: torch.Tensor, kernel: Tuple[int, int], stride: Tuple[int, int]):
@@ -138,14 +126,16 @@ class Grasping44(nn.Module):
         image_size: Tuple[int, int] = (472, 472),
     ):
         super().__init__()
-        stem_s2d_enabled()
         self.num_convs = tuple(num_convs)
         self.hid_layers = hid_layers
         self.num_classes = num_classes
         self.width = width
         bn = dict(momentum=batch_norm_momentum, epsilon=batch_norm_epsilon)
 
-        self.conv1_1 = _Conv(3, width, (6, 6), stride=(2, 2))
+        if stem_s2d_enabled():
+            self.conv1_1 = SpaceToDepthConv(3, width, (6, 6), strides=(2, 2))
+        else:
+            self.conv1_1 = _Conv(3, width, (6, 6), stride=(2, 2))
         self.bn1 = BatchNorm(width, use_scale=False, **bn)
         for i in range(self.num_convs[0]):
             self.add_module(f"conv{2 + i}", _ConvBNRelu(width, width, (5, 5), **bn))
@@ -177,13 +167,13 @@ class Grasping44(nn.Module):
         `generator` module by module in registration order."""
         with torch.no_grad():
             for module in self.modules():
-                if isinstance(module, (nn.Conv2d, nn.Linear)):
+                if isinstance(module, (nn.Conv2d, nn.Linear, SpaceToDepthConv)):
                     nn.init.trunc_normal_(
                         module.weight, std=CONV_INIT_STD,
                         a=-2 * CONV_INIT_STD, b=2 * CONV_INIT_STD,
                         generator=generator,
                     )
-                    if module.bias is not None:
+                    if getattr(module, "bias", None) is not None:
                         module.bias.zero_()
                 elif isinstance(module, BatchNorm):
                     module.init_own_parameters()

@@ -52,8 +52,11 @@ def _flag_buckets() -> Optional[Tuple[int, ...]]:
 
 def buckets_from_metadata(metadata: Optional[Mapping]) -> Optional[Tuple[int, ...]]:
     """The exporter-published ladder (t2r_metadata.json
-    `warmup_batch_sizes`), or None when the export has none."""
+    `warmup_batch_sizes`, else the batches of a static program set), or
+    None when the export has neither."""
     sizes = metadata.get("warmup_batch_sizes") if metadata else None
+    if not sizes and metadata:
+        sizes = metadata.get("program_batches")
     if not sizes:
         return None
     return _normalize(sizes, "t2r_metadata.json warmup_batch_sizes")

@@ -1,11 +1,12 @@
 """Image encoding helpers.
 
 Port of tensor2robot_tpu/utils/image.py. The JAX package encodes through
-PIL; the port encodes through its own codec (data/codec.py: libjpeg where
-the host has it, nvJPEG on the card's machine), so it takes numpy arrays
-where the JAX package takes PIL images, and its bytes may differ from
-PIL's; what a decoder reads back is the same image within the codec's
-round-trip error.
+PIL; the port encodes through its own codecs (data/codec.py: JPEG through
+libjpeg where the host has it, nvJPEG on the card's machine; PNG through
+data/png.py), so it takes numpy arrays where the JAX package takes PIL
+images, and its bytes may differ from PIL's; what a decoder reads back is
+the same image, exactly for PNG and within the codec's round-trip error
+for JPEG.
 """
 
 from __future__ import annotations
@@ -30,6 +31,6 @@ def numpy_to_image_string(
     dtype=np.uint8,
     quality: int = PIL_DEFAULT_QUALITY,
 ) -> bytes:
-    """Encodes a numpy HWC array as an image bytestring ('jpeg' only: PNG
-    is not ported, data/codec.py)."""
+    """Encodes a numpy HWC array as an image bytestring ('jpeg' or
+    'png')."""
     return encode_image(np.asarray(image_array, dtype=dtype), image_format, quality)

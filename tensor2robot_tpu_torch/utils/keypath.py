@@ -17,9 +17,10 @@ from typing import Dict, Iterable
 from torch import nn
 
 from tensor2robot_tpu_torch.layers.batch_norm import BatchNorm
+from tensor2robot_tpu_torch.layers.s2d_conv import SpaceToDepthConv
 from tensor2robot_tpu_torch.research.dql_grasping_lib.tf_modules import FlaxLayerNorm
 
-_KERNEL_OWNERS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
+_KERNEL_OWNERS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, SpaceToDepthConv)
 _SCALE_OWNERS = (FlaxLayerNorm, BatchNorm, nn.LayerNorm)
 
 

@@ -112,7 +112,8 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper")
+        "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
+        "stem_s2d", "png")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -363,4 +364,53 @@ def test_vrgripper_phase(chip_smoke, tmp_path, capsys, monkeypatch):
         assert f"[vrgripper] {name} (2 " in out, out
     for line in ("card vs CPU loss", "[vrgripper] regression_mse train_eval_model on CPU "
                  "rehearsal: 2 steps of batch 2", "CheckpointPredictor at step 2"):
+        assert line in out, out
+
+
+def test_maml_export_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The maml_export phase at the models' widths with 2 tasks: the pose
+    MAML model's programs at batches 1 and 2, VRGripper's at 2 and the
+    policy model's at 1, each held to its checkpoint forward; then a MAML
+    policy episode from the export."""
+    monkeypatch.setattr(chip_smoke, "META_TASKS", 2)
+    monkeypatch.setattr(chip_smoke, "MAML_EXPORT_BATCHES", (1, 2))
+    monkeypatch.setattr(chip_smoke, "VRG_TASKS", 2)
+    monkeypatch.setattr(chip_smoke, "MAML_TIMED_PREDICTS", 1)
+    chip_smoke.phase_maml_export(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[maml_export] pose MAML (run_train_reg_maml.gin model, 3 + 3 samples at "
+                 "64x64) on CPU rehearsal: programs at batches [1, 2]",
+                 "[maml_export] VRGripper MAML (JAX defaults) on CPU rehearsal: programs at "
+                 "batches [2]",
+                 "[maml_export] pose MAML policy model (1 + 1 samples)",
+                 "[maml_export] MAML policy from the export on CPU rehearsal",
+                 "action vs the checkpoint policy's"):
+        assert line in out, out
+
+
+def test_stem_s2d_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The stem_s2d phase at the rehearsal critic (96x96, (2, 2, 1), width
+    8, batch 4): S2D vs plain stem, S2D steps, and PCGrad card vs CPU (here
+    CPU against CPU, pinned)."""
+    monkeypatch.setattr(chip_smoke, "S2D_STEPS", 2)
+    chip_smoke.phase_stem_s2d(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[stem_s2d] critic (batch 4, 96x96, f32, TF32 off) on CPU rehearsal: "
+                 "S2D stem vs plain", "eval logits", "synced step plain",
+                 "[stem_s2d] PCGrad step (critic loss split into 2 tasks of 2",
+                 "combined gradients worst"):
+        assert line in out, out
+
+
+def test_png_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The png phase on the rehearsal critic's 136x264 sources: 8 + 4 PNG
+    records, parsed back exactly, decode rates, 2 steps fed from them."""
+    monkeypatch.setattr(chip_smoke, "PNG_RECORDS", (8, 2, 4))
+    monkeypatch.setattr(chip_smoke, "PNG_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "PNG_BATCHES", 2)
+    chip_smoke.phase_png(str(tmp_path))
+    out = capsys.readouterr().out
+    for line in ("[png] 12 records of 136x264 RGB PNG sources", "parsed back bit for bit",
+                 "PNG ", "MB/s", "JPEG ", "2 critic steps fed from PNG records on CPU "
+                 "rehearsal"):
         assert line in out, out

@@ -325,3 +325,39 @@ def test_run_train_reg_maml_trains_through_the_trainer_binary(tmp_path):
     assert evals[-1]["step"] == 2 and np.isfinite(evals[-1]["loss"])
     operative = (run_dir / "operative_config.gin").read_text()
     assert "PoseEnvRegressionModelMAML.num_inner_loop_steps = 1" in operative
+
+
+REMAINDER_MODULES = ("layers.s2d_conv", "research.qtopt.pcgrad", "utils.subsample",
+                    "utils.global_step_functions")
+_IMPORTED_NAMES = (
+    "from {package}.config import registry\n"
+    "import {package}.config.defaults\n"
+    "before = set(registry._REGISTRY.configurables)\n"
+    "import {package}.config as cfg\n"
+    "cfg.parse_config({config!r})\n"
+    "import json\n"
+    "loaded = sorted(m for m in sys.modules if m.startswith('{package}.')\n"
+    "                and m.split('.', 1)[1] in {modules!r})\n"
+    "print(json.dumps([sorted(set(registry._REGISTRY.configurables) - before), loaded]))\n")
+
+
+def test_s2d_pcgrad_subsample_and_schedules_load_from_a_config_under_the_jax_names():
+    """`import tensor2robot_tpu.<m>` in a config loads the port's space-to-
+    depth stem, PCGrad, subsample and global-step modules (jax blocked),
+    and registers exactly the names the JAX package's modules register
+    (its two schedules), building the port's functions."""
+    config = "".join(f"import tensor2robot_tpu.{m}\n" for m in REMAINDER_MODULES)
+    port = json.loads(_python(_IMPORTED_NAMES.format(
+        package="tensor2robot_tpu_torch", config=config, modules=REMAINDER_MODULES)))
+    jax_names = json.loads(_python(_IMPORTED_NAMES.format(
+        package="tensor2robot_tpu", config=config, modules=REMAINDER_MODULES),
+        block_jax=False))[0]
+    assert port[0] == jax_names == ["exponential_decay_value", "piecewise_linear"]
+    assert port[1] == sorted(f"tensor2robot_tpu_torch.{m}" for m in REMAINDER_MODULES)
+    cfg.parse_config("import tensor2robot_tpu.utils.global_step_functions\n"
+                     "piecewise_linear.boundaries = [0, 10]\n"
+                     "piecewise_linear.values = [1.0, 3.0]\n")
+    schedule = cfg.get_configurable("piecewise_linear")()
+    assert _original(cfg.get_configurable("piecewise_linear")).__module__ == (
+        "tensor2robot_tpu_torch.utils.global_step_functions")
+    assert float(schedule(5)) == 2.0

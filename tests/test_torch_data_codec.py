@@ -161,11 +161,15 @@ class TestDecode:
         with pytest.raises(codec.JpegDecodeError):
             codec.decode_roi_into(_pil_jpeg(_frame(), quality=90),
                                   np.empty((8, 8, 3), np.uint8), 0, 0, (32, 64))
-        _, png = _specs((48, 64, 3), data_format="png")
-        with pytest.raises(NotImplementedError, match="A12"):
-            codec.decode_image(b"\x89PNG", png)
-        with pytest.raises(NotImplementedError, match="A12"):
-            codec.encode_image(_frame(), "png")
+        # PNG (ROADMAP A12, ported): the port's PNG round-trips bit for bit
+        # through the port and through the JAX package's PIL decode, and a
+        # PNG of another size raises as a JPEG does.
+        jax_png, png = _specs((48, 64, 3), data_format="png")
+        data = codec.encode_image(_frame(), "png")
+        np.testing.assert_array_equal(codec.decode_image(data, png), _frame())
+        np.testing.assert_array_equal(jax_parser.decode_image(data, jax_png), _frame())
+        with pytest.raises(ValueError, match="does not match"):
+            codec.decode_image(data, _specs((32, 64, 3), data_format="png")[1])
 
     def test_malformed_jpegs_refused_alike(self):
         jax_spec, spec = _specs((24, 32, 3))

@@ -210,3 +210,22 @@ def test_the_subprocess_import_covers_the_meta_slice(module):
     path = ROOT / (module.replace(".", "/") + (
         "/__init__.py" if module.endswith("meta_learning") else ".py"))
     assert path in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.utils.subsample",
+    "tensor2robot_tpu_torch.utils.global_step_functions",
+    "tensor2robot_tpu_torch.utils.t2r_test_fixture",
+    "tensor2robot_tpu_torch.utils.train_eval_test_utils",
+    "tensor2robot_tpu_torch.layers.s2d_conv",
+    "tensor2robot_tpu_torch.research.qtopt.pcgrad",
+    "tensor2robot_tpu_torch.data.png",
+])
+def test_the_subprocess_import_covers_the_single_card_remainder(module):
+    """Every module of the slice that finished the single-card items
+    (utilities, the space-to-depth stem, PCGrad, PNG) is among those the
+    blocked-jax subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
+

@@ -497,11 +497,33 @@ def test_trainer_regimes_leave_a_maml_model_alone(jax_steps):
                                    atol=GRAD_TOL * scale + 1e-7, rtol=0, err_msg=key)
 
 
-def test_exporting_a_maml_model_raises_naming_its_item():
+def test_exporting_a_maml_model_raises_naming_its_item(tmp_path):
+    """Exporting a MAML model raises nothing now (ROADMAP A8(f) is ported):
+    the plain and the bf16-wrapped model both give a serving module that
+    takes gradients, and the plain one exports a static-batch program that
+    serves its own eager forward (tests/test_torch_maml_export.py holds the
+    programs against the JAX package)."""
+    from tensor2robot_tpu_torch.export import saved_model
     from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
 
+    weights = _model().init_network(torch.Generator().manual_seed(0), "cpu").state_dict()
     for model in (_model(), train_eval.maybe_wrap_for_tpu(_model(device_type="tpu"))):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8\(f\)"):
-            DefaultExportGenerator().set_specification_from_model(model)
+        generator = DefaultExportGenerator()
+        generator.set_specification_from_model(model)
+        assert generator.create_serving_fn(weights, device=torch.device("cpu")).takes_gradients
+    generator = DefaultExportGenerator()
+    generator.set_specification_from_model(_model())
+    serving = generator.create_serving_fn(weights, device=torch.device("cpu"))
+    example = generator.create_example_features()
+    path = saved_model.save_exported_model(
+        str(tmp_path), weights, generator.serving_input_spec(), serving_module=serving,
+        example_features=example, program_batches=(2,))
+    loaded = saved_model.ExportedModel(path, device="cpu")
+    assert loaded.metadata["program"] is True and loaded.program_batches == [2]
+    with torch.no_grad():
+        want = serving({k: torch.from_numpy(v) for k, v in example.items()})
+    got = loaded.predict(example)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key], value.numpy(), atol=1e-6, rtol=1e-6, err_msg=key)
     DefaultExportGenerator().set_specification_from_model(
         pose_env.PoseEnvRegressionModel(device_type="cpu"))

@@ -141,11 +141,20 @@ class TestGrasping44:
         _close(ep["predictions"], want["predictions"], atol=BF16_TOL, rtol=0)
 
     def test_stem_s2d_raises_naming_its_item(self, monkeypatch):
-        monkeypatch.setenv("T2R_STEM_S2D", "1")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            networks.Grasping44(image_size=SIZE, num_convs=CONVS)
-        monkeypatch.setenv("T2R_STEM_S2D", "0")
-        networks.Grasping44(image_size=SIZE, num_convs=CONVS)
+        """T2R_STEM_S2D=1 builds the space-to-depth stem (A11 is ported and
+        nothing raises); 0 and auto build the plain strided stem. Both hold
+        the same `conv1_1.weight`."""
+        from tensor2robot_tpu_torch.layers.s2d_conv import SpaceToDepthConv
+
+        stems = {}
+        for mode in ("1", "0", "auto"):
+            monkeypatch.setenv("T2R_STEM_S2D", mode)
+            stems[mode] = networks.Grasping44(image_size=SIZE, num_convs=CONVS).conv1_1
+        assert isinstance(stems["1"], SpaceToDepthConv)
+        for mode in ("0", "auto"):
+            assert isinstance(stems[mode], networks._Conv)
+            assert not isinstance(stems[mode], SpaceToDepthConv)
+            assert stems[mode].weight.shape == stems["1"].weight.shape
 
     def test_converter_names_every_unmatched_key(self, jax_tower):
         _, variables = jax_tower
