@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper,maml_export,stem_s2d,png]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper,maml_export,stem_s2d,png,parallel]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -226,6 +226,26 @@ Phases, each fatal on failure (exit code 1, no result line):
                 the port's encoder, parsed back bit for bit; PNG decode
                 MB/s beside JPEG's on one thread; RecordDataset feeding
                 the critic from them (decode whole, crop 472x472).
+ 18. parallel — sequence- and data-parallel BC at full width (T = 1024,
+                64x64x3, d_model 256, 4 layers, 8 heads of 32, flash on,
+                batch 8, Adam, seed 0) on 4 ranks: processes sharing
+                cuda:0 in one gloo group (a card holds one NCCL rank), the
+                CUDA tensors they exchange staged through pinned host
+                buffers, every kernel on the card. On a sequence-4 mesh
+                (256 frames a rank) the ring, Ulysses (2 heads a rank) and
+                a window-300 ring (3 of 4 hops) each take one step's loss
+                and every gradient, averaged by the trainer's bucket, and
+                an eval forward, held against the single-device flash step
+                and forward from the same weights and batch on rank 0 (the
+                BC gate; 1e-4 abs + rel); B1, B3 and B4 must launch exactly
+                16, 4 and 12 times a rank a step (B2 4 times in Ulysses'
+                eval); then the synced step (median of 10), peak memory,
+                gloo-staged MB a step and rank 0's profiled step. Then train_eval_model on a
+                2 x 2 data x sequence mesh (10 steps, checkpoints at 5 and
+                10 from rank 0, exact launches) and its 10.pt served on one
+                card by CheckpointPredictor within 1e-4 of the einsum
+                path. The four processes share one card: no time here is
+                a multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -251,7 +271,7 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
           "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
-          "stem_s2d", "png")
+          "stem_s2d", "png", "parallel")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -4739,6 +4759,377 @@ def phase_png(model_dir: str) -> None:
         + f"; {codec.COUNTS.png_decodes} PNG decodes, flash launches {launches}")
 
 
+# -- parallel: sequence- and data-parallel BC over 4 gloo ranks on one card ---------
+
+# 4 ranks as processes sharing cuda:0 (a card holds one NCCL rank at most,
+# so they join a gloo group and collectives.py stages the CUDA tensors
+# they exchange through pinned host buffers). The regimes: (mode, window,
+# B1 = B3 = B4 launches a rank a step: 4 layers x the ring's hops, or one
+# per layer for Ulysses' local flash attention).
+PARALLEL_RANKS = 4
+PARALLEL_REGIMES = {
+    "ring": ("ring", None, NUM_LAYERS * 4),
+    "ulysses": ("ulysses", None, NUM_LAYERS),
+    "ring_window300": ("ring", 300, NUM_LAYERS * 3),
+}
+PARALLEL_TIMED_STEPS = 10
+# train_eval_model on a 2 x 2 data x sequence mesh: steps, checkpoint
+# interval and eval batches.
+PARALLEL_TRAIN = dict(steps=10, save_every=5, eval_steps=1)
+PARALLEL_TIMEOUT = 600
+# The ranks' device: the card, shared (a CPU rehearsal passes "cpu").
+PARALLEL_DEVICE = "cuda:0"
+# Per-rank state of a parallel-phase child: its meshes, one per shape.
+_RANK_MESHES = {}
+
+
+def _parallel_spec() -> dict:
+    """What the ranks run, from this process's settings: spawned ranks
+    import this file afresh, so they take their sizes from here."""
+    return dict(device=PARALLEL_DEVICE, model=bc_model_kwargs(True),
+                batch=SLICE["batch"], layers=NUM_LAYERS, timed=PARALLEL_TIMED_STEPS,
+                regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN)
+
+
+def _rank_setup(spec: dict, data: int, sequence: int):
+    """A rank's f32 settings (as main() sets them) and its mesh. On the
+    CPU (a rehearsal) the kernels' plain versions count as their kernels
+    would, so the launch checks run as on the card."""
+    import torch
+
+    from tensor2robot_tpu_torch.ops import flash_attention as fa
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["device"] == "cpu" and not _RANK_MESHES:
+        def counted(fn, *kernels):
+            def run(*args, **kwargs):
+                for kernel in kernels:
+                    fa.KERNELS[kernel].launches += 1
+                return fn(*args, **kwargs)
+            return run
+
+        fa.flash_attention_plain = counted(fa.flash_attention_plain, "flash_fwd")
+        fa.flash_attention_tile_plain = counted(fa.flash_attention_tile_plain,
+                                                "flash_fwd_tile")
+        fa.flash_attention_bwd_plain = counted(fa.flash_attention_bwd_plain,
+                                               "flash_bwd_dq", "flash_bwd_dkv")
+    key = (data, sequence)
+    if key not in _RANK_MESHES:
+        _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, sequence=sequence)
+    return _RANK_MESHES[key]
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _peak_gib(device: str) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if device.startswith("cuda") else 0.0
+
+
+def _bc_batch(model, batch_size: int, seed: int):
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+
+    generator = DefaultRandomInputGenerator(batch_size=batch_size, seed=seed)
+    generator.set_specification_from_model(model, "train")
+    return next(iter(generator.create_dataset("train")))
+
+
+def parallel_rank_regime(spec: dict, regime: str) -> dict:
+    """On every rank (sequence = 4): one step's loss and every gradient,
+    averaged over the ranks by the trainer's bucket, and one eval forward;
+    rank 0 holds them against the single-device flash step and forward on
+    the same weights and batch. Then the synced step (median of 10), peak
+    memory and staged bytes a step. Returns the rank's numbers and the
+    launches its main-path calls made."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import collectives
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    mesh = _rank_setup(spec, 1, PARALLEL_RANKS)
+    mode, window, per_step = spec["regimes"][regime]
+    layers, device = spec["layers"], spec["device"]
+    kwargs = dict(spec["model"], attention_window=window)
+    model = TransformerBCModel(mesh=mesh, sequence_parallel_mode=mode, **kwargs)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    host = _bc_batch(model, spec["batch"], seed=0)
+    batch = to_device(mesh_lib.shard_batch(host, mesh), device)
+    rank = dist.get_rank()
+    out = {"rank": rank, "launches": {k: 0 for k in read_launches()}}
+
+    def counted(fn):
+        reset_launches()
+        result = fn()
+        _sync(device)
+        for name, count in read_launches().items():
+            out["launches"][name] += count
+        return result, read_launches()
+
+    network = state.network
+    network.train()
+
+    def step():
+        features, labels = trainer.preprocess_train(batch)
+        loss, metrics = trainer.backward(network, features, labels)
+        return trainer.average_over_ranks(network, loss, metrics)[0]
+
+    loss, launches = counted(step)
+    want = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    if launches != want:
+        raise AssertionError(f"rank {rank} {regime} step launched {launches} != {want}")
+    grads = {n: p.grad.detach().clone() for n, p in network.named_parameters()}
+    network.zero_grad(set_to_none=True)
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        (action, launches) = counted(
+            lambda: model.packed_inference(network, features, "eval")[2]["inference_output"])
+    eval_want = ({"flash_fwd": layers, "flash_fwd_tile": 0} if mode == "ulysses"
+                 else {"flash_fwd": 0, "flash_fwd_tile": per_step})
+    eval_want.update(flash_bwd_dq=0, flash_bwd_dkv=0)
+    if launches != eval_want:
+        raise AssertionError(f"rank {rank} {regime} eval launched {launches} != {eval_want}")
+    if rank == 0:
+        out.update(_single_device_reference(kwargs, device, state.network.state_dict(),
+                                            batch, loss, grads, action))
+    del grads, action
+    dist.barrier()
+
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    times, staged = [], []
+    for i in range(2 + spec["timed"]):
+        collectives.reset_staged_bytes()
+        _sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: trainer.train_step(state, batch))
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+            staged.append(collectives.staged_bytes())
+        if launches != want:
+            raise AssertionError(f"rank {rank} {regime} train step launched {launches}")
+    out.update(
+        step_ms=sorted(times)[len(times) // 2], step_min=min(times),
+        step_max=max(times), peak_gib=_peak_gib(device),
+        staged_mb=sorted(staged)[len(staged) // 2] / 1e6,
+    )
+    # Where a step's time goes on the card: rank 0 profiles the second of
+    # two steps (device_profile runs two) while the other ranks step.
+    reset_launches()
+    if rank == 0 and device.startswith("cuda"):
+        device_profile(f"{regime} train step, rank 0 of {PARALLEL_RANKS} sharing the card",
+                       lambda: trainer.train_step(state, batch), rows=8)
+    else:
+        for _ in range(2):
+            trainer.train_step(state, batch)
+    _sync(device)
+    for name, count in read_launches().items():
+        out["launches"][name] += count
+    return out
+
+
+def _single_device_reference(kwargs, device, weights, batch, loss, grads,
+                             action) -> dict:
+    """Rank 0: the single-device flash step and eval forward from the same
+    weights and batch on the card, against the mesh's (the BC gate and
+    the served-action gate)."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = TransformerBCModel(**kwargs)
+    trainer = Trainer(model, device=device)
+    network = trainer.init_state(params=weights).network
+    network.train()
+    ref_loss, _ = trainer.forward_loss(network, batch)
+    ref_loss.backward()
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if not loss_err <= LOSS_TOL:
+        raise AssertionError(f"mesh loss {loss.item()} vs one card {ref_loss.item()}")
+    worst, worst_name = 0.0, ""
+    for name, p in network.named_parameters():
+        g, g_ref = grads[name], p.grad
+        scale = g_ref.abs().max().item()
+        err = (g - g_ref).abs().max().item()
+        if not err <= GRAD_TOL * scale + 1e-7:
+            raise AssertionError(
+                f"{name}: mesh gradient off the single-device step by {err} (max {scale})")
+        if err / max(scale, 1e-30) > worst:
+            worst, worst_name = err / max(scale, 1e-30), name
+    network.zero_grad(set_to_none=True)
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        ref_action = model.packed_inference(network, features, "eval")[2]["inference_output"]
+    eval_err = ((action - ref_action).abs() / (1 + ref_action.abs())).max().item()
+    if not eval_err <= SERVE_TOL:
+        raise AssertionError(f"mesh eval forward off the single-device one by {eval_err}")
+    return dict(loss=loss.item(), ref_loss=ref_loss.item(), loss_err=loss_err,
+                worst=worst, worst_name=worst_name, eval_err=eval_err)
+
+
+def parallel_rank_train(spec: dict, model_dir: str) -> dict:
+    """On every rank: train_eval_model on a 2 x 2 data x sequence mesh;
+    returns the final eval and the rank's launches."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    mesh = _rank_setup(spec, 2, 2)
+    model = TransformerBCModel(mesh=mesh, **spec["model"])
+    train = spec["train"]
+    if spec["device"].startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final_eval = train_eval_model(
+        model,
+        DefaultRandomInputGenerator(batch_size=spec["batch"], seed=0),
+        DefaultRandomInputGenerator(batch_size=spec["batch"], seed=1000),
+        model_dir=model_dir, max_train_steps=train["steps"],
+        save_checkpoints_steps=train["save_every"], eval_steps=train["eval_steps"],
+        log_every_steps=train["save_every"], device=spec["device"], mesh=mesh,
+    )
+    _sync(spec["device"])
+    return {"final_eval": final_eval, "launches": read_launches(),
+            "peak_gib": _peak_gib(spec["device"])}
+
+
+def _serve_mesh_checkpoint(model_dir: str) -> tuple:
+    """The 2 x 2 mesh's step-10 checkpoint served on one card by
+    CheckpointPredictor, against the same weights on the einsum path;
+    returns (what it found, the launches of the served batch)."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+    from tensor2robot_tpu_torch.train import state as state_lib
+
+    steps = state_lib.checkpoint_steps(model_dir)
+    want = list(range(PARALLEL_TRAIN["save_every"], PARALLEL_TRAIN["steps"] + 1,
+                      PARALLEL_TRAIN["save_every"]))
+    if steps != want:
+        raise AssertionError(f"mesh run checkpoints {steps} != {want}")
+    predictor = CheckpointPredictor(full_width_model(True), checkpoint_dir=model_dir,
+                                    device=DEVICE)
+    if not predictor.restore() or predictor.model_version != PARALLEL_TRAIN["steps"]:
+        raise AssertionError(f"restored version {predictor.model_version}")
+    plain = CheckpointPredictor(full_width_model(False), device=DEVICE)
+    trained = state_lib.load_checkpoint(model_dir)
+    plain.load_state_dict(trained["params"], version=trained["step"])
+    episodes = make_random_numpy(predictor.get_feature_specification(),
+                                 batch_size=DISTINCT_EPISODES, seed=1)
+    reset_launches()
+    got = predictor.predict(episodes)["action"]
+    launches = read_launches()
+    expected = plain.predict(episodes)["action"]
+    if got.shape != (DISTINCT_EPISODES, SLICE["seq"], 7) or not np.all(np.isfinite(got)):
+        raise AssertionError(f"served actions {got.shape}")
+    err = float(np.max(np.abs(got - expected) / (1 + np.abs(expected))))
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"mesh checkpoint served {err} off the einsum path")
+    if launches != {"flash_fwd": NUM_LAYERS, "flash_fwd_tile": 0, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"serving launched {launches}")
+    return (f"steps {steps}; {steps[-1]}.pt served on one card by CheckpointPredictor, "
+            f"{DISTINCT_EPISODES} episodes within {err:.2e} of the einsum path"), launches
+
+
+def phase_parallel(model_dir: str) -> dict:
+    """Sequence- and data-parallel BC at full width over 4 gloo ranks
+    sharing the card: ring, Ulysses and a windowed ring against the
+    single-device step, then train_eval_model on a 2 x 2 mesh served from
+    one card. Returns the launches of every rank's main-path calls."""
+    import torch
+
+    from tensor2robot_tpu_torch.parallel.launch import LocalWorld
+
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    launches = {name: 0 for name in read_launches()}
+    spec = _parallel_spec()
+    with LocalWorld(PARALLEL_RANKS, threads=2, timeout_s=PARALLEL_TIMEOUT) as world:
+        log(f"[parallel] {PARALLEL_RANKS} gloo ranks on {spec['device']} up in "
+            f"{time.monotonic() - t0:.1f}s; they share one card, so no time "
+            "below is a multi-card speed")
+        for regime in PARALLEL_REGIMES:
+            ranks = world.run(parallel_rank_regime, spec, regime,
+                              timeout_s=PARALLEL_TIMEOUT)
+            for r in ranks:
+                for name, count in r["launches"].items():
+                    launches[name] += count
+            head = ranks[0]
+            log(f"[parallel] {regime} (sequence {PARALLEL_RANKS}, "
+                f"{SLICE['seq'] // PARALLEL_RANKS} frames a rank) on {card_line()}: loss "
+                f"{head['loss']:.7f} vs one card {head['ref_loss']:.7f} (rel "
+                f"{head['loss_err']:.2e}); worst gradient {head['worst_name']} at "
+                f"{head['worst']:.2e} of its max; eval forward within "
+                f"{head['eval_err']:.2e}; B1/B3/B4 {PARALLEL_REGIMES[regime][2]} a rank a "
+                f"step; synced step median {head['step_ms']:.3f} ms (min "
+                f"{head['step_min']:.3f}, max {head['step_max']:.3f}) over "
+                f"{PARALLEL_TIMED_STEPS} on rank 0, medians by rank "
+                f"{[round(r['step_ms'], 3) for r in ranks]}; peak GiB by rank "
+                f"{[round(r['peak_gib'], 3) for r in ranks]}; gloo host-staged "
+                f"{head['staged_mb']:.3f} MB a step on rank 0")
+        with tempfile.TemporaryDirectory(dir=model_dir) as run_dir:
+            ranks = world.run(parallel_rank_train, spec, run_dir,
+                              timeout_s=PARALLEL_TIMEOUT)
+            train = PARALLEL_TRAIN
+            per_rank = NUM_LAYERS * 2  # 2 hops of a sequence-2 ring
+            want = {"flash_fwd": 0,
+                    "flash_fwd_tile": per_rank * (train["steps"] + train["eval_steps"]
+                                                  * train["steps"] // train["save_every"]),
+                    "flash_bwd_dq": per_rank * train["steps"],
+                    "flash_bwd_dkv": per_rank * train["steps"]}
+            for r in ranks:
+                if r["launches"] != want:
+                    raise AssertionError(f"2 x 2 train_eval_model launched {r['launches']}"
+                                         f" != {want}")
+                for name, count in r["launches"].items():
+                    launches[name] += count
+            evals = {round(r["final_eval"]["eval/mse"], 9) for r in ranks}
+            if len(evals) != 1 or not all(math.isfinite(e) for e in evals):
+                raise AssertionError(f"ranks' final evals {evals}")
+            served, served_launches = _serve_mesh_checkpoint(run_dir)
+            for name, count in served_launches.items():
+                launches[name] += count
+            log(f"[parallel] train_eval_model on a 2 x 2 data x sequence mesh on "
+                f"{card_line()}: {train['steps']} steps, final eval {ranks[0]['final_eval']} "
+                f"on every rank; {served}; peak GiB by rank "
+                f"{[round(r['peak_gib'], 3) for r in ranks]}")
+    log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
+        f"{launches}")
+    return launches
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -4829,6 +5220,9 @@ def main() -> int:
                 timed_phase("stem_s2d", phase_stem_s2d, os.path.join(model_dir, "stem_s2d"))
             if "png" in phases:
                 timed_phase("png", phase_png, os.path.join(model_dir, "png"))
+            if "parallel" in phases:
+                for name, count in timed_phase("parallel", phase_parallel, model_dir).items():
+                    launches[name] = launches.get(name, 0) + count
         log(f"[done] {time.monotonic() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

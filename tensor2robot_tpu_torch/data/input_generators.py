@@ -132,6 +132,12 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
         self._num_parse_workers = num_parse_workers
         self._shard_by_host = shard_by_host
 
+    @property
+    def shard_by_host(self) -> bool:
+        """Whether each process of the group reads only its slice of the
+        files (RecordDataset)."""
+        return self._shard_by_host
+
     def create_record_dataset(self, mode: str) -> RecordDataset:
         return RecordDataset(
             specs=self.combined_spec(),

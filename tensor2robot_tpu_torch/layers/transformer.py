@@ -20,9 +20,30 @@ by the flax "cache" collection's paths ('block_0/attention/cached_key'),
 threaded through the forward; every counter stays a device tensor, so a
 step can be captured as one CUDA graph or traced by torch.export.
 
+Sequence parallelism (`mesh` with a `sequence` dim above 1): attention
+runs as the ring (parallel/ring_attention.py, `sequence_parallel_mode=
+"ring"`, the default) or Ulysses (parallel/ulysses_attention.py, "ulysses")
+over this rank's shard of the sequence. The encoder adds the positional
+table on the global [B, S, F] input (as JAX does), takes this rank's shard
+[B, S/N, F], runs the blocks and ln_final on it, and all_gathers the
+shards back to [B, S, F], so the head, the loss and the specs see the
+global episode unchanged.
+
+The gradient rule under a mesh: every sequence rank computes the same
+loss on the same global output. The all_gather's backward is psum_scatter,
+so each rank's shard receives the sum of the N equal cotangents: N times
+its share of the single-device gradient. A parameter's gradient on rank r
+is then N x the part of the single-device gradient that flows through
+shard r (the layers inside the encoder, and through the slice also the
+embed below it), or the whole single-device gradient (the head above the
+gather). The pmean over the sequence ranks (the trainer's gradient
+bucket) turns both into the single-device gradient; the pmean over data x
+fsdp then averages the data shards' means into the global batch mean.
+
 Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
-A9: the mesh paths (sequence-parallel ring/ulysses attention, expert
-parallelism and pipelining).
+A9: pipelining (`pipeline_stages > 1`), manual sequence parallelism inside
+a pipeline (`manual_sequence_size > 1`), expert parallelism (experts, or a
+mesh whose model, pipe or expert dim is above 1) and decoding with a mesh.
 """
 
 from __future__ import annotations
@@ -36,17 +57,50 @@ from torch import nn
 from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.moe import MoEBlock
 from tensor2robot_tpu_torch.ops import flash_attention as flash_lib
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.parallel.ring_attention import ring_attention
+from tensor2robot_tpu_torch.parallel.ulysses_attention import ulysses_attention
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
+# sequence_parallel_mode -> the attention a sequence mesh runs.
+SEQUENCE_PARALLEL = {"ring": ring_attention, "ulysses": ulysses_attention}
 
 
-def _reject_mesh(mesh: Optional[object] = None, pipeline_stages: int = 1) -> None:
-    if mesh is not None or pipeline_stages > 1:
-        raise NotImplementedError(
-            "mesh paths (sequence-parallel attention, expert parallelism, "
-            "pipelining) are not ported yet (ROADMAP.md A9)"
+def _check_mesh(
+    mesh: Optional[object] = None,
+    sequence_parallel_mode: str = "ring",
+    pipeline_stages: int = 1,
+    manual_sequence_size: int = 1,
+    decode: bool = False,
+) -> None:
+    """Eager checks of the parallel arguments: a mode typo fails on the
+    laptop run (ValueError, as JAX), a mesh of the wrong type with a
+    TypeError, and the regimes not ported with NotImplementedError naming
+    ROADMAP.md A9."""
+    if sequence_parallel_mode not in SEQUENCE_PARALLEL:
+        raise ValueError(
+            "sequence_parallel_mode must be 'ring' or 'ulysses', "
+            f"got {sequence_parallel_mode!r}"
         )
+    if pipeline_stages > 1 or manual_sequence_size > 1:
+        raise NotImplementedError(
+            "pipelining (pipeline_stages > 1, manual_sequence_size > 1) is "
+            "not ported yet (ROADMAP.md A9)"
+        )
+    if mesh is None:
+        return
+    mesh_lib.check_ported_dims(mesh)
+    if decode:
+        raise NotImplementedError(
+            "decoding over a mesh is not ported (ROADMAP.md A9): decode is "
+            "single-device serving, build the decode network without a mesh"
+        )
+
+
+def _sequence_size(mesh: Optional[object]) -> int:
+    return mesh_lib.axis_size(mesh, mesh_lib.SEQUENCE_AXIS)
 
 
 class DecodeCache:
@@ -87,6 +141,11 @@ class MultiHeadAttention(nn.Module):
     use_flash: None = auto (flash at seq >= FLASH_AUTO_SEQ, else einsum),
     True = always the flash path, False = always the einsum path.
 
+    mesh: with a `sequence` dim above 1, x is this rank's sequence shard
+    and attention runs sequence-parallel: the ring, or Ulysses with
+    `sequence_parallel_mode="ulysses"`, each with its own use_flash policy
+    (None = auto on the length it attends).
+
     decode: one step per call against a K/V cache of `decode_max_len`
     slots, `kv_heads` wide (GQA expands heads only at attend time); see
     `_decode_step`.
@@ -104,9 +163,10 @@ class MultiHeadAttention(nn.Module):
         decode: bool = False,
         decode_max_len: int = 2048,
         mesh: Optional[object] = None,
+        sequence_parallel_mode: str = "ring",
     ):
         super().__init__()
-        _reject_mesh(mesh)
+        _check_mesh(mesh, sequence_parallel_mode, decode=decode)
         kv_heads = num_kv_heads if num_kv_heads is not None else num_heads
         if num_heads % kv_heads != 0:
             raise ValueError(
@@ -121,6 +181,8 @@ class MultiHeadAttention(nn.Module):
         self.window = window
         self.decode = decode
         self.decode_max_len = decode_max_len
+        self.mesh = mesh
+        self.sequence_parallel_mode = sequence_parallel_mode
         inner = num_heads * head_dim
         self.qkv = nn.Linear(
             features, inner + 2 * kv_heads * head_dim, bias=False
@@ -159,7 +221,13 @@ class MultiHeadAttention(nn.Module):
         if self.decode:
             out = self._decode_step(q, k, v, cache)
             return self.out(out.reshape(batch, seq, inner))
+        # The flash, ring and Ulysses paths take equal q/k/v head counts.
         k, v = self._expand_kv(k), self._expand_kv(v)
+        if _sequence_size(self.mesh) > 1:
+            out = SEQUENCE_PARALLEL[self.sequence_parallel_mode](
+                q, k, v, self.mesh, causal=self.causal, use_flash=self.use_flash,
+                window=self.window)
+            return self.out(out.reshape(batch, seq, inner))
         use_flash = self.use_flash
         if use_flash is None:
             use_flash = seq >= flash_lib.FLASH_AUTO_SEQ
@@ -234,19 +302,21 @@ class TransformerBlock(nn.Module):
         decode: bool = False,
         decode_max_len: int = 2048,
         mesh: Optional[object] = None,
+        sequence_parallel_mode: str = "ring",
     ):
         super().__init__()
         self.attention = MultiHeadAttention(
             features, num_heads, head_dim, causal=causal, use_flash=use_flash,
             window=window, num_kv_heads=num_kv_heads, decode=decode,
             decode_max_len=decode_max_len, mesh=mesh,
+            sequence_parallel_mode=sequence_parallel_mode,
         )
         self.ln_attn = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
         self.ln_mlp = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
         if num_experts > 1:
             self.moe = MoEBlock(
                 features, num_experts, mlp_ratio * features,
-                num_selected=num_selected_experts,
+                num_selected=num_selected_experts, mesh=mesh,
             )
         else:
             self.mlp_in = nn.Linear(features, mlp_ratio * features)
@@ -275,6 +345,10 @@ class TransformerEncoder(nn.Module):
     decode: one step per call; the encoder's own counter `position`
     picks the positional row (clamped to the last past capacity), and
     the blocks decode against caches of max_seq_len slots.
+
+    mesh: with a `sequence` dim above 1 the blocks run on this rank's
+    sequence shard and the output is all_gathered back (module
+    docstring); `sequence_parallel_mode` picks ring or Ulysses.
     """
 
     def __init__(
@@ -294,11 +368,13 @@ class TransformerEncoder(nn.Module):
         decode: bool = False,
         mesh: Optional[object] = None,
         pipeline_stages: int = 1,
+        sequence_parallel_mode: str = "ring",
     ):
         super().__init__()
-        _reject_mesh(mesh, pipeline_stages)
+        _check_mesh(mesh, sequence_parallel_mode, pipeline_stages, decode=decode)
         self.max_seq_len = max_seq_len
         self.decode = decode
+        self.mesh = mesh
         self.pos_embedding = nn.Parameter(torch.zeros(max_seq_len, features))
         self.num_layers = num_layers
         for i in range(num_layers):
@@ -309,7 +385,8 @@ class TransformerEncoder(nn.Module):
                     causal=causal, use_flash=use_flash, window=window,
                     num_kv_heads=num_kv_heads, num_experts=num_experts,
                     num_selected_experts=num_selected_experts, decode=decode,
-                    decode_max_len=max_seq_len,
+                    decode_max_len=max_seq_len, mesh=mesh,
+                    sequence_parallel_mode=sequence_parallel_mode,
                 ),
             )
         self.ln_final = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
@@ -349,6 +426,16 @@ class TransformerEncoder(nn.Module):
             cache["position"] = position + 1
         else:
             x = x + self.pos_embedding[None, :seq]
+        shards = _sequence_size(self.mesh)
+        if shards > 1:
+            if seq % shards:
+                raise ValueError(
+                    f"sequence length {seq} must be divisible by the "
+                    f"'sequence' axis size {shards}"
+                )
+            block = seq // shards
+            me = collectives.axis_index(self.mesh, mesh_lib.SEQUENCE_AXIS)
+            x = x[:, me * block:(me + 1) * block]
         aux_losses = []
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
@@ -358,4 +445,7 @@ class TransformerEncoder(nn.Module):
                 x, aux_loss = remat.segment(block, x)
             if aux_loss is not None:
                 aux_losses.append(aux_loss)
-        return self.ln_final(x), aux_losses
+        x = self.ln_final(x)
+        if shards > 1:
+            x = collectives.all_gather(x, self.mesh, mesh_lib.SEQUENCE_AXIS, axis=1)
+        return x, aux_losses

@@ -7,6 +7,12 @@ mixture-of-experts feed-forwards (`num_experts > 1`) put the mean of the
 blocks' router aux losses into the TRAIN outputs only (`moe_aux_loss`),
 and model_train_fn folds it into the loss. StreamingBCPolicy serves one
 control step at a time from a KV cache (the decode network).
+
+With a `mesh` (parallel/mesh.py) whose `sequence` dim is above 1 the
+encoder runs sequence-parallel (`sequence_parallel_mode` "ring" or
+"ulysses"; layers/transformer.py). A mesh adds no parameter: the state
+dict, and so the checkpoint, has the single-device layout. Decoding is
+always single-device.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ class _TransformerBCNet(nn.Module):
         attention_window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         decode: bool = False,
+        sequence_parallel_mode: str = "ring",
     ):
         super().__init__()
         in_channels = 3
@@ -92,6 +99,7 @@ class _TransformerBCNet(nn.Module):
             window=attention_window, num_kv_heads=num_kv_heads,
             num_experts=num_experts, decode=decode, mesh=mesh,
             pipeline_stages=pipeline_stages,
+            sequence_parallel_mode=sequence_parallel_mode,
         )
         self.action_head = nn.Linear(d_model, action_size)
 
@@ -169,6 +177,7 @@ class TransformerBCModel(TorchT2RModel):
         pipeline_stages: int = 1,
         attention_window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
+        sequence_parallel_mode: str = "ring",
         **kwargs,
     ):
         super().__init__(**kwargs)
@@ -178,12 +187,14 @@ class TransformerBCModel(TorchT2RModel):
         self._image_size = tuple(image_size)
         self._moe_aux_weight = moe_aux_weight
         self._attention_window = attention_window
+        self._mesh = mesh
         self._net_kwargs = dict(
             d_model=d_model, num_layers=num_layers, num_heads=num_heads,
             head_dim=head_dim, max_seq_len=max(episode_length, 8),
             num_experts=num_experts, mesh=mesh, use_flash=use_flash,
             pipeline_stages=pipeline_stages,
             attention_window=attention_window, num_kv_heads=num_kv_heads,
+            sequence_parallel_mode=sequence_parallel_mode,
         )
 
     def get_feature_specification(self, mode: str) -> TensorSpecStruct:

@@ -119,8 +119,13 @@ def continuous_eval(
     checkpoint appears within `timeout`. Returns the last eval metrics.
     `input_generator_eval` may be a {name: generator} map: each name gets
     its own metric stream under model_dir/eval_<name>/."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "continuous_eval over a mesh is not ported yet (ROADMAP.md A9); "
+            "evaluate the mesh run's checkpoints on one card"
+        )
     model = maybe_wrap_for_tpu(t2r_model)
-    trainer = Trainer(model, device=device, mesh=mesh)
+    trainer = Trainer(model, device=device)
     if use_ema_for_eval is None:
         use_ema_for_eval = model.use_avg_model_params
     eval_generators = normalize_eval_generators(input_generator_eval)

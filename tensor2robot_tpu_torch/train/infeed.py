@@ -10,6 +10,13 @@ copied as it is; anything else is first copied into fresh pinned memory.
 dtypes are kept: uint8 images stay uint8 until the card. The trainer's
 iterations_per_loop regime reads these batches one by one: eager steps
 gain nothing from a stacked [K, B, ...] copy.
+
+Over a mesh each rank feeds its own shard: `shard_batches` takes this
+rank's slice of every host batch before the copy (parallel/mesh.py
+shard_batch: the leading axis split over data x fsdp, so ranks on the same
+data index, the sequence ranks of one episode among them, get the same
+batch). Every rank therefore reads the same host batches, the whole
+global batch.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import flags
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 
@@ -83,6 +91,12 @@ class PinnedRing:
             slot.copied = None
         tensor._t2r_slot = slot
         return tensor
+
+
+def shard_batches(batches: Iterator, mesh) -> Iterator:
+    """This rank's shard of every host batch (all of it without a mesh)."""
+    for batch in batches:
+        yield batch if mesh is None else mesh_lib.shard_batch(batch, mesh)
 
 
 def to_device(batch, device: Union[str, torch.device]) -> TensorSpecStruct:

@@ -51,8 +51,34 @@ asked to export after every eval, with that eval's metrics, under
 `<model_dir>/export/<name>/`. Hooks (hooks/hook_builder.py) are called in
 the JAX package's order.
 
-mesh, plan, shard_weight_update and flatten_optimizer_update raise
-NotImplementedError naming ROADMAP.md item A9.
+The mesh (parallel/mesh.py: data x fsdp x sequence; one process per rank,
+each running this trainer on its own shard): every rank feeds its slice
+of the batch (infeed.shard_batches), the network runs sequence-parallel
+where the model was built with the same mesh, and after the backward
+every gradient, with the step's scalar metrics, is averaged over all
+ranks in ONE flat all_reduce (the pmean over data x fsdp x sequence that
+turns the ranks' gradients into the single-device gradient of the global
+batch; layers/transformer.py has the rule). Parameters stay replicated,
+so every rank's optimizer takes the same step and the checkpoint has the
+single-device layout. Eval totals are averaged over the ranks the same
+way. Rank 0 alone writes checkpoints, manifests, metrics.jsonl and
+operative_config.gin; the others wait at a barrier, and a resume reads the
+same durable checkpoint on every rank.
+
+That holds where a train step depends on the batch only through the
+gradients. Over more than one data x fsdp shard two things break it, and
+each raises NotImplementedError naming ROADMAP.md A9 (JAX keeps
+global-batch semantics by jitting over sharded arrays): a network with
+buffers (batch-norm statistics would normalise by each rank's shard and
+the ranks' running statistics drift apart), and preprocessing that draws
+random numbers (every rank draws the same step stream for its own shard,
+so crops would repeat across shards). Sequence ranks share their batch,
+so neither matters on a sequence-only mesh.
+
+plan, shard_weight_update and flatten_optimizer_update, a mesh with a
+model, pipe or expert dim above 1, and exporters, hooks, continuous eval
+or a `shard_by_host` record input over a mesh raise NotImplementedError
+naming ROADMAP.md item A9.
 """
 
 from __future__ import annotations
@@ -65,6 +91,7 @@ import time
 from typing import Any, Dict, Iterator, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from tensor2robot_tpu_torch import config as config_lib
 from tensor2robot_tpu_torch.export.saved_model import TRACE_LOCK
@@ -76,6 +103,8 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     MODE_TRAIN,
 )
 from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.train import durability, infeed
 from tensor2robot_tpu_torch.train import state as state_lib
@@ -84,15 +113,40 @@ from tensor2robot_tpu_torch.train.metrics import (
     MetricsWriter,
 )
 from tensor2robot_tpu_torch.train.state import TrainState, init_ema, update_ema
-from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from tensor2robot_tpu_torch.utils.device import (
+    DEFAULT_DEVICE,
+    rank_device,
+    resolve_device,
+)
 
-def _reject_unported(mesh=None, plan=None, shard_weight_update=False,
+
+def _reject_unported(plan=None, shard_weight_update=False,
                      flatten_optimizer_update=False) -> None:
-    if (mesh is not None or plan is not None or shard_weight_update
-            or flatten_optimizer_update):
+    if plan is not None or shard_weight_update or flatten_optimizer_update:
         raise NotImplementedError(
-            "mesh, plan, shard_weight_update and flatten_optimizer_update "
-            "are not ported yet (ROADMAP.md A9)"
+            "plan, shard_weight_update and flatten_optimizer_update are not "
+            "ported yet (ROADMAP.md A9)"
+        )
+
+
+def _check_trainer_mesh(model, mesh) -> None:
+    """The trainer's mesh regimes: data x fsdp x sequence only, and a
+    model built with a mesh of the same sequence size as the trainer's
+    (1 without one; the sequence half of the JAX trainer's
+    _validate_model_matches_plan: a mismatch would train silently without
+    sequence parallelism, or run the encoder's collectives with no
+    gradient reduction)."""
+    shape = mesh_lib.check_ported_dims(mesh)
+    candidates = [model, getattr(model, "_model", None)]
+    model_mesh = next((getattr(m, "_mesh") for m in candidates
+                       if getattr(m, "_mesh", None) is not None), None)
+    seq = mesh_lib.axis_size(model_mesh, mesh_lib.SEQUENCE_AXIS)
+    want = shape[mesh_lib.SEQUENCE_AXIS]
+    if seq != want:
+        raise ValueError(
+            f"the trainer's mesh shards the sequence {want}-way but the "
+            f"model's mesh carries sequence axis {seq}; construct the model "
+            "with the trainer's mesh so attention runs sequence-parallel"
         )
 
 
@@ -184,9 +238,10 @@ def _restore_buffers(buffers, values) -> None:
 
 
 class Trainer:
-    """The model's hooks as steps over a TrainState on one device. Train
-    steps preprocess with `step_generator(seed, step)`; `remat` and
-    `grad_accum_steps` are the memory regimes (module docstring)."""
+    """The model's hooks as steps over a TrainState on one device, or on
+    this rank's device of a mesh (module docstring). Train steps
+    preprocess with `step_generator(seed, step)`; `remat` and
+    `grad_accum_steps` are the memory regimes."""
 
     def __init__(
         self,
@@ -201,13 +256,19 @@ class Trainer:
         flatten_optimizer_update: bool = False,
     ):
         _reject_unported(
-            mesh=mesh, plan=plan, shard_weight_update=shard_weight_update,
+            plan=plan, shard_weight_update=shard_weight_update,
             flatten_optimizer_update=flatten_optimizer_update,
         )
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+        _check_trainer_mesh(model, mesh)
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # Ranks of the mesh, all of the world (make_mesh covers it).
+        self.ranks = 1 if mesh is None else dist.get_world_size()
+        self.data_shards = 1 if mesh is None else mesh_lib.data_shard(mesh)[1]
+        self.is_chief = mesh is None or dist.get_rank() == 0
+        self.device = resolve_device(device) if mesh is None else rank_device(device)
         self.seed = seed
         self.remat = bool(remat)
         self.grad_accum_steps = int(grad_accum_steps)
@@ -234,6 +295,13 @@ class Trainer:
             network = self.model.create_network()
             network.load_state_dict(params)
             network = network.to(self.device)
+        if self.data_shards > 1 and any(True for _ in network.buffers()):
+            raise NotImplementedError(
+                "a network with buffers (batch-norm statistics) over "
+                f"{self.data_shards} data x fsdp shards is not ported yet "
+                "(ROADMAP.md A9): each rank would normalise by its own shard "
+                "and keep its own running statistics"
+            )
         ema = init_ema(network) if self.model.use_avg_model_params else None
         optimizer = self.optimizer_factory(network.parameters())
         return TrainState(step=0, network=network, optimizer=optimizer,
@@ -299,10 +367,21 @@ class Trainer:
         """One update of `state` in place from a device batch; returns the
         step's metrics as device tensors (no host sync)."""
         state.network.train()
-        features, labels = self.preprocess_train(
-            batch, step_generator(self.seed, state.step, self.device))
+        generator = step_generator(self.seed, state.step, self.device)
+        drawn_from = generator.get_state() if self.data_shards > 1 else None
+        features, labels = self.preprocess_train(batch, generator)
+        if drawn_from is not None and not torch.equal(drawn_from, generator.get_state()):
+            raise NotImplementedError(
+                "preprocessing that draws random numbers over "
+                f"{self.data_shards} data x fsdp shards is not ported yet "
+                "(ROADMAP.md A9): every rank would draw the same stream for "
+                "its own shard of the batch"
+            )
         state.optimizer.zero_grad(set_to_none=True)
         loss, train_metrics = self.backward(state.network, features, labels)
+        if self.ranks > 1:
+            loss, train_metrics = self.average_over_ranks(
+                state.network, loss, train_metrics)
         state.optimizer.step()
         if state.ema_params is not None:
             state.ema_params = update_ema(
@@ -313,6 +392,24 @@ class Trainer:
         metrics = {"loss": loss}
         metrics.update(train_metrics)
         return metrics
+
+    def average_over_ranks(self, network, loss, metrics):
+        """pmean over every rank of each gradient and each scalar float
+        metric, in one flat all_reduce; returns the averaged loss and
+        metrics. A parameter without a gradient joins as zeros, so every
+        rank's bucket has the same layout."""
+        params = [p for p in network.parameters() if p.requires_grad]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        scalars = [k for k, v in metrics.items()
+                   if v.ndim == 0 and v.is_floating_point()]
+        values = [loss] + [metrics[k] for k in scalars]
+        averaged = collectives.all_reduce_mean_flat(grads + values, self.ranks)
+        for p, g in zip(params, averaged):
+            p.grad = g
+        metrics = dict(metrics)
+        metrics.update(zip(scalars, averaged[len(params) + 1:]))
+        return averaged[len(params)], metrics
 
     def _eval_network(self, state: TrainState, use_ema: bool):
         if not use_ema or state.ema_params is None:
@@ -391,19 +488,25 @@ def evaluate(
     use_ema: bool = False,
 ) -> Dict[str, float]:
     """Averages model_eval_fn metrics over up to eval_steps batches; the
-    sums stay on the device (f32) and are read once at the end."""
+    sums stay on the device (f32) and are read once at the end. Over a
+    mesh each rank evaluates its shard of every batch and the totals are
+    averaged over the ranks."""
     if eval_steps is not None:
         eval_batches = itertools.islice(eval_batches, eval_steps)
     totals: Dict[str, torch.Tensor] = {}
     count = 0
     for batch in infeed.device_prefetch(
-        eval_batches, trainer.device, depth=infeed.resolve_depth()
+        infeed.shard_batches(eval_batches, trainer.mesh), trainer.device,
+        depth=infeed.resolve_depth(),
     ):
         for key, value in trainer.eval_step(state, batch, use_ema).items():
             value = value.float()
             totals[key] = totals[key] + value if key in totals else value
         count += 1
-    return {key: float(total) / count for key, total in totals.items()}
+    keys = sorted(totals)
+    averaged = collectives.all_reduce_mean_flat(
+        [totals[key] for key in keys], trainer.ranks)
+    return {key: float(total) / count for key, total in zip(keys, averaged)}
 
 
 def run_named_evals(
@@ -468,9 +571,26 @@ def train_eval_model(
 
     iterations_per_loop > 1 runs K steps per loop, and hooks then observe
     loop granularity. remat and grad_accum_steps are the memory levers
-    (Trainer)."""
+    (Trainer). With a mesh every rank of the world calls this with the
+    same arguments (module docstring)."""
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
+    if mesh is not None and (create_exporters_fn is not None or hook_builders):
+        raise NotImplementedError(
+            "exporters and hooks over a mesh are not ported yet (ROADMAP.md "
+            "A9); export the mesh run's checkpoint on one card"
+        )
+    eval_generators = normalize_eval_generators(input_generator_eval)
+    if mesh is not None and any(
+        getattr(generator, "shard_by_host", False)
+        for generator in [input_generator_train, *eval_generators.values()]
+    ):
+        raise NotImplementedError(
+            "shard_by_host over a mesh is not ported yet (ROADMAP.md A9): it "
+            "splits the files by the global rank, so the sequence ranks of "
+            "one data replica would read different episodes; without it "
+            "every rank reads the whole batch and takes its shard"
+        )
     model = maybe_wrap_for_tpu(t2r_model)
     trainer = Trainer(
         model, device=device, seed=seed, mesh=mesh, plan=plan,
@@ -478,23 +598,28 @@ def train_eval_model(
         shard_weight_update=shard_weight_update,
         flatten_optimizer_update=flatten_optimizer_update,
     )
-    print_specification(model)
+    chief = trainer.is_chief
+    if chief:
+        print_specification(model)
     os.makedirs(model_dir, exist_ok=True)
-    _save_operative_config(model_dir)
+    if chief:
+        _save_operative_config(model_dir)
     infeed_depth = infeed.resolve_depth(infeed_depth)
     if use_ema_for_eval is None:
         use_ema_for_eval = model.use_avg_model_params
 
     input_generator_train.set_specification_from_model(model, MODE_TRAIN)
     host_batches = iter(input_generator_train.create_dataset(MODE_TRAIN))
-    eval_generators = normalize_eval_generators(input_generator_eval)
     for generator in eval_generators.values():
         generator.set_specification_from_model(model, MODE_EVAL)
 
     # The writer's sweep, before anything reads the directory: torn files
     # move to quarantine/, so the replayed steps re-save cleanly.
-    for torn_name, torn_reason in durability.sweep_torn_checkpoints(model_dir):
-        print(f"Quarantined torn checkpoint {torn_name!r}: {torn_reason}", flush=True)
+    if chief:
+        for torn_name, torn_reason in durability.sweep_torn_checkpoints(model_dir):
+            print(f"Quarantined torn checkpoint {torn_name!r}: {torn_reason}",
+                  flush=True)
+    _barrier(trainer)
     state = restore_or_init_state(
         model_dir, trainer, torch.Generator().manual_seed(seed)
     )
@@ -504,12 +629,13 @@ def train_eval_model(
         # uninterrupted run saw: deterministic generators restart their
         # stream from batch 0, so skip the batches already consumed.
         host_batches = itertools.islice(host_batches, start_step, None)
+    host_batches = infeed.shard_batches(host_batches, trainer.mesh)
 
-    writer = MetricsWriter(os.path.join(model_dir, "train"))
+    writer = MetricsWriter(os.path.join(model_dir, "train")) if chief else None
     eval_writers = {
         name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
         for name in eval_generators
-    }
+    } if chief else {}
     hooks: List[Hook] = []
     for builder in hook_builders or []:
         hooks.extend(builder.create_hooks(model, trainer=trainer))
@@ -527,7 +653,8 @@ def train_eval_model(
         now = time.time()
         host["steps_per_sec"] = (step - last_log_step) / max(now - t_last, 1e-9)
         t_last, last_log_step = now, step
-        writer.write(step, host)
+        if writer is not None:
+            writer.write(step, host)
         return host
 
     def after_steps(metrics, logged: bool) -> None:
@@ -538,11 +665,13 @@ def train_eval_model(
 
     def checkpoint_and_eval() -> Dict[str, float]:
         nonlocal last_saved_step
-        state_lib.save_checkpoint(
-            model_dir, step, state.network.state_dict(), state.ema_params,
-            state.optimizer.state_dict(), keep_checkpoint_max,
-        )
-        durability.publish_durable(model_dir, step)
+        if chief:
+            state_lib.save_checkpoint(
+                model_dir, step, state.network.state_dict(), state.ema_params,
+                state.optimizer.state_dict(), keep_checkpoint_max,
+            )
+            durability.publish_durable(model_dir, step)
+        _barrier(trainer)
         last_saved_step = step
         ctx.checkpoint_path = state_lib.checkpoint_path(model_dir, step)
         for hook in hooks:
@@ -598,11 +727,19 @@ def train_eval_model(
     finally:
         for hook in hooks:
             hook.on_train_end(ctx)
-        writer.close()
+        if writer is not None:
+            writer.close()
         for eval_writer in eval_writers.values():
             eval_writer.close()
-        _save_operative_config(model_dir)
+        if chief:
+            _save_operative_config(model_dir)
     return final_eval
+
+
+def _barrier(trainer: Trainer) -> None:
+    """Every rank of a mesh run waits here for rank 0's writes."""
+    if trainer.ranks > 1:
+        dist.barrier()
 
 
 def _loop_sizes(step: int, max_train_steps: int, iterations_per_loop: int,

@@ -7,6 +7,7 @@ on the CPU, because every number it reports is meant to be a device number.
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -24,3 +25,15 @@ def resolve_device(device: Union[str, torch.device] = DEFAULT_DEVICE) -> torch.d
             "False; pass device='cpu' explicitly to run on the host"
         )
     return device
+
+
+def rank_device(device: Union[str, torch.device] = DEFAULT_DEVICE) -> torch.device:
+    """This rank's device, explicit. "cuda" without an index is
+    cuda:LOCAL_RANK (the environment variable a launcher sets, else 0):
+    each rank owns a card. A device with an index is kept as it is, so
+    ranks asked to share one card pass "cuda:0"; "cpu" only when asked.
+    Raises as resolve_device does."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return resolve_device(device)

@@ -113,7 +113,7 @@ def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "policy",
         "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
-        "stem_s2d", "png")
+        "stem_s2d", "png", "parallel")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -413,4 +413,39 @@ def test_png_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     for line in ("[png] 12 records of 136x264 RGB PNG sources", "parsed back bit for bit",
                  "PNG ", "MB/s", "JPEG ", "2 critic steps fed from PNG records on CPU "
                  "rehearsal"):
+        assert line in out, out
+
+
+def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
+    """The parallel phase on 4 gloo ranks on the CPU at the rehearsal BC
+    width (T = 16, 4 frames a rank; 4 heads of 8 so Ulysses splits them;
+    a window of 6 truncates the ring to 3 of its 4 hops). The ranks import
+    chip_smoke afresh and take their sizes and device from the phase's
+    spec, and count the plain versions' calls as launches themselves."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    monkeypatch.setattr(chip_smoke, "PARALLEL_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "SLICE", dict(batch=2, seq=16, heads=4, head_dim=8))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_TIMED_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "PARALLEL_REGIMES", {
+        "ring": ("ring", None, 2 * 4), "ulysses": ("ulysses", None, 2),
+        "ring_window6": ("ring", 6, 2 * 3)})
+    launches = chip_smoke.phase_parallel(str(tmp_path))
+    # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
+    # 2 more steps; the 2 x 2 run's 10 steps and 2 evals of 2 hops x 2
+    # layers; and the served batch's B2 in this process.
+    steps = 1 + 4 + 2
+    assert launches == {
+        "flash_fwd": 4 * 2 + 2,
+        "flash_fwd_tile": 4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 12),
+        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 10),
+        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 10),
+    }
+    out = capsys.readouterr().out
+    for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
+                 "[parallel] ulysses (sequence 4", "[parallel] ring_window6 (sequence 4",
+                 "worst gradient", "gloo host-staged 0.000 MB a step",
+                 "[parallel] train_eval_model on a 2 x 2 data x sequence mesh",
+                 "10.pt served on one card by CheckpointPredictor"):
         assert line in out, out

@@ -229,3 +229,20 @@ def test_the_subprocess_import_covers_the_single_card_remainder(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in SOURCES
 
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.parallel",
+    "tensor2robot_tpu_torch.parallel.mesh",
+    "tensor2robot_tpu_torch.parallel.collectives",
+    "tensor2robot_tpu_torch.parallel.ring_attention",
+    "tensor2robot_tpu_torch.parallel.ulysses_attention",
+    "tensor2robot_tpu_torch.parallel.launch",
+])
+def test_the_subprocess_import_covers_the_parallel_slice(module):
+    """Every module of the sequence- and data-parallel slice is among those
+    the blocked-jax subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + (
+        "/__init__.py" if module.endswith("parallel") else ".py"))
+    assert path in SOURCES

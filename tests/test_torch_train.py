@@ -343,7 +343,9 @@ class TestUnportedArguments:
     @pytest.mark.parametrize(
         "kw,item",
         [
-            (dict(mesh=object()), "A9"), (dict(plan=object()), "A9"),
+            # A mesh is ported (A9 part 1); an object that is not the
+            # port's DeviceMesh raises TypeError naming the type it wants.
+            (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
             (dict(shard_weight_update=True), "A9"),
             (dict(flatten_optimizer_update=True), "A9"),
             (dict(create_exporters_fn=lambda m: create_default_exporters(
@@ -353,7 +355,11 @@ class TestUnportedArguments:
     )
     def test_raise_naming_their_item(self, tmp_path, kw, item):
         train, _ = _generators()
-        with pytest.raises(NotImplementedError, match=item):
+        if item == "TypeError":
+            error, item = TypeError, r"torch\.distributed\.device_mesh\.DeviceMesh"
+        else:
+            error = NotImplementedError
+        with pytest.raises(error, match=item):
             train_eval.train_eval_model(
                 TransformerBCModel(**SMALL), train, model_dir=str(tmp_path),
                 device="cpu", **kw,

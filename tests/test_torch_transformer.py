@@ -132,15 +132,18 @@ class TestBlocks:
             encoder(torch.zeros(1, 5, FEATURES))
 
     @pytest.mark.parametrize(
-        "kw,item",
+        "kw,error,match",
         [
-            (dict(mesh=object()), "A9"),
-            (dict(pipeline_stages=2), "A9"),
+            # A mesh is ported (A9 part 1): an object that is not the
+            # port's DeviceMesh raises TypeError naming the type it wants.
+            (dict(mesh=object()), TypeError, r"torch\.distributed\.device_mesh\.DeviceMesh"),
+            (dict(pipeline_stages=2), NotImplementedError, "ROADMAP.md A9"),
+            (dict(sequence_parallel_mode="rign"), ValueError, "'ring' or 'ulysses'"),
         ],
-        ids=["mesh", "pipeline"],
+        ids=["mesh", "pipeline", "mode_typo"],
     )
-    def test_unported_paths_name_their_roadmap_item(self, kw, item):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    def test_unported_paths_name_their_roadmap_item(self, kw, error, match):
+        with pytest.raises(error, match=match):
             transformer.TransformerEncoder(FEATURES, 1, HEADS, HEAD_DIM, **kw)
 
 
