@@ -244,8 +244,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                 2 x 2 data x sequence mesh (10 steps, checkpoints at 5 and
                 10 from rank 0, exact launches) and its 10.pt served on one
                 card by CheckpointPredictor within 1e-4 of the einsum
-                path. The four processes share one card: no time here is
-                a multi-card speed.
+                path. Then on the same ranks, parallel_critic: the
+                full-width f32 critic (batch 64) on a 2 data x 2 fsdp
+                mesh, its batch norms' moments over every shard, held
+                against the single-device batch-64 step on the same
+                weights and preprocessed batch with every relu and pool
+                pinned to the single-device choices (loss 1e-5 rel,
+                running statistics from zero 1e-4 of their max + 1e-7,
+                each gradient 5e-2 of its max); the same step with
+                per-shard moments must fail the statistics gate; the
+                synced mesh step (median of 5); then train_eval_model on
+                the mesh from shard_by_host JPEG records with an exporter
+                and StepTimingHook on rank 0, continuous_eval over the
+                mesh, and the export served on one card within 1e-5 abs +
+                rel of the checkpoint's forward. And parallel_moe: MoE BC
+                (4 experts, k = 2) at the BC width on a 2 data x 2 expert
+                mesh, each rank computing its 2 resident experts, loss and
+                every gradient through B1/B3/B4 held to the BC gate
+                against the single-device MoE step (routing picks that
+                differ only under a top-2 margin of 1e-5 leave their
+                episodes out), B1, B3 and B4 exactly 4 times a rank a
+                step, the synced step (median of 5), peak GiB and staged
+                MB. The four processes share one card: no time here is a
+                multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -4788,10 +4809,11 @@ def _parallel_spec() -> dict:
     import this file afresh, so they take their sizes from here."""
     return dict(device=PARALLEL_DEVICE, model=bc_model_kwargs(True),
                 batch=SLICE["batch"], layers=NUM_LAYERS, timed=PARALLEL_TIMED_STEPS,
-                regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN)
+                regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN,
+                critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE))
 
 
-def _rank_setup(spec: dict, data: int, sequence: int):
+def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1):
     """A rank's f32 settings (as main() sets them) and its mesh. On the
     CPU (a rehearsal) the kernels' plain versions count as their kernels
     would, so the launch checks run as on the card."""
@@ -4815,9 +4837,10 @@ def _rank_setup(spec: dict, data: int, sequence: int):
                                                 "flash_fwd_tile")
         fa.flash_attention_bwd_plain = counted(fa.flash_attention_bwd_plain,
                                                "flash_bwd_dq", "flash_bwd_dkv")
-    key = (data, sequence)
+    key = (data, sequence, fsdp, expert)
     if key not in _RANK_MESHES:
-        _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, sequence=sequence)
+        _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, fsdp=fsdp, sequence=sequence,
+                                               expert=expert)
     return _RANK_MESHES[key]
 
 
@@ -5063,11 +5086,571 @@ def _serve_mesh_checkpoint(model_dir: str) -> tuple:
             f"{DISTINCT_EPISODES} episodes within {err:.2e} of the einsum path"), launches
 
 
+# -- parallel_critic and parallel_moe: global batches and experts on the same ranks --
+
+# The full-width f32 critic on a 2 data x 2 fsdp mesh (fsdp is data
+# parallelism over replicated parameters here, so data_shard's fsdp index
+# is exercised): global batch 64, 16 a rank, its batch norms' train-mode
+# moments over the 4 shards. `records` = (train records in as many files
+# as shards, files, eval records) of shard_by_host JPEG input for the
+# train_eval_model run of `steps` steps.
+PARALLEL_CRITIC = dict(model=CRITIC, batch=CRITIC_BATCH, mesh=(2, 2), timed=5,
+                       steps=4, records=(128, 4, 64))
+# The gate's steps take cuDNN's deterministic convs, so a rerun rounds as
+# the first did (the f32 gradients of either step lie ~2% of their max
+# from float64's: the critic phase's reading).
+# Running statistics start from zero in the gate's step, so afterwards they
+# hold (1 - momentum) x the batch moments (momentum 0.9997): held to 1e-4
+# of their max + 1e-7, as the critic phase holds its statistics. From the
+# initial mean 0 / variance 1 the variance would read 1 + a 3e-4 nudge, and
+# per-shard moments would pass any gate on it.
+PARALLEL_STATS_TOL = 1e-4
+# MoE BC at the BC cell's width on a 2 data x 2 expert mesh: 4 experts,
+# k = 2, batch 8 (4 a data shard), 2 resident experts a rank.
+PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
+# Each sub-phase's seconds, reckoned before its first card run (PERF.md
+# §6 has the reckoning): the critic's single-device and mesh steps, the
+# control, 7 timed steps, 192 JPEG records, 4 steps with an eval and an
+# export, and continuous_eval; MoE's step, its single-device reference
+# and 7 steps.
+PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45}
+
+
+@contextlib.contextmanager
+def _deterministic_convs():
+    """cuDNN's deterministic conv algorithms inside: the gate's steps, on
+    one card and on the mesh, then round the same way on every run."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _parallel_critic_model(spec: dict):
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom,
+    )
+
+    return Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+        device_type="gpu", **spec["critic"]["model"])
+
+
+def _zero_statistics(network) -> None:
+    """Every batch norm's running statistics set to 0 (PARALLEL_STATS_TOL
+    says why)."""
+    import torch
+
+    with torch.no_grad():
+        for name, buffer in network.named_buffers():
+            if name.endswith((".mean", ".var")):
+                buffer.zero_()
+
+
+def _critic_global_batch(model, batch_size: int):
+    """A seeded preprocessed global batch of the critic: (features,
+    labels) as numpy, rewards 0 or 1."""
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+
+    features = dict(make_random_numpy(model.get_feature_specification("train"),
+                                      batch_size=batch_size, seed=0))
+    labels = dict(make_random_numpy(model.get_label_specification("train"),
+                                    batch_size=batch_size, seed=1))
+    labels["reward"] = (labels["reward"] > 0.5).astype("float32")
+    return features, labels
+
+
+def _on(tree: dict, device: str):
+    import torch
+
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+
+    return TensorSpecStruct({k: torch.from_numpy(v).to(device) for k, v in tree.items()})
+
+
+def parallel_rank_critic(spec: dict, routing_dir: str, synchronized: bool) -> dict:
+    """On every rank of the 2 x 2 data x fsdp mesh: one critic backward on
+    this rank's shard of the global batch (deterministic cuDNN convs, as
+    the single-device step's), every relu and pool pinned to the
+    single-device step's choices for these rows, the gradients averaged
+    by the trainer's bucket. `synchronized=False` is the control:
+    each norm takes its own shard's moments. Returns the loss, every
+    gradient and every buffer."""
+    import torch
+
+    from tensor2robot_tpu_torch.layers import batch_norm
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.research.qtopt.routing import Routing, pinned_routing
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    critic, device = spec["critic"], spec["device"]
+    mesh = _rank_setup(spec, critic["mesh"][0], 1, fsdp=critic["mesh"][1])
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    model = _parallel_critic_model(spec)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    network = trainer.init_state(torch.Generator().manual_seed(0)).network
+    _zero_statistics(network)
+    if not synchronized:
+        batch_norm.synchronize(network, None)
+    features, labels = (_on(mesh_lib.shard_batch(t, mesh), device)
+                        for t in _critic_global_batch(model, critic["batch"]))
+    recorded = torch.load(os.path.join(routing_dir, f"shard{trainer.shard}.pt"))
+    routing = Routing(recorded["relus"], [tuple(p) for p in recorded["pools"]]).to(device)
+    network.train()
+    with _deterministic_convs(), pinned_routing(routing):
+        loss, metrics = trainer.backward(network, features, labels)
+    loss, _ = trainer.average_over_ranks(network, loss, metrics)
+    _sync(device)
+    return dict(loss=loss.item(),
+                grads={n: p.grad.cpu().numpy() for n, p in network.named_parameters()},
+                stats={n: b.cpu().numpy() for n, b in network.named_buffers()})
+
+
+def _timed_mesh_steps(trainer, state, batch, device: str, timed: int) -> dict:
+    """2 + `timed` synced train steps, every rank starting each together;
+    the median and spread of the timed ones on this rank, its peak GiB and
+    the gloo-staged MB a step."""
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.parallel import collectives
+
+    times, staged = [], []
+    for i in range(2 + timed):
+        collectives.reset_staged_bytes()
+        _sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        _sync(device)
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+            staged.append(collectives.staged_bytes())
+    return dict(step_ms=sorted(times)[len(times) // 2], step_min=min(times),
+                step_max=max(times), peak_gib=_peak_gib(device),
+                staged_mb=sorted(staged)[len(staged) // 2] / 1e6)
+
+
+def parallel_rank_critic_time(spec: dict) -> dict:
+    """On every rank: synced train steps of the critic on the mesh (the
+    trainer's step: crop and distortions on the card, backward, bucket,
+    Adam), from this rank's shard of a raw 512x640 batch. Returns the
+    median and spread, the peak GiB and the gloo-staged MB a step."""
+    import torch
+
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    critic, device = spec["critic"], spec["device"]
+    mesh = _rank_setup(spec, critic["mesh"][0], 1, fsdp=critic["mesh"][1])
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = _parallel_critic_model(spec)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    batch = to_device(mesh_lib.shard_batch(_bc_batch(model, critic["batch"], seed=0), mesh),
+                      device)
+    return _timed_mesh_steps(trainer, state, batch, device, critic["timed"])
+
+
+def parallel_rank_critic_train(spec: dict, patterns: dict, model_dir: str) -> dict:
+    """On every rank: train_eval_model on the 2 x 2 mesh from shard_by_host
+    JPEG records (the eval file is read whole and sliced), an exporter and
+    StepTimingHook built on rank 0; then continuous_eval over the mesh.
+    Returns the final and continuous evals and rank 0's timing rows."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRecordInputGenerator,
+    )
+    from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
+    from tensor2robot_tpu_torch.export.exporters import LatestExporter
+    from tensor2robot_tpu_torch.hooks.profiling_hook_builder import StepTimingHookBuilder
+    from tensor2robot_tpu_torch.train.continuous_eval import continuous_eval
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    critic, device = spec["critic"], spec["device"]
+    mesh = _rank_setup(spec, critic["mesh"][0], 1, fsdp=critic["mesh"][1])
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    def records(split):
+        return DefaultRecordInputGenerator(
+            file_patterns=patterns[split], batch_size=critic["batch"], seed=3,
+            shard_by_host=split == "train")
+
+    timing = StepTimingHookBuilder(sync_every=1, output_path=None)
+    steps = critic["steps"]
+    final = train_eval_model(
+        _parallel_critic_model(spec), records("train"), records("eval"),
+        model_dir=model_dir, max_train_steps=steps, save_checkpoints_steps=steps,
+        eval_steps=1, log_every_steps=1, device=device, mesh=mesh,
+        hook_builders=[timing],
+        create_exporters_fn=lambda model: [LatestExporter(
+            name="latest", export_generator=DefaultExportGenerator())],
+    )
+    evaluated = continuous_eval(
+        _parallel_critic_model(spec), model_dir, records("eval"), eval_steps=1,
+        max_train_steps=steps, timeout=60.0, poll_interval=0.5, mesh=mesh,
+        device=device)
+    return dict(final=final, evaluated=evaluated,
+                rows=None if timing.hook is None else timing.hook.rows)
+
+
+def _critic_gate(mesh_runs, reference) -> tuple:
+    """The mesh step against the single-device one: (what failed, the
+    summary). Loss LOSS_TOL rel; every running statistic
+    PARALLEL_STATS_TOL of its max + 1e-7; every gradient
+    CRITIC_F32_GRAD_TOL of its max + 1e-7, those 0 in exact arithmetic (a
+    bias before a batch norm: below ZERO_GRAD of the largest in the
+    reference) held to that floor; every rank the same."""
+    ref_loss, ref_grads, ref_stats = reference
+    failures = []
+    head = mesh_runs[0]
+    for run in mesh_runs[1:]:
+        for kind in ("grads", "stats"):
+            for name, value in run[kind].items():
+                if not (value == head[kind][name]).all():
+                    failures.append(f"{kind} {name} differ between ranks")
+    loss_err = abs(head["loss"] - ref_loss) / abs(ref_loss)
+    if not loss_err <= LOSS_TOL:
+        failures.append(f"loss {head['loss']} vs one card {ref_loss}")
+
+    def share(got, want, tol):
+        return float(abs(got - want).max()) / (tol * float(abs(want).max()) + 1e-7)
+
+    stats = max((share(head["stats"][n], w, PARALLEL_STATS_TOL), n)
+                for n, w in ref_stats.items())
+    if not stats[0] <= 1.0:
+        failures.append(f"statistic {stats[1]} at {stats[0]:.3f} of its allowance")
+    floor = ZERO_GRAD * max(float(abs(g).max()) for g in ref_grads.values())
+    zero = {n for n, g in ref_grads.items() if float(abs(g).max()) <= floor}
+    grads = max((share(head["grads"][n], w, CRITIC_F32_GRAD_TOL), n)
+                for n, w in ref_grads.items() if n not in zero)
+    if not grads[0] <= 1.0:
+        failures.append(f"gradient {grads[1]} at {grads[0]:.3f} of its allowance")
+    zero_worst = max((float(abs(head["grads"][n]).max()) for n in zero), default=0.0)
+    if not zero_worst <= floor:
+        failures.append(f"a gradient 0 in exact arithmetic reads {zero_worst} (limit {floor})")
+    summary = (f"loss {head['loss']:.7f} vs one card {ref_loss:.7f} (rel {loss_err:.2e}); "
+               f"worst statistic {stats[1]} at {stats[0]:.3f} of its allowance "
+               f"({PARALLEL_STATS_TOL} of its max + 1e-7); worst gradient {grads[1]} at "
+               f"{grads[0]:.3f} of its allowance ({CRITIC_F32_GRAD_TOL} of its max + 1e-7); "
+               f"{len(zero)} gradients 0 in exact arithmetic at most {zero_worst:.2e} "
+               f"(limit {floor:.2e})")
+    return failures, summary, stats[0]
+
+
+def parallel_critic(world, spec: dict, model_dir: str) -> None:
+    """The full-width critic's global-batch step on 2 data x 2 fsdp ranks
+    against the single-device step, the per-shard control, the synced
+    mesh step, then train_eval_model, continuous_eval and the export over
+    the mesh, served on one card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+    from tensor2robot_tpu_torch.predictors.exported_savedmodel_predictor import (
+        ExportedSavedModelPredictor,
+    )
+    from tensor2robot_tpu_torch.research.qtopt.routing import record_routing
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    t0 = time.monotonic()
+    critic, device = spec["critic"], spec["device"]
+    shards = critic["mesh"][0] * critic["mesh"][1]
+    rows = critic["batch"] // shards
+    model = _parallel_critic_model(spec)
+    trainer = Trainer(model, device=device)
+    network = trainer.init_state(torch.Generator().manual_seed(0)).network
+    _zero_statistics(network)
+    features, labels = (_on(t, device) for t in _critic_global_batch(model, critic["batch"]))
+    network.train()
+    with _deterministic_convs(), record_routing() as routing:
+        loss, _ = trainer.backward(network, features, labels)
+    reference = (loss.item(),
+                 {n: p.grad.cpu().numpy() for n, p in network.named_parameters()},
+                 {n: b.cpu().numpy() for n, b in network.named_buffers()})
+    routing_dir = tempfile.mkdtemp(dir=model_dir)
+    for shard in range(shards):
+        part = slice(shard * rows, (shard + 1) * rows)
+        torch.save({"relus": [m[part].clone().cpu() for m in routing.relus],
+                    "pools": [(m[part].clone().cpu(), c[part].clone().cpu())
+                              for m, c in routing.pools]},
+                   os.path.join(routing_dir, f"shard{shard}.pt"))
+    del network, trainer, features, labels, routing, loss
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    mesh_runs = world.run(parallel_rank_critic, spec, routing_dir, True,
+                          timeout_s=PARALLEL_TIMEOUT)
+    control = world.run(parallel_rank_critic, spec, routing_dir, False,
+                        timeout_s=PARALLEL_TIMEOUT)
+    shutil.rmtree(routing_dir)
+    failures, summary, _ = _critic_gate(mesh_runs, reference)
+    if failures:
+        raise AssertionError("parallel_critic gate: " + "; ".join(failures))
+    control_failures, _, control_share = _critic_gate(control[:1], reference)
+    if not any(f.startswith("statistic") for f in control_failures):
+        raise AssertionError(
+            "per-shard moments pass the statistics gate: it cannot tell them from "
+            "the global batch's")
+    timed = world.run(parallel_rank_critic_time, spec, timeout_s=PARALLEL_TIMEOUT)
+    log(f"[parallel_critic] full-width f32 critic {critic['model']['image_size']}, "
+        f"batch {critic['batch']} on a {critic['mesh'][0]} data x {critic['mesh'][1]} "
+        f"fsdp mesh ({rows} a rank, batch-norm moments over every shard) on "
+        f"{card_line()}, every relu and pool pinned to the single-device choices: "
+        f"{summary}; control with per-shard moments: worst statistic at "
+        f"{control_share:.1f} of its allowance (fails, as it must); synced mesh step "
+        f"median {timed[0]['step_ms']:.3f} ms (min {timed[0]['step_min']:.3f}, max "
+        f"{timed[0]['step_max']:.3f}) over {critic['timed']} on rank 0, medians by rank "
+        f"{[round(r['step_ms'], 3) for r in timed]}; peak GiB by rank "
+        f"{[round(r['peak_gib'], 3) for r in timed]}; gloo host-staged "
+        f"{timed[0]['staged_mb']:.3f} MB a step on rank 0")
+
+    t_train = time.monotonic()
+    run_dir = tempfile.mkdtemp(dir=model_dir)
+    source = model.preprocessor.get_in_feature_specification("train")["state/image"]
+    patterns, _, write_s = write_records(model, os.path.join(run_dir, "records"),
+                                         critic["records"], source.shape[:2])
+    ranks = world.run(parallel_rank_critic_train, spec, patterns, run_dir,
+                      timeout_s=PARALLEL_TIMEOUT)
+    steps = critic["steps"]
+    if state_lib.checkpoint_steps(run_dir) != [steps]:
+        raise AssertionError(f"mesh critic checkpoints {state_lib.checkpoint_steps(run_dir)}")
+    for key in ("final", "evaluated"):
+        values = [r[key] for r in ranks]
+        if any(v != values[0] for v in values) or not math.isfinite(values[0]["loss"]):
+            raise AssertionError(f"ranks' {key} evals {values}")
+    if ranks[0]["rows"] is None or len(ranks[0]["rows"]) != steps - 1 or any(
+            r["rows"] is not None for r in ranks[1:]):
+        raise AssertionError(f"StepTimingHook rows by rank {[r['rows'] for r in ranks]}")
+    predictor = ExportedSavedModelPredictor(
+        export_dir=os.path.join(run_dir, "export", "latest"), device=DEVICE)
+    predictor.restore()
+    requests = make_random_numpy(predictor.get_feature_specification(),
+                                 batch_size=CRITIC_REQUESTS, seed=3)
+    got = predictor.predict(requests)
+    reference_predictor = CheckpointPredictor(_parallel_critic_model(spec),
+                                              checkpoint_dir=run_dir, device=DEVICE)
+    reference_predictor.restore()
+    want = reference_predictor.predict(requests)
+    worst = 0.0
+    for key, value in want.items():
+        err = np.abs(got[key] - value)
+        if (not np.isfinite(got[key]).all() or got[key].shape != value.shape
+                or (err > CRITIC_SERVE_TOL + CRITIC_SERVE_TOL * np.abs(value)).any()):
+            raise AssertionError(f"mesh critic export {key}: {err.max()} from the checkpoint's")
+        worst = max(worst, float(err.max()))
+    shutil.rmtree(run_dir)
+    rate = ranks[0]["rows"][-1]["steps_per_sec"]
+    log(f"[parallel_critic] train_eval_model on the mesh on {card_line()}: "
+        f"{critic['records'][0]} + {critic['records'][2]} JPEG records written in "
+        f"{write_s:.1f}s, {critic['records'][1]} train files split by shard_by_host "
+        f"({critic['records'][1] // shards} a data x fsdp shard); {steps} steps, "
+        f"{steps}.pt from rank 0; final eval {ranks[0]['final']} on every rank; "
+        f"StepTimingHook on rank 0 only ({len(ranks[0]['rows'])} rows, last "
+        f"{rate:.3f} steps/s); continuous_eval over the mesh "
+        f"{ranks[0]['evaluated']} on every rank; the export served on one card, "
+        f"{CRITIC_REQUESTS} requests within {worst:.3e} of CheckpointPredictor(EMA) "
+        f"(limit {CRITIC_SERVE_TOL} abs + rel); {time.monotonic() - t_train:.1f}s")
+    log(f"[parallel_critic] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_critic']} s)")
+
+
+def parallel_rank_moe(spec: dict, episodes: list) -> dict:
+    """On every rank of the 2 data x 2 expert mesh: one MoE BC backward on
+    this rank's data shard of the batch's `episodes` through its resident
+    experts, averaged by the trainer's bucket, router picks recorded.
+    Rank 0 then takes the single-device MoE step on the same episodes and
+    weights and measures the mesh's loss and gradients against it (the
+    caller gates them once it has compared the routing). Returns the
+    picks, the launches and rank 0's measurements."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    moe, device = spec["moe"], spec["device"]
+    mesh = _rank_setup(spec, moe["mesh"][0], 1, expert=moe["mesh"][1])
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    kwargs = dict(spec["model"], num_experts=moe["experts"])
+    model = TransformerBCModel(mesh=mesh, **kwargs)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    network = trainer.init_state(torch.Generator().manual_seed(0)).network
+    host = _bc_batch(model, spec["batch"], seed=0)
+    part = {k: v[episodes] for k, v in host.items()}
+    batch = to_device(mesh_lib.shard_batch(part, mesh), device)
+    network.train()
+    reset_launches()
+    with _RouterRecorder() as recorder:
+        features, labels = trainer.preprocess_train(batch)
+        loss, metrics = trainer.backward(network, features, labels)
+        loss, metrics = trainer.average_over_ranks(network, loss, metrics)
+    _sync(device)
+    launches = read_launches()
+    out = dict(rank=dist.get_rank(), shard=trainer.shard, launches=launches,
+               picks=[(ids.cpu().numpy(), m.cpu().numpy()) for ids, m in recorder.picks(2)])
+    if out["rank"] == 0:
+        reference = TransformerBCModel(**kwargs)
+        ref_trainer = Trainer(reference, device=device)
+        ref_network = ref_trainer.init_state(params=network.state_dict()).network
+        ref_network.train()
+        with _RouterRecorder() as ref_recorder:
+            ref_loss, ref_metrics = ref_trainer.forward_loss(
+                ref_network, to_device(part, device))
+            ref_loss.backward()
+        worst, worst_name, over = 0.0, "", []
+        ref_params = dict(ref_network.named_parameters())
+        for name, p in network.named_parameters():
+            g, g_ref = p.grad, ref_params[name].grad
+            scale = g_ref.abs().max().item()
+            err = (g - g_ref).abs().max().item()
+            if not err <= GRAD_TOL * scale + 1e-7:
+                over.append(f"{name} off by {err} (max {scale})")
+            if err / max(scale, 1e-30) > worst:
+                worst, worst_name = err / max(scale, 1e-30), name
+        out.update(loss=loss.item(), ref_loss=ref_loss.item(),
+                   aux=metrics["loss/moe_aux"].item(),
+                   ref_aux=ref_metrics["loss/moe_aux"].item(),
+                   worst=worst, worst_name=worst_name, over=over,
+                   ref_picks=[(ids.cpu().numpy(), m.cpu().numpy())
+                              for ids, m in ref_recorder.picks(2)])
+    dist.barrier()
+    return out
+
+
+def parallel_rank_moe_time(spec: dict) -> dict:
+    """On every rank: synced MoE train steps on the 2 x 2 mesh; returns
+    the median and spread, peak GiB, staged MB a step and the launches."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    moe, device = spec["moe"], spec["device"]
+    mesh = _rank_setup(spec, moe["mesh"][0], 1, expert=moe["mesh"][1])
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerBCModel(mesh=mesh, num_experts=moe["experts"], **spec["model"])
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    batch = to_device(mesh_lib.shard_batch(_bc_batch(model, spec["batch"], seed=7), mesh),
+                      device)
+    reset_launches()
+    out = _timed_mesh_steps(trainer, state, batch, device, moe["timed"])
+    out["launches"] = read_launches()
+    return out
+
+
+def _moe_flips(ranks, episodes, shards: int) -> list:
+    """(layer, episode, step, margin) of every router pick a mesh rank
+    made otherwise than the single-device step, over each rank's episodes
+    (data shard d holds the d-th block of `episodes`)."""
+    per_shard = len(episodes) // shards
+    reference = ranks[0]["ref_picks"]
+    flips = []
+    for r in ranks:
+        mine = episodes[r["shard"] * per_shard:(r["shard"] + 1) * per_shard]
+        offset = r["shard"] * per_shard
+        for layer, ((ids, margin), (ref_ids, _)) in enumerate(zip(r["picks"], reference)):
+            differ = (ids != ref_ids[offset:offset + per_shard]).any(axis=-1)
+            for g, t in zip(*differ.nonzero()):
+                flips.append((layer, mine[g], int(t), float(margin[g, t])))
+    return sorted(set(flips))
+
+
+def parallel_moe(world, spec: dict) -> dict:
+    """MoE BC on 2 data x 2 expert ranks against the single-device MoE
+    step (the moe phase's routing rule), then its synced step. Returns
+    the launches of every rank's main-path calls."""
+    t0 = time.monotonic()
+    moe, layers = spec["moe"], spec["layers"]
+    shards = moe["mesh"][0]
+    per_step = {"flash_fwd": 0, "flash_fwd_tile": layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+    launches = {name: 0 for name in per_step}
+    episodes, dropped = list(range(spec["batch"])), []
+    for _ in range(2):
+        ranks = world.run(parallel_rank_moe, spec, episodes, timeout_s=PARALLEL_TIMEOUT)
+        for r in ranks:
+            if r["launches"] != per_step:
+                raise AssertionError(f"rank {r['rank']} MoE step launched {r['launches']}")
+            for name, count in r["launches"].items():
+                launches[name] += count
+        flips = _moe_flips(ranks, episodes, shards)
+        wide = [f for f in flips if f[3] >= MOE_FLIP_MARGIN]
+        if wide:
+            raise AssertionError(f"mesh routing differs past the margin {MOE_FLIP_MARGIN}: "
+                                 f"(layer, episode, step, margin) {wide}")
+        if not flips:
+            break
+        # Each episode is its own routing group and attention context; the
+        # kept episodes stay a multiple of the data shards.
+        dropped += sorted({f[1] for f in flips})
+        episodes = [e for e in episodes if e not in dropped]
+        episodes = episodes[:len(episodes) - len(episodes) % shards]
+        log(f"[parallel_moe] routing flips under the margin {MOE_FLIP_MARGIN} "
+            f"(layer, episode, step, margin) {flips}: episodes {dropped} left out")
+    else:
+        raise AssertionError("mesh routing still flips after leaving episodes out")
+    head = ranks[0]
+    loss_err = abs(head["loss"] - head["ref_loss"]) / abs(head["ref_loss"])
+    aux_err = abs(head["aux"] - head["ref_aux"]) / abs(head["ref_aux"])
+    if not loss_err <= LOSS_TOL or head["over"] or not math.isfinite(head["aux"]):
+        raise AssertionError(f"MoE mesh step: loss {head['loss']} vs {head['ref_loss']}; "
+                             f"aux {head['aux']}; gradients {head['over']}")
+    timed = world.run(parallel_rank_moe_time, spec, timeout_s=PARALLEL_TIMEOUT)
+    steps = 2 + moe["timed"]
+    for r in timed:
+        if r["launches"] != {k: v * steps for k, v in per_step.items()}:
+            raise AssertionError(f"{steps} MoE mesh steps launched {r['launches']}")
+        for name, count in r["launches"].items():
+            launches[name] += count
+    log(f"[parallel_moe] MoE BC ({moe['experts']} experts, k = 2, "
+        f"{moe['experts'] // moe['mesh'][1]} resident a rank) on a {moe['mesh'][0]} data x "
+        f"{moe['mesh'][1]} expert mesh on {card_line()}: loss {head['loss']:.7f} vs one "
+        f"card {head['ref_loss']:.7f} (rel {loss_err:.2e}); loss/moe_aux "
+        f"{head['aux']:.7f} (rel {aux_err:.2e}); worst gradient {head['worst_name']} at "
+        f"{head['worst']:.2e} of its max; routing picks differing {len(flips)} over "
+        f"{len(episodes)} episodes (left out: {dropped or 'none'}); B1/B3/B4 "
+        f"{layers} each a rank a step; synced step median {timed[0]['step_ms']:.3f} ms "
+        f"(min {timed[0]['step_min']:.3f}, max {timed[0]['step_max']:.3f}) over "
+        f"{moe['timed']} on rank 0, medians by rank "
+        f"{[round(r['step_ms'], 3) for r in timed]}; peak GiB by rank "
+        f"{[round(r['peak_gib'], 3) for r in timed]}; gloo host-staged "
+        f"{timed[0]['staged_mb']:.3f} MB a step on rank 0")
+    log(f"[parallel_moe] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_moe']} s)")
+    return launches
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
     single-device step, then train_eval_model on a 2 x 2 mesh served from
-    one card. Returns the launches of every rank's main-path calls."""
+    one card; then on the same ranks the critic over data x fsdp and MoE
+    BC over data x expert (parallel_critic, parallel_moe). Returns the
+    launches of every rank's main-path calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -5125,6 +5708,9 @@ def phase_parallel(model_dir: str) -> dict:
                 f"{card_line()}: {train['steps']} steps, final eval {ranks[0]['final_eval']} "
                 f"on every rank; {served}; peak GiB by rank "
                 f"{[round(r['peak_gib'], 3) for r in ranks]}")
+        parallel_critic(world, spec, model_dir)
+        for name, count in parallel_moe(world, spec).items():
+            launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
         f"{launches}")
     return launches

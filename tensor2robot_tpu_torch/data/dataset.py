@@ -19,8 +19,16 @@ straight into pinned buffers from a `PinnedRing` (train/infeed.py), which
 the infeed copies without another host copy. Where the JPEG codec runs on the card (nvJPEG), process
 workers do not decode: they return the encoded images and the parent
 decodes them (`FastSpecParser.finish`), since a worker must not touch
-CUDA. `shard_by_host` takes the `torch.distributed` rank and world size,
-or 0 and 1 when no process group is set up.
+CUDA. `shard_by_host` splits the files round-robin by `data_shard`, the
+(index, count) of this rank's data x fsdp shard of a mesh
+(parallel/mesh.data_shard), so the sequence and expert ranks of one data
+replica read the same records; without one it takes the
+`torch.distributed` rank and world size, or 0 and 1 when no process group
+is set up. Each sharded stream then batches `batch_size / count` records:
+the global batch, the shards' batches concatenated in shard order, keeps
+the size of the single-device batch. The JAX package has no multi-host
+batch assembly to copy (its `shard_batch` places each host's batch as
+global), so this is the port's definition.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import pickle
 import queue
 import random
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -650,6 +658,9 @@ class RecordDataset:
         named image fields (data/roi.py), honored while T2R_DECODE_ROI=1.
       shard_by_host: each process of a torch.distributed group reads only
         its round-robin slice of the files.
+      data_shard: (index, count) of this rank's data x fsdp shard: with
+        shard_by_host the files are split by it, and each batch holds
+        batch_size / count records (the shard of a global batch).
 
     Where a card is visible, uint8 images are parsed into pinned buffers
     of a `PinnedRing` (the thread backend, and the parent's decodes of the
@@ -679,6 +690,7 @@ class RecordDataset:
         parse_fast: Optional[bool] = None,
         decode_roi: Optional[Mapping[str, DecodeROI]] = None,
         shard_by_host: bool = False,
+        data_shard: Optional[Tuple[int, int]] = None,
     ):
         self._specs = specs
         self._decode_roi = (
@@ -715,8 +727,14 @@ class RecordDataset:
         if file_fraction < 1.0:
             for k, files in self._files.items():
                 self._files[k] = files[: max(1, int(len(files) * file_fraction))]
+        if shard_by_host and data_shard is not None and data_shard[1] > 1:
+            if batch_size % data_shard[1]:
+                raise ValueError(
+                    f"batch_size {batch_size} does not split over "
+                    f"{data_shard[1]} data x fsdp shards")
+            self._batch_size = batch_size // data_shard[1]
         if shard_by_host:
-            index, count = _host_shard()
+            index, count = data_shard if data_shard is not None else _host_shard()
             if count > 1:
                 for k, files in self._files.items():
                     mine = files[index::count]

@@ -131,12 +131,19 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
         self._prefetch_depth = prefetch_depth
         self._num_parse_workers = num_parse_workers
         self._shard_by_host = shard_by_host
+        self._data_shard = None
 
     @property
     def shard_by_host(self) -> bool:
         """Whether each process of the group reads only its slice of the
         files (RecordDataset)."""
         return self._shard_by_host
+
+    def set_data_shard(self, index: int, count: int) -> None:
+        """With shard_by_host, read data x fsdp shard `index` of `count`
+        (the trainer sets it from its mesh): the files split by it, and
+        batches of batch_size / count records."""
+        self._data_shard = (int(index), int(count))
 
     def create_record_dataset(self, mode: str) -> RecordDataset:
         return RecordDataset(
@@ -151,6 +158,7 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
             num_parse_workers=self._num_parse_workers,
             decode_roi=self.decode_rois(mode),
             shard_by_host=self._shard_by_host,
+            data_shard=self._data_shard,
         )
 
     def _create_dataset(self, mode: str) -> Iterator[TensorSpecStruct]:

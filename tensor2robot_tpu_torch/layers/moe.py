@@ -6,6 +6,12 @@ would (the feed-forward of layers/transformer.TransformerBlock):
 loss, which the caller folds into the training loss. Its parameters carry
 the flax names and layouts (router [F, E], w_in [E, F, H],
 w_out [E, H, F]), so utils/jax_params.py maps them as they are.
+
+With a mesh whose `expert` dim is above 1 each rank computes only its
+resident experts (ops/moe.py has the rule); the parameters stay whole.
+Experts under a sequence-parallel encoder (a `sequence` dim above 1) are
+refused, naming ROADMAP.md A9: the encoder's blocks see one shard of each
+episode, so an episode's routing group, and its capacity, would be cut.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from tensor2robot_tpu_torch.ops import moe as moe_ops
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 
 
 class MoEBlock(nn.Module):
@@ -33,11 +40,14 @@ class MoEBlock(nn.Module):
         mesh: Optional[object] = None,
     ):
         super().__init__()
-        if mesh is not None:
+        if mesh_lib.axis_size(mesh, mesh_lib.SEQUENCE_AXIS) > 1:
             raise NotImplementedError(
-                "expert-parallel MoE over a mesh is not ported yet "
-                "(ROADMAP.md A9)"
+                "experts under a sequence-parallel encoder (expert x sequence) "
+                "are not ported yet (ROADMAP.md A9): each block sees one "
+                "sequence shard, so an episode's routing group would be cut"
             )
+        moe_ops.resident_experts(num_experts, mesh)  # E % expert raises now
+        self.mesh = mesh
         self.num_selected = num_selected
         self.capacity_factor = capacity_factor
         # None: one routing group per batch element (seq tokens).
@@ -65,6 +75,6 @@ class MoEBlock(nn.Module):
             x.reshape(batch * seq, features), self.router, self.w_in,
             self.w_out, num_selected=self.num_selected,
             capacity_factor=self.capacity_factor,
-            group_size=self.group_size or seq,
+            group_size=self.group_size or seq, mesh=self.mesh,
         )
         return y.reshape(batch, seq, features), aux_loss

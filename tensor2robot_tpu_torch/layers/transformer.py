@@ -40,10 +40,15 @@ gather). The pmean over the sequence ranks (the trainer's gradient
 bucket) turns both into the single-device gradient; the pmean over data x
 fsdp then averages the data shards' means into the global batch mean.
 
+Expert parallelism (`mesh` with an `expert` dim above 1): each block's
+MoE computes only this rank's resident experts (ops/moe.py has the rule);
+expert ranks share their batch and run everything else whole.
+
 Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
 A9: pipelining (`pipeline_stages > 1`), manual sequence parallelism inside
-a pipeline (`manual_sequence_size > 1`), expert parallelism (experts, or a
-mesh whose model, pipe or expert dim is above 1) and decoding with a mesh.
+a pipeline (`manual_sequence_size > 1`), a mesh whose model or pipe dim is
+above 1, experts under a sequence dim above 1 (layers/moe.py) and decoding
+with a mesh.
 """
 
 from __future__ import annotations

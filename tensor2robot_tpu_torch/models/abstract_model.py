@@ -13,6 +13,8 @@ a predictor restores) and the hooks take that module.
 from __future__ import annotations
 
 import abc
+import copy
+import inspect
 import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -130,7 +132,10 @@ class AbstractT2RModel(ModelInterface):
         labels: Optional[TensorSpecStruct] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Forward pass. Returns (outputs, updates); updates carries any
-        state a train-mode forward changes and is {} otherwise."""
+        state a train-mode forward changes and is {} otherwise. An
+        implementation that takes `generator=` receives the train step's
+        network generator (JAX's rng for the 'sample' and 'dropout'
+        streams); one that does not never draws."""
 
     @abc.abstractmethod
     def model_train_fn(
@@ -163,9 +168,27 @@ class AbstractT2RModel(ModelInterface):
             return self._create_optimizer_fn()
         return optimizers.create_adam_optimizer()
 
-    def packed_inference(self, network, features, mode, labels=None):
+    #: Whether the train loss couples the batch's examples (a contrastive
+    #: loss over in-batch negatives): over data x fsdp shards such a model
+    #: must carry the trainer's mesh, through which it gathers the
+    #: shards' embeddings (collectives.all_gather_data_shards).
+    loss_spans_the_batch = False
+
+    def without_mesh(self) -> "AbstractT2RModel":
+        """This model as one device runs it: the same network and state
+        dict with no mesh (an export over a mesh run's weights). A model
+        without a mesh is itself."""
+        if getattr(self, "_mesh", None) is None:
+            return self
+        clone = copy.copy(self)
+        clone._mesh = None
+        return clone
+
+    def packed_inference(self, network, features, mode, labels=None, generator=None):
         """validate_and_pack features/labels against the model specs, run
-        the network, return (features, labels, outputs, updates)."""
+        the network, return (features, labels, outputs, updates). In train
+        mode `generator` is the step's network generator, passed on where
+        inference_network_fn takes one."""
         packed_features = validate_and_pack(
             self.get_feature_specification(mode), features, ignore_batch=True
         )
@@ -175,9 +198,24 @@ class AbstractT2RModel(ModelInterface):
                 self.get_label_specification(mode), labels, ignore_batch=True
             )
         outputs, updates = self.inference_network_fn(
-            network, packed_features, mode, labels=packed_labels
+            network, packed_features, mode, labels=packed_labels,
+            **generator_kwargs(self.inference_network_fn, generator)
         )
         return packed_features, packed_labels, outputs, updates
+
+
+def generator_kwargs(fn: Callable, generator: Optional[torch.Generator]) -> Dict[str, Any]:
+    """{"generator": generator} when there is one and `fn` (a function or
+    a module's forward) takes it by that name, else {}."""
+    if generator is None:
+        return {}
+    if isinstance(fn, nn.Module):
+        fn = fn.forward
+    try:
+        parameters = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return {}
+    return {"generator": generator} if "generator" in parameters else {}
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
@@ -227,6 +265,6 @@ class TorchT2RModel(AbstractT2RModel):
         init_parameters(network, generator)
         return network.to(device)
 
-    def inference_network_fn(self, network, features, mode, labels=None):
+    def inference_network_fn(self, network, features, mode, labels=None, generator=None):
         del labels
-        return dict(network(features, mode)), {}
+        return dict(network(features, mode, **generator_kwargs(network, generator))), {}

@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
+from tensor2robot_tpu_torch.models.abstract_model import (
+    AbstractT2RModel,
+    generator_kwargs,
+)
 from tensor2robot_tpu_torch.preprocessors.dtype_policy import (
     BFloat16PreprocessorWrapper,
     cast_spec_dtypes,
@@ -81,11 +84,16 @@ class BFloat16ModelWrapper(AbstractT2RModel):
 
     # -- the hooks: autocast, and float32 at the boundaries ------------------
 
-    def inference_network_fn(self, network, features, mode, labels=None):
+    def inference_network_fn(self, network, features, mode, labels=None, generator=None):
         device_type = next(network.parameters()).device.type
         with torch.autocast(device_type=device_type, dtype=torch.bfloat16):
             return self._model.inference_network_fn(
-                network, features, mode, labels=labels)
+                network, features, mode, labels=labels,
+                **generator_kwargs(self._model.inference_network_fn, generator))
+
+    def without_mesh(self):
+        inner = self._model.without_mesh()
+        return self if inner is self._model else BFloat16ModelWrapper(inner)
 
     def model_train_fn(self, features, labels, inference_outputs, mode):
         return self._model.model_train_fn(

@@ -10,9 +10,11 @@ control step at a time from a KV cache (the decode network).
 
 With a `mesh` (parallel/mesh.py) whose `sequence` dim is above 1 the
 encoder runs sequence-parallel (`sequence_parallel_mode` "ring" or
-"ulysses"; layers/transformer.py). A mesh adds no parameter: the state
-dict, and so the checkpoint, has the single-device layout. Decoding is
-always single-device.
+"ulysses"; layers/transformer.py), and with an `expert` dim above 1 each
+rank computes its resident experts (ops/moe.py). A mesh adds no
+parameter: the state dict, and so the checkpoint, has the single-device
+layout, and `without_mesh()` is the model that exports and serves it.
+Decoding is always single-device.
 """
 
 from __future__ import annotations
@@ -222,6 +224,14 @@ class TransformerBCModel(TorchT2RModel):
             )
         )
         return copy_tensorspec(spec, batch_size=self._episode_length)
+
+    def without_mesh(self) -> "TransformerBCModel":
+        """This model with no mesh: the same network, single-device (its
+        state dict is the mesh network's)."""
+        clone = super().without_mesh()
+        if clone is not self:
+            clone._net_kwargs = dict(self._net_kwargs, mesh=None)
+        return clone
 
     def create_network(self, decode: bool = False) -> nn.Module:
         kwargs = dict(self._net_kwargs)

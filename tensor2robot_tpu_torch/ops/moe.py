@@ -15,6 +15,31 @@ Ties among router probabilities go to the lower expert index, as
 `jax.lax.top_k` breaks them (`torch.topk` does not): the top k come from a
 stable descending sort.
 
+Expert parallelism (a mesh whose `expert` dim X is above 1; JAX's
+sharding constraint on the expert inputs, under which GSPMD "computes
+only its resident experts' FFNs"): expert rank j holds experts
+[j E/X, (j+1) E/X) and computes only their FFN, from its slice of the
+dispatch and of w_in/w_out; a tiled all_gather over the expert dim puts
+the E experts' outputs together for the combine. Expert ranks share their
+batch, as sequence ranks do (JAX splits the batch over data x fsdp only),
+so every expert rank routes the same tokens the same way, and no token
+all_to_all is needed. Parameters stay replicated: the checkpoint has the
+single-device layout, as JAX's param_sharding leaves experts unsharded.
+
+The gradient rule: every expert rank computes the same loss from the same
+gathered outputs. The all_gather's backward is psum_scatter, so rank j's
+resident outputs receive the sum of the X equal cotangents: X times the
+single-device cotangent. Rank j's gradient is then X times the
+single-device gradient for its resident experts' w_in/w_out and zero for
+the other experts'; for any other parameter it is A + X B_j, where A is
+the part that passes through no expert's FFN (the router's through the
+combine weights, the residual stream), the same on every expert rank, and
+B_j the part through rank j's resident experts. The trainer's one flat
+pmean over the ranks averages the X expert ranks: (X g + 0 (X - 1)) / X
+= g for an expert's weights and A + sum_j B_j for the others, the
+single-device gradient in both cases; the pmean over data x fsdp then
+averages the data shards' means into the global batch mean.
+
 Pure functions; `layers.moe.MoEBlock` is the module around them.
 """
 
@@ -24,6 +49,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Routing(NamedTuple):
@@ -117,6 +145,19 @@ def expert_capacity(
     return max(int(-(-raw // 1)), num_selected)
 
 
+def resident_experts(num_experts: int, mesh: Optional[object]) -> range:
+    """The experts this rank computes: all of them without an expert dim,
+    else expert rank j's block of E / X. E % X != 0 raises ValueError."""
+    experts = mesh_lib.axis_size(mesh, mesh_lib.EXPERT_AXIS)
+    if num_experts % experts:
+        raise ValueError(
+            f"{num_experts} experts do not split over an expert dim of {experts}"
+        )
+    per_rank = num_experts // experts
+    start = collectives.axis_index(mesh, mesh_lib.EXPERT_AXIS) * per_rank if experts > 1 else 0
+    return range(start, start + per_rank)
+
+
 def moe_mlp(
     x: torch.Tensor,
     router_kernel: torch.Tensor,
@@ -138,16 +179,16 @@ def moe_mlp(
         (it must divide T), with capacity computed PER GROUP, so the dense
         dispatch tensors ([G, g, E, C_g], C_g ~ g/E) grow linearly in T.
         None = one group of all tokens.
-      mesh: expert parallelism over a mesh is not ported (ROADMAP.md A9).
+      mesh: with an `expert` dim above 1, this rank computes only its
+        resident experts' FFN (module docstring); x is the same on every
+        expert rank.
 
     Returns (y [T, F], aux_loss: the mean over groups).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh is not ported yet (ROADMAP.md A9)"
-        )
     tokens, features = x.shape
     num_experts = w_in.shape[0]
+    resident = resident_experts(num_experts, mesh)
+    sharded = len(resident) < num_experts
     if group_size is None:
         group_size = tokens
     if tokens % group_size != 0:
@@ -162,10 +203,17 @@ def moe_mlp(
     xg = x.reshape(groups, group_size, features)
     logits = torch.einsum("gtf,fe->gte", xg, router_kernel)
     routing = top_k_routing(logits, num_selected, capacity)
-    expert_inputs = torch.einsum("gtec,gtf->gecf", routing.dispatch, xg)
+    dispatch = routing.dispatch
+    if sharded:
+        mine = slice(resident.start, resident.stop)
+        dispatch, w_in, w_out = dispatch[:, :, mine], w_in[mine], w_out[mine]
+    expert_inputs = torch.einsum("gtec,gtf->gecf", dispatch, xg)
     hidden = F.gelu(
         torch.einsum("gecf,efh->gech", expert_inputs, w_in), approximate="tanh"
     )
     expert_outputs = torch.einsum("gech,ehf->gecf", hidden, w_out)
+    if sharded:
+        expert_outputs = collectives.all_gather(
+            expert_outputs, mesh, mesh_lib.EXPERT_AXIS, axis=1)
     y = torch.einsum("gtec,gecf->gtf", routing.combine, expert_outputs)
     return y.reshape(tokens, features), routing.aux_loss.mean()

@@ -3,9 +3,14 @@
 Port of tensor2robot_tpu/parallel/, one process per rank (parallel/mesh.py).
 Six named mesh dims, as in the JAX package: data and fsdp (the batch),
 model, sequence (ring or Ulysses attention), pipe and expert. Ported: the
-mesh, the collectives, ring and Ulysses attention and the trainer's data x
-sequence regime. Pipelining, expert parallelism, the ZeRO-2 codecs and the
-planner are not (ROADMAP.md A9).
+mesh, the collectives, ring and Ulysses attention, and the trainer's
+data x fsdp x sequence x expert regime: global-batch steps over data x
+fsdp shards (synchronized batch-norm moments, per-shard draws,
+shard_by_host input, exporters, hooks and continuous eval on rank 0's
+single-device model) and experts computed by their resident expert rank.
+Still raising, naming ROADMAP.md A9: pipelining (the pipe dim), tensor
+parallelism (the model dim), experts under a sequence dim, sharded
+weights with the ZeRO-2 codecs, and the planner.
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (

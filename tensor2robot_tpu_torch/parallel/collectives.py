@@ -15,6 +15,18 @@ differentiable with the rule JAX transposes it by:
 all_to_all, all_gather and psum_scatter are JAX's tiled forms (the only
 ones the JAX package calls).
 
+One collective has no JAX spelling: `psum_data_shards`, the sum over the
+data x fsdp ranks of the batch norms' moment sums, whose backward SUMS the
+cotangent over the same ranks (torch.nn.SyncBatchNorm's rule), where
+psum's passes it unchanged. The rules differ because the programs do:
+JAX differentiates one program over the global batch, in which psum's
+transpose is the identity, while here each rank differentiates its own
+shard's loss and the trainer averages the ranks' gradients afterwards
+(`Trainer.average_over_ranks`). The global moments reach every shard's
+loss, so each rank's moment sums need the sum of every rank's cotangent:
+with the identity, every gradient upstream of a norm would miss the
+other shards' terms.
+
 A dim of size 1 needs no communication: each collective is then its
 identity. Ranks of a gloo group move CPU tensors only, so for gloo a CUDA
 tensor is staged explicitly: copied into a pinned host buffer, moved by
@@ -39,12 +51,14 @@ from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 
 __all__ = [
     "all_gather",
+    "all_gather_data_shards",
     "all_reduce_mean_flat",
     "all_to_all",
     "axis_index",
     "pmean",
     "ppermute",
     "psum",
+    "psum_data_shards",
     "psum_scatter",
     "reset_staged_bytes",
     "staged_bytes",
@@ -85,6 +99,14 @@ class _Dim:
         if size == 1:
             return cls(None, 1, 0)
         return cls(mesh.get_group(axis), size, mesh.get_local_rank(axis))
+
+    @classmethod
+    def data_shards(cls, mesh: DeviceMesh) -> "_Dim":
+        """The data x fsdp ranks of this rank's batch (mesh.data_group)."""
+        index, count = mesh_lib.data_shard(mesh)
+        if count == 1:
+            return cls(None, 1, 0)
+        return cls(mesh_lib.data_group(mesh), count, index)
 
     @classmethod
     def world(cls) -> "_Dim":
@@ -205,6 +227,19 @@ class _PSum(torch.autograd.Function):
         return g, None
 
 
+class _PSumBoth(torch.autograd.Function):
+    """Sum over the ranks, and the cotangent summed over them too."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _psum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.contiguous(), ctx.dim), None
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, perm):
@@ -261,6 +296,26 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
 def pmean(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
     dim = _Dim.of(mesh, axis_name)
     return x if dim.size == 1 else _PSum.apply(x, dim) / dim.size
+
+
+def all_gather_data_shards(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Every data x fsdp shard's x concatenated along dim 0 in shard order:
+    a loss that spans the batch (a contrastive loss) sees the global
+    batch. Its backward is all_gather's, psum_scatter: every rank computes
+    the same global loss, so each shard's rows receive N times their
+    cotangent, and the trainer's pmean over the ranks divides the N back
+    out (layers/transformer.py's rule)."""
+    dim = _Dim.data_shards(mesh)
+    return x if dim.size == 1 else _AllGather.apply(x, dim, 0)
+
+
+def psum_data_shards(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Sum over this rank's data x fsdp shards (every shard of the global
+    batch); the cotangent is summed over them as well (module docstring).
+    For the batch norms' moment sums: a norm fuses its sum, sum of squares
+    and count into one x, so it makes one call."""
+    dim = _Dim.data_shards(mesh)
+    return x if dim.size == 1 else _PSumBoth.apply(x, dim)
 
 
 def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,

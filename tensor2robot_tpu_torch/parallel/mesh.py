@@ -14,7 +14,11 @@ CPU, or several ranks sharing one card: a card holds one NCCL rank at
 most). `parallel/collectives.py` stages CUDA tensors through pinned host
 buffers for gloo.
 
-The parameter sharding rules (param_sharding, weight_update_sharding,
+What a mesh runs: the batch split over data x fsdp (parameters stay
+replicated, so fsdp is data parallelism here), the sequence dim's ring or
+Ulysses attention, and the expert dim's resident experts (ops/moe.py).
+The model and pipe dims (tensor parallelism, pipelining) and the parameter
+sharding rules (param_sharding, weight_update_sharding,
 pipe_stage_param_rule) are not ported: they raise naming ROADMAP.md A9.
 """
 
@@ -22,8 +26,9 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -137,15 +142,15 @@ def mesh_shape(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
 
 
 def check_ported_dims(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
-    """mesh_shape(mesh), after refusing the dims not ported yet: a model,
-    pipe or expert dim above 1 (tensor, pipeline or expert parallelism)
-    raises NotImplementedError naming ROADMAP.md A9."""
+    """mesh_shape(mesh), after refusing the dims not ported yet: a model or
+    pipe dim above 1 (tensor or pipeline parallelism) raises
+    NotImplementedError naming ROADMAP.md A9."""
     shape = mesh_shape(mesh)
-    wide = [axis for axis in (MODEL_AXIS, PIPE_AXIS, EXPERT_AXIS) if shape[axis] > 1]
+    wide = [axis for axis in (MODEL_AXIS, PIPE_AXIS) if shape[axis] > 1]
     if wide:
         raise NotImplementedError(
-            f"a mesh with {wide} above 1 (tensor, pipeline or expert "
-            "parallelism) is not ported yet (ROADMAP.md A9)"
+            f"a mesh with {wide} above 1 (tensor or pipeline parallelism) is "
+            "not ported yet (ROADMAP.md A9)"
         )
     return shape
 
@@ -163,23 +168,67 @@ def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     return index, shape[DATA_AXIS] * shape[FSDP_AXIS]
 
 
-def shard_batch(batch, mesh: DeviceMesh):
+# id(mesh) -> (the mesh, this rank's data x fsdp group): made once a mesh.
+_DATA_GROUPS: Dict[int, Tuple[DeviceMesh, Any]] = {}
+
+
+def data_group(mesh: DeviceMesh):
+    """The process group of this rank's data x fsdp shards: the ranks that
+    share its model, sequence, pipe and expert coordinates, whose shards
+    together are one global batch (the batch norms' moments and the
+    trainer's draws are over it). None means the world's default group
+    (every rank is a data x fsdp shard). Ranks enumerate in data_shard
+    order. The first call for a mesh creates the groups
+    (dist.new_group), so every rank makes it, in the same order: the
+    trainer does when it is built."""
+    shape = mesh_shape(mesh)
+    count = shape[DATA_AXIS] * shape[FSDP_AXIS]
+    if count == dist.get_world_size():
+        return None
+    cached = _DATA_GROUPS.get(id(mesh))
+    if cached is None or cached[0] is not mesh:
+        me, mine = dist.get_rank(), None
+        for ranks in mesh.mesh.reshape(count, -1).t().tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+        cached = _DATA_GROUPS[id(mesh)] = (mesh, mine)
+    return cached[1]
+
+
+def shard_batch(batch, mesh: DeviceMesh, microbatches: int = 1):
     """This rank's slice of a host batch: the leading axis split over
     data x fsdp (ranks on the same data and fsdp index get the same
-    slice). A leaf whose leading dim does not divide (small predict
-    batches, scalars) is kept whole, as the JAX package replicates it.
-    Works on any mapping of numpy arrays or tensors; returns the same
-    mapping type."""
+    slice). With `microbatches` = K (the trainer's grad_accum_steps) the
+    slice is this rank's share of each of the K microbatches in turn, so
+    microbatch i over the ranks is microbatch i of the global batch, as
+    the single-device step cuts it (a batch the shards split but the
+    microbatches do not raises ValueError). A leaf whose leading dim does
+    not divide over the shards (small predict batches, scalars) is kept
+    whole, as the JAX package replicates it. Works on any mapping of
+    numpy arrays or tensors; returns the same mapping type."""
     index, divisor = data_shard(mesh)
     out = type(batch)()
     for key, leaf in batch.items():
         leaf_shape = getattr(leaf, "shape", ())
         if len(leaf_shape) >= 1 and leaf_shape[0] % divisor == 0:
-            size = leaf_shape[0] // divisor
-            out[key] = leaf[index * size:(index + 1) * size]
+            if leaf_shape[0] % (divisor * microbatches):
+                raise ValueError(
+                    f"Leaf {key!r} batch {leaf_shape[0]} does not split into "
+                    f"{microbatches} microbatches over {divisor} shards")
+            size = leaf_shape[0] // (divisor * microbatches)
+            parts = [leaf[(m * divisor + index) * size:(m * divisor + index + 1) * size]
+                     for m in range(microbatches)]
+            out[key] = parts[0] if microbatches == 1 else _concatenate(parts)
         else:
             out[key] = leaf
     return out
+
+
+def _concatenate(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
 
 
 def _unported(name: str):

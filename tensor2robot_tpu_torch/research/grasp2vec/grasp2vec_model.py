@@ -15,6 +15,12 @@ train with a generator, its center otherwise), converts to float32 in
 [0, 1] and, in train with a generator, flips left-right and up-down per
 image: the scene pair shares its flip decisions, the goal draws its own.
 With no generator there is no random crop and no flip.
+
+The n-pairs and triplet losses take their negatives from the batch, so
+over data x fsdp shards the model is built with the trainer's mesh and
+gathers every shard's embeddings before the loss
+(collectives.all_gather_data_shards): each rank computes the global
+batch's loss, as JAX's step over the sharded batch does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     TorchT2RModel,
     init_parameters,
 )
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
     SpecTransformationPreprocessor,
 )
@@ -149,7 +156,10 @@ def _crop_for(size: Tuple[int, int]) -> CropParams:
 
 class Grasp2VecModel(TorchT2RModel):
     """Grasp2Vec T2R model: scene and goal ResNet embeddings trained by
-    `embedding_loss_fn(pre, goal, post)`."""
+    `embedding_loss_fn(pre, goal, post)`; with a `mesh` the loss spans
+    every data x fsdp shard's batch."""
+
+    loss_spans_the_batch = True
 
     def __init__(
         self,
@@ -158,6 +168,7 @@ class Grasp2VecModel(TorchT2RModel):
         embedding_loss_fn: Callable = losses.npairs_embedding_loss,
         resnet_size: int = 50,
         preprocessor_cls=None,
+        mesh=None,
         **kwargs,
     ):
         if preprocessor_cls is None:
@@ -172,6 +183,7 @@ class Grasp2VecModel(TorchT2RModel):
         self._goal_size = tuple(goal_size)
         self._embedding_loss_fn = embedding_loss_fn
         self._resnet_size = resnet_size
+        self._mesh = mesh
 
     def get_feature_specification(self, mode):
         del mode
@@ -203,9 +215,11 @@ class Grasp2VecModel(TorchT2RModel):
         return network.to(device)
 
     def model_train_fn(self, features, labels, inference_outputs, mode):
-        embed_loss = self._embedding_loss_fn(
-            inference_outputs["pre_vector"], inference_outputs["goal_vector"],
-            inference_outputs["post_vector"])
+        vectors = [inference_outputs[key] for key in ("pre_vector", "goal_vector",
+                                                       "post_vector")]
+        if self._mesh is not None:
+            vectors = [collectives.all_gather_data_shards(v, self._mesh) for v in vectors]
+        embed_loss = self._embedding_loss_fn(*vectors)
         if isinstance(embed_loss, tuple):  # triplet: (loss, pairs, labels)
             embed_loss = embed_loss[0]
         return embed_loss, {"embed_loss": embed_loss}

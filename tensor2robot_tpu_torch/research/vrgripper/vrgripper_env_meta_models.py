@@ -10,6 +10,11 @@ the decoder's NLL plus an optional end-token loss and an optional
 contrastive loss between condition and inference embeddings. Modules are
 named as the flax modules are (image_embedding, fc_reduce, film_params,
 state_features, a_func, action_decoder).
+
+The contrastive loss anchors on the batch's first task and takes the
+others as negatives, so over data x fsdp shards a TEC model with
+`embed_loss_weight > 0` is built with the trainer's mesh and gathers every
+shard's embeddings before it (collectives.all_gather_data_shards).
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     MODE_PREDICT,
     MODE_TRAIN,
     TorchT2RModel,
+    generator_kwargs,
 )
 from tensor2robot_tpu_torch.models.base_models import sigmoid_binary_cross_entropy
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.research.vrgripper import decoders
 from tensor2robot_tpu_torch.research.vrgripper.vrgripper_env_models import (
     FEATURE_POINTS,
@@ -166,10 +173,12 @@ class VRGripperEnvTecModel(TorchT2RModel):
         use_film: bool = False,
         num_condition_samples_per_task: int = 1,
         image_size: Tuple[int, int] = (100, 100),
+        mesh=None,
         **kwargs,
     ):
         kwargs.setdefault("preprocessor_cls", None)
         super().__init__(**kwargs)
+        self._mesh = mesh
         self._action_size = action_size
         self._gripper_pose_size = gripper_pose_size
         self._num_waypoints = num_waypoints
@@ -182,6 +191,10 @@ class VRGripperEnvTecModel(TorchT2RModel):
         self._use_film = use_film
         self._num_condition_samples_per_task = num_condition_samples_per_task
         self._image_size = tuple(image_size)
+
+    @property
+    def loss_spans_the_batch(self) -> bool:
+        return self._embed_loss_weight > 0
 
     def _episode_feature_specification(self, mode: str) -> TensorSpecStruct:
         del mode
@@ -224,8 +237,9 @@ class VRGripperEnvTecModel(TorchT2RModel):
                      device: Union[str, torch.device] = DEFAULT_DEVICE) -> nn.Module:
         return init_vrgripper_network(self, generator, device)
 
-    def inference_network_fn(self, network, features, mode, labels=None):
-        return dict(network(features, mode, labels=labels)), {}
+    def inference_network_fn(self, network, features, mode, labels=None, generator=None):
+        return dict(network(features, mode, labels=labels,
+                            **generator_kwargs(network, generator))), {}
 
     def model_train_fn(self, features, labels, inference_outputs, mode):
         """BC NLL + optional end-token loss + optional contrastive
@@ -242,9 +256,12 @@ class VRGripperEnvTecModel(TorchT2RModel):
             metrics["loss/end_token"] = end_loss
             loss = loss + self._predict_end_weight * end_loss
         if self._embed_loss_weight > 0:
-            embed_loss = tec_lib.compute_embedding_contrastive_loss(
-                inference_outputs["inference_embedding"],
-                inference_outputs["condition_embedding"])
+            embeddings = [inference_outputs[key] for key in ("inference_embedding",
+                                                              "condition_embedding")]
+            if self._mesh is not None:
+                embeddings = [collectives.all_gather_data_shards(e, self._mesh)
+                              for e in embeddings]
+            embed_loss = tec_lib.compute_embedding_contrastive_loss(*embeddings)
             metrics["loss/embed"] = embed_loss
             loss = loss + self._embed_loss_weight * embed_loss
         metrics["loss/total"] = loss

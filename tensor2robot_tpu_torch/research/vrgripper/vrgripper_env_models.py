@@ -37,6 +37,7 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     MODE_PREDICT,
     MODE_TRAIN,
     TorchT2RModel,
+    generator_kwargs,
     init_parameters,
 )
 from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
@@ -304,8 +305,9 @@ class VRGripperRegressionModel(TorchT2RModel):
                      device: Union[str, torch.device] = DEFAULT_DEVICE) -> nn.Module:
         return init_vrgripper_network(self, generator, device)
 
-    def inference_network_fn(self, network, features, mode, labels=None):
-        return dict(network(features, mode, labels=labels)), {}
+    def inference_network_fn(self, network, features, mode, labels=None, generator=None):
+        return dict(network(features, mode, labels=labels,
+                            **generator_kwargs(network, generator))), {}
 
     def model_train_fn(self, features, labels, inference_outputs, mode):
         if self._num_mixture_components > 1:

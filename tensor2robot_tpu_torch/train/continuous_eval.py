@@ -9,6 +9,14 @@ taken); each new step is copied with its manifest into
 keep_checkpoint_max GC can delete a step mid-copy), restored onto this
 process's device, evaluated on every named eval set (per-name metric
 streams under eval_<name>/) and handed to the exporters.
+
+Over a mesh (JAX evaluates on the mesh it is given) every rank runs this
+loop: rank 0 picks each step and backs it up, and tells the others
+(a broadcast), so every rank restores the same checkpoint; each rank
+evaluates its shard of every eval batch and the totals are averaged over
+the ranks, as the trainer's evaluation does; rank 0 alone writes the
+metrics and runs the exporters, over the model without its mesh, while
+the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ import time
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from tensor2robot_tpu_torch.models.abstract_model import MODE_EVAL
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.train import durability
 from tensor2robot_tpu_torch.train import state as state_lib
 from tensor2robot_tpu_torch.train.metrics import MetricsWriter
@@ -32,6 +42,7 @@ from tensor2robot_tpu_torch.train.train_eval import (
     maybe_wrap_for_tpu,
     normalize_eval_generators,
     run_named_evals,
+    shard_inputs,
 )
 from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -119,13 +130,9 @@ def continuous_eval(
     checkpoint appears within `timeout`. Returns the last eval metrics.
     `input_generator_eval` may be a {name: generator} map: each name gets
     its own metric stream under model_dir/eval_<name>/."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "continuous_eval over a mesh is not ported yet (ROADMAP.md A9); "
-            "evaluate the mesh run's checkpoints on one card"
-        )
     model = maybe_wrap_for_tpu(t2r_model)
-    trainer = Trainer(model, device=device)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    chief = trainer.is_chief
     if use_ema_for_eval is None:
         use_ema_for_eval = model.use_avg_model_params
     eval_generators = normalize_eval_generators(input_generator_eval)
@@ -133,35 +140,41 @@ def continuous_eval(
         raise ValueError("continuous_eval requires at least one eval generator.")
     for generator in eval_generators.values():
         generator.set_specification_from_model(model, MODE_EVAL)
+    shard_inputs(eval_generators.values(), mesh)
     writers = {
         name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
         for name in eval_generators
-    }
+    } if chief else {}
+    exporting = trainer.single_device()
     exporters = (
-        create_exporters_fn(model) if create_exporters_fn is not None else []
+        create_exporters_fn(exporting.model)
+        if create_exporters_fn is not None and chief else []
     )
     last_step: Optional[int] = None
     last_metrics: Dict[str, float] = {}
     try:
         while True:
-            print(f"continuous_eval: waiting for a checkpoint newer than "
-                  f"{last_step} under {model_dir}", flush=True)
-            step = wait_for_new_checkpoint(
-                model_dir, last_step, timeout=timeout, poll_interval=poll_interval
-            )
+            if chief:
+                print(f"continuous_eval: waiting for a checkpoint newer than "
+                      f"{last_step} under {model_dir}", flush=True)
+            step = _wait_on_chief(trainer, model_dir, last_step, timeout, poll_interval)
+            restore_root = None
+            if chief and step is not None:
+                restore_root = (backup_checkpoint_for_eval(model_dir, step)
+                                if use_backup else model_dir)
+            restore_root = _from_chief(trainer, restore_root)
             if step is None:
                 break  # the trainer stopped producing checkpoints
-            if use_backup:
-                restore_root = backup_checkpoint_for_eval(model_dir, step)
-                if restore_root is None:
-                    last_step = step  # the GC won the race; wait for a newer one
-                    continue
-            else:
-                restore_root = model_dir
+            if restore_root is None:
+                last_step = step  # the GC won the race; wait for a newer one
+                continue
             try:
                 state = restore_state_from_backup(restore_root, step, trainer)
+                torn = None
             except durability.TornCheckpoint as err:
-                logging.warning("Skipping step %d: %s", step, err)
+                torn = err
+            if _any_rank(trainer, torn is not None):
+                logging.warning("Skipping step %d: %s", step, torn or "torn on a rank")
                 last_step = step
                 continue
             metrics = run_named_evals(
@@ -171,9 +184,12 @@ def continuous_eval(
             for exporter in exporters:
                 exporter.maybe_export(
                     step=step, state=state, eval_metrics=metrics,
-                    compiled=trainer, model_dir=model_dir,
+                    compiled=exporting, model_dir=model_dir,
                 )
-            print(f"continuous_eval: step {step}: {metrics}", flush=True)
+            if trainer.ranks > 1:
+                dist.barrier()  # the other ranks wait for rank 0's exports
+            if chief:
+                print(f"continuous_eval: step {step}: {metrics}", flush=True)
             last_metrics = metrics
             last_step = step
             if max_train_steps is not None and step >= max_train_steps:
@@ -182,3 +198,38 @@ def continuous_eval(
         for writer in writers.values():
             writer.close()
     return last_metrics
+
+
+def _from_chief(trainer: Trainer, value):
+    """Rank 0's `value` (any picklable object) on every rank of a mesh."""
+    if trainer.ranks == 1:
+        return value
+    message = [value]
+    dist.broadcast_object_list(message, src=0)
+    return message[0]
+
+
+def _wait_on_chief(trainer: Trainer, model_dir: str, last_step: Optional[int],
+                   timeout: float, poll_interval: float) -> Optional[int]:
+    """wait_for_new_checkpoint as rank 0 sees it, on every rank of a mesh:
+    rank 0 polls and tells the others after each poll, so no rank waits in
+    one collective longer than a poll."""
+    if trainer.ranks == 1:
+        return wait_for_new_checkpoint(model_dir, last_step, timeout, poll_interval)
+    deadline = time.time() + timeout
+    while True:
+        found = None
+        if trainer.is_chief:
+            found = wait_for_new_checkpoint(model_dir, last_step, timeout=0)
+            if found is None and time.time() >= deadline:
+                found = "timeout"
+        found = _from_chief(trainer, found)
+        if found is not None:
+            return None if found == "timeout" else found
+        time.sleep(poll_interval)
+
+
+def _any_rank(trainer: Trainer, flag: bool) -> bool:
+    """Whether `flag` holds on any rank of a mesh."""
+    value = torch.tensor(float(flag), device=trainer.device)
+    return collectives.all_reduce_mean_flat([value], trainer.ranks)[0].item() > 0

@@ -14,9 +14,10 @@ gain nothing from a stacked [K, B, ...] copy.
 Over a mesh each rank feeds its own shard: `shard_batches` takes this
 rank's slice of every host batch before the copy (parallel/mesh.py
 shard_batch: the leading axis split over data x fsdp, so ranks on the same
-data index, the sequence ranks of one episode among them, get the same
-batch). Every rank therefore reads the same host batches, the whole
-global batch.
+data index, the sequence and expert ranks of one episode among them, get
+the same batch). Every rank then reads the same host batches, the whole
+global batch. A `shard_by_host` record stream is already this rank's
+shard (data/dataset.py), and passes through whole.
 """
 
 from __future__ import annotations
@@ -93,10 +94,16 @@ class PinnedRing:
         return tensor
 
 
-def shard_batches(batches: Iterator, mesh) -> Iterator:
-    """This rank's shard of every host batch (all of it without a mesh)."""
+def shard_batches(batches: Iterator, mesh, microbatches: int = 1,
+                  presharded: bool = False) -> Iterator:
+    """This rank's shard of every host batch: all of it without a mesh or
+    when the stream is `presharded` (shard_by_host), else
+    mesh.shard_batch's slice, in `microbatches` parts (grad accumulation)."""
     for batch in batches:
-        yield batch if mesh is None else mesh_lib.shard_batch(batch, mesh)
+        if mesh is None or presharded:
+            yield batch
+        else:
+            yield mesh_lib.shard_batch(batch, mesh, microbatches)
 
 
 def to_device(batch, device: Union[str, torch.device]) -> TensorSpecStruct:

@@ -1,12 +1,14 @@
 """The trainer: train, evaluate, checkpoint and predict a T2RModel.
 
-Port of tensor2robot_tpu/train/train_eval.py on one device. `Trainer` is
+Port of tensor2robot_tpu/train/train_eval.py. `Trainer` is
 the counterpart of the JAX package's CompiledModel: the model's hooks as
 train, eval and predict steps over a TrainState, in the same order
 (preprocess, packed inference, model_train_fn, backward, optimizer, EMA).
 Each train step preprocesses with its own generator on the device,
 seeded from (seed, step) as the JAX step folds the step into its key, so
-random crops and distortions differ per step and repeat on a resume.
+random crops and distortions differ per step and repeat on a resume; a
+second generator of the step is the network's (JAX's rng_net: sampled
+actions), handed to networks whose forward takes `generator`.
 Batch-norm running statistics are buffers of the network: they change in
 a train-mode forward, ride in the checkpoint's `params`, and are not
 averaged (the EMA covers parameters only, as the JAX export_variables).
@@ -51,34 +53,41 @@ asked to export after every eval, with that eval's metrics, under
 `<model_dir>/export/<name>/`. Hooks (hooks/hook_builder.py) are called in
 the JAX package's order.
 
-The mesh (parallel/mesh.py: data x fsdp x sequence; one process per rank,
-each running this trainer on its own shard): every rank feeds its slice
-of the batch (infeed.shard_batches), the network runs sequence-parallel
-where the model was built with the same mesh, and after the backward
-every gradient, with the step's scalar metrics, is averaged over all
-ranks in ONE flat all_reduce (the pmean over data x fsdp x sequence that
-turns the ranks' gradients into the single-device gradient of the global
-batch; layers/transformer.py has the rule). Parameters stay replicated,
-so every rank's optimizer takes the same step and the checkpoint has the
-single-device layout. Eval totals are averaged over the ranks the same
-way. Rank 0 alone writes checkpoints, manifests, metrics.jsonl and
-operative_config.gin; the others wait at a barrier, and a resume reads the
-same durable checkpoint on every rank.
+The mesh (parallel/mesh.py: data x fsdp x sequence x expert; one process
+per rank, each running this trainer on its own shard): every rank feeds
+its slice of the batch (infeed.shard_batches), the network runs
+sequence-parallel and with its resident experts where the model was built
+with the same mesh, and after the backward every gradient, with the
+step's scalar metrics, is averaged over all ranks in ONE flat all_reduce
+(the pmean over the mesh that turns the ranks' gradients into the
+single-device gradient of the global batch; layers/transformer.py and
+ops/moe.py have the rule). Parameters stay replicated, so every rank's
+optimizer takes the same step and the checkpoint has the single-device
+layout. Eval totals are averaged over the ranks the same way. Rank 0
+alone writes checkpoints, manifests, metrics.jsonl and
+operative_config.gin, and alone builds and runs the exporters and hooks,
+over the model without its mesh (an export serves on one card); the
+others wait at a barrier, and a resume reads the same durable checkpoint
+on every rank.
 
-That holds where a train step depends on the batch only through the
-gradients. Over more than one data x fsdp shard two things break it, and
-each raises NotImplementedError naming ROADMAP.md A9 (JAX keeps
-global-batch semantics by jitting over sharded arrays): a network with
-buffers (batch-norm statistics would normalise by each rank's shard and
-the ranks' running statistics drift apart), and preprocessing that draws
-random numbers (every rank draws the same step stream for its own shard,
-so crops would repeat across shards). Sequence ranks share their batch,
-so neither matters on a sequence-only mesh.
+Over more than one data x fsdp shard the step keeps the global batch's
+semantics, as the JAX trainer's default step does by jitting over sharded
+arrays: the network's batch norms take their train-mode moments over
+every shard (layers/batch_norm.py; their running statistics stay equal on
+every rank), and with grad_accum_steps = K rank r's shard holds its share
+of each global microbatch, so microbatch i's statistics are the global
+microbatch's. Random draws follow JAX's manual step instead
+(`train_eval.py` quant_train_step, which folds the shard index into
+rng_pre and rng_net): each data x fsdp shard draws from its own
+`step_generator` stream, and one shard's stream is the single-device one.
+A draw of one value for the whole batch, such as VRGripper's mixup
+weight, is therefore one value per shard, where JAX's default step draws
+one for the global batch. Sequence and expert ranks share their batch and
+their draws.
 
-plan, shard_weight_update and flatten_optimizer_update, a mesh with a
-model, pipe or expert dim above 1, and exporters, hooks, continuous eval
-or a `shard_by_host` record input over a mesh raise NotImplementedError
-naming ROADMAP.md item A9.
+plan, shard_weight_update and flatten_optimizer_update, and a mesh with a
+model or pipe dim above 1, raise NotImplementedError naming ROADMAP.md
+item A9.
 """
 
 from __future__ import annotations
@@ -95,6 +104,7 @@ import torch.distributed as dist
 
 from tensor2robot_tpu_torch import config as config_lib
 from tensor2robot_tpu_torch.export.saved_model import TRACE_LOCK
+from tensor2robot_tpu_torch.layers import batch_norm as batch_norm_lib
 from tensor2robot_tpu_torch.layers import remat as remat_lib
 from tensor2robot_tpu_torch.hooks.hook_builder import Hook, HookContext
 from tensor2robot_tpu_torch.models.abstract_model import (
@@ -130,24 +140,30 @@ def _reject_unported(plan=None, shard_weight_update=False,
 
 
 def _check_trainer_mesh(model, mesh) -> None:
-    """The trainer's mesh regimes: data x fsdp x sequence only, and a
-    model built with a mesh of the same sequence size as the trainer's
-    (1 without one; the sequence half of the JAX trainer's
+    """The trainer's mesh regimes: data x fsdp x sequence x expert, and a
+    model built with a mesh of the same sequence and expert sizes as the
+    trainer's (1 without one; the JAX trainer's
     _validate_model_matches_plan: a mismatch would train silently without
-    sequence parallelism, or run the encoder's collectives with no
-    gradient reduction)."""
+    sequence or expert parallelism, or run the model's collectives with no
+    gradient reduction), and of the same data x fsdp sizes where its loss
+    spans the batch (else each shard would take its own negatives)."""
     shape = mesh_lib.check_ported_dims(mesh)
     candidates = [model, getattr(model, "_model", None)]
     model_mesh = next((getattr(m, "_mesh") for m in candidates
                        if getattr(m, "_mesh", None) is not None), None)
-    seq = mesh_lib.axis_size(model_mesh, mesh_lib.SEQUENCE_AXIS)
-    want = shape[mesh_lib.SEQUENCE_AXIS]
-    if seq != want:
-        raise ValueError(
-            f"the trainer's mesh shards the sequence {want}-way but the "
-            f"model's mesh carries sequence axis {seq}; construct the model "
-            "with the trainer's mesh so attention runs sequence-parallel"
-        )
+    axes = [(mesh_lib.SEQUENCE_AXIS, "attention runs sequence-parallel"),
+            (mesh_lib.EXPERT_AXIS, "each rank runs its resident experts")]
+    if any(getattr(m, "loss_spans_the_batch", False) for m in candidates if m is not None):
+        axes += [(axis, "its loss gathers every shard's examples")
+                 for axis in (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS)]
+    for axis, what in axes:
+        got, want = mesh_lib.axis_size(model_mesh, axis), shape[axis]
+        if got != want:
+            raise ValueError(
+                f"the trainer's mesh shards the {axis} {want}-way but the "
+                f"model's mesh carries {axis} axis {got}; construct the model "
+                f"with the trainer's mesh so {what}"
+            )
 
 
 def maybe_wrap_for_tpu(model):
@@ -178,14 +194,24 @@ def _batch_labels(batch):
         return None
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of train step `step`'s preprocessing (random crops,
-    distortions), on `device`: seeded from (seed, step) alone, as the JAX
-    trainer draws step `step`'s rng_pre from fold_in(rng, step). A resumed
-    run draws what the uninterrupted run drew at the same step. (The JAX
-    trainer also splits off an rng_net for the network; no network of the
-    port draws random numbers, so none is made.)"""
-    digest = hashlib.blake2b(f"{seed}:{step}:pre".encode(), digest_size=8)
+def step_generator(seed: int, step: int, device, stream: str = "pre",
+                   shard: int = 0, shards: int = 1,
+                   microbatch: Optional[int] = None) -> torch.Generator:
+    """A generator of train step `step`, on `device`, seeded from (seed,
+    step, stream) alone, as the JAX trainer draws step `step`'s keys from
+    fold_in(rng, step): stream "pre" is the preprocessing's (rng_pre:
+    random crops, distortions), "net" the network's (rng_net: sampled
+    actions). A resumed run draws what the uninterrupted run drew at the
+    same step. Over `shards` > 1 data x fsdp shards the shard index is
+    folded in, and a microbatch index of grad accumulation likewise (JAX's
+    fold_in(rng_net, index)); one shard, no microbatch, is the
+    single-device stream."""
+    key = f"{seed}:{step}:{stream}"
+    if shards > 1:
+        key += f":shard{shard}"
+    if microbatch is not None:
+        key += f":micro{microbatch}"
+    digest = hashlib.blake2b(key.encode(), digest_size=8)
     generator = torch.Generator(device=device)
     generator.manual_seed(int.from_bytes(digest.digest(), "little"))
     return generator
@@ -266,7 +292,10 @@ class Trainer:
         self.mesh = mesh
         # Ranks of the mesh, all of the world (make_mesh covers it).
         self.ranks = 1 if mesh is None else dist.get_world_size()
-        self.data_shards = 1 if mesh is None else mesh_lib.data_shard(mesh)[1]
+        self.shard, self.data_shards = (
+            (0, 1) if mesh is None else mesh_lib.data_shard(mesh))
+        if self.data_shards > 1:
+            mesh_lib.data_group(mesh)  # made here, on every rank together
         self.is_chief = mesh is None or dist.get_rank() == 0
         self.device = resolve_device(device) if mesh is None else rank_device(device)
         self.seed = seed
@@ -295,13 +324,7 @@ class Trainer:
             network = self.model.create_network()
             network.load_state_dict(params)
             network = network.to(self.device)
-        if self.data_shards > 1 and any(True for _ in network.buffers()):
-            raise NotImplementedError(
-                "a network with buffers (batch-norm statistics) over "
-                f"{self.data_shards} data x fsdp shards is not ported yet "
-                "(ROADMAP.md A9): each rank would normalise by its own shard "
-                "and keep its own running statistics"
-            )
+        batch_norm_lib.synchronize(network, self.mesh)
         ema = init_ema(network) if self.model.use_avg_model_params else None
         optimizer = self.optimizer_factory(network.parameters())
         return TrainState(step=0, network=network, optimizer=optimizer,
@@ -315,11 +338,18 @@ class Trainer:
             generator=generator,
         )
 
-    def network_loss(self, network, features, labels):
+    def step_generator(self, step: int, stream: str = "pre",
+                       microbatch: Optional[int] = None) -> torch.Generator:
+        """This rank's generator of train step `step` (module
+        step_generator with this rank's data x fsdp shard folded in)."""
+        return step_generator(self.seed, step, self.device, stream, self.shard,
+                              self.data_shards, microbatch)
+
+    def network_loss(self, network, features, labels, generator=None):
         """(loss, train metrics) of preprocessed features: the network and
-        the loss."""
+        the loss; a network that samples draws from `generator`."""
         f, l, outputs, _ = self.model.packed_inference(
-            network, features, MODE_TRAIN, labels=labels
+            network, features, MODE_TRAIN, labels=labels, generator=generator
         )
         return self.model.model_train_fn(f, l, outputs, MODE_TRAIN)
 
@@ -330,10 +360,12 @@ class Trainer:
         features, labels = self.preprocess_train(batch, generator)
         return self.network_loss(network, features, labels)
 
-    def backward(self, network, features, labels):
+    def backward(self, network, features, labels, step: Optional[int] = None):
         """Adds the gradient of the loss on preprocessed (features, labels)
         into the parameters' .grad under this trainer's regimes; returns
-        the loss and the train metrics, detached."""
+        the loss and the train metrics, detached. With `step` the network
+        draws from the step's "net" generators (one a microbatch), else
+        from none."""
         count = self.grad_accum_steps
         # The state a train-mode forward changes (batch-norm statistics).
         buffers = list(network.buffers()) if count > 1 or self.remat else []
@@ -346,8 +378,10 @@ class Trainer:
                 f, l = microbatch(features, index, count), microbatch(labels, index, count)
             else:
                 f, l = features, labels
+            net_generator = None if step is None else self.step_generator(
+                step, "net", index if count > 1 else None)
             with remat_lib.segments(self.remat):
-                loss, metrics = self.network_loss(network, f, l)
+                loss, metrics = self.network_loss(network, f, l, net_generator)
             if self.remat:
                 after_forward = [b.clone() for b in buffers]
             (loss / count if count > 1 else loss).backward()
@@ -367,18 +401,11 @@ class Trainer:
         """One update of `state` in place from a device batch; returns the
         step's metrics as device tensors (no host sync)."""
         state.network.train()
-        generator = step_generator(self.seed, state.step, self.device)
-        drawn_from = generator.get_state() if self.data_shards > 1 else None
-        features, labels = self.preprocess_train(batch, generator)
-        if drawn_from is not None and not torch.equal(drawn_from, generator.get_state()):
-            raise NotImplementedError(
-                "preprocessing that draws random numbers over "
-                f"{self.data_shards} data x fsdp shards is not ported yet "
-                "(ROADMAP.md A9): every rank would draw the same stream for "
-                "its own shard of the batch"
-            )
+        features, labels = self.preprocess_train(
+            batch, self.step_generator(state.step))
         state.optimizer.zero_grad(set_to_none=True)
-        loss, train_metrics = self.backward(state.network, features, labels)
+        loss, train_metrics = self.backward(state.network, features, labels,
+                                            step=state.step)
         if self.ranks > 1:
             loss, train_metrics = self.average_over_ranks(
                 state.network, loss, train_metrics)
@@ -392,6 +419,14 @@ class Trainer:
         metrics = {"loss": loss}
         metrics.update(train_metrics)
         return metrics
+
+    def single_device(self) -> "Trainer":
+        """This trainer over the model without its mesh, on the same
+        device: what rank 0 alone exports and runs hooks with, so neither
+        issues a collective the other ranks never join."""
+        if self.mesh is None:
+            return self
+        return Trainer(self.model.without_mesh(), device=self.device, seed=self.seed)
 
     def average_over_ranks(self, network, loss, metrics):
         """pmean over every rank of each gradient and each scalar float
@@ -486,18 +521,20 @@ def evaluate(
     eval_batches: Iterator,
     eval_steps: Optional[int] = None,
     use_ema: bool = False,
+    presharded: bool = False,
 ) -> Dict[str, float]:
     """Averages model_eval_fn metrics over up to eval_steps batches; the
     sums stay on the device (f32) and are read once at the end. Over a
-    mesh each rank evaluates its shard of every batch and the totals are
-    averaged over the ranks."""
+    mesh each rank evaluates its shard of every batch (`presharded`: the
+    batches are already this rank's, shard_by_host) and the totals are
+    averaged over the ranks, which must see as many batches."""
     if eval_steps is not None:
         eval_batches = itertools.islice(eval_batches, eval_steps)
     totals: Dict[str, torch.Tensor] = {}
     count = 0
     for batch in infeed.device_prefetch(
-        infeed.shard_batches(eval_batches, trainer.mesh), trainer.device,
-        depth=infeed.resolve_depth(),
+        infeed.shard_batches(eval_batches, trainer.mesh, presharded=presharded),
+        trainer.device, depth=infeed.resolve_depth(),
     ):
         for key, value in trainer.eval_step(state, batch, use_ema).items():
             value = value.float()
@@ -526,6 +563,7 @@ def run_named_evals(
         metrics = evaluate(
             trainer, state, iter(generator.create_dataset(MODE_EVAL)),
             eval_steps=eval_steps, use_ema=use_ema,
+            presharded=_reads_its_shard(generator, trainer.mesh),
         )
         if not metrics:
             continue
@@ -536,6 +574,23 @@ def run_named_evals(
         if name:
             merged.update({f"{name}/{k}": v for k, v in metrics.items()})
     return merged
+
+
+def _reads_its_shard(generator, mesh) -> bool:
+    """Whether `generator` streams this rank's data x fsdp shard itself
+    (shard_by_host over a mesh)."""
+    return mesh is not None and getattr(generator, "shard_by_host", False)
+
+
+def shard_inputs(generators, mesh) -> None:
+    """Points every shard_by_host generator at this rank's data x fsdp
+    shard of `mesh` (data/dataset.py has the rule)."""
+    if mesh is None:
+        return
+    index, count = mesh_lib.data_shard(mesh)
+    for generator in generators:
+        if getattr(generator, "shard_by_host", False):
+            generator.set_data_shard(index, count)
 
 
 # -- the entry point ----------------------------------------------------------------
@@ -575,22 +630,7 @@ def train_eval_model(
     same arguments (module docstring)."""
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
-    if mesh is not None and (create_exporters_fn is not None or hook_builders):
-        raise NotImplementedError(
-            "exporters and hooks over a mesh are not ported yet (ROADMAP.md "
-            "A9); export the mesh run's checkpoint on one card"
-        )
     eval_generators = normalize_eval_generators(input_generator_eval)
-    if mesh is not None and any(
-        getattr(generator, "shard_by_host", False)
-        for generator in [input_generator_train, *eval_generators.values()]
-    ):
-        raise NotImplementedError(
-            "shard_by_host over a mesh is not ported yet (ROADMAP.md A9): it "
-            "splits the files by the global rank, so the sequence ranks of "
-            "one data replica would read different episodes; without it "
-            "every rank reads the whole batch and takes its shard"
-        )
     model = maybe_wrap_for_tpu(t2r_model)
     trainer = Trainer(
         model, device=device, seed=seed, mesh=mesh, plan=plan,
@@ -609,6 +649,7 @@ def train_eval_model(
         use_ema_for_eval = model.use_avg_model_params
 
     input_generator_train.set_specification_from_model(model, MODE_TRAIN)
+    shard_inputs([input_generator_train, *eval_generators.values()], mesh)
     host_batches = iter(input_generator_train.create_dataset(MODE_TRAIN))
     for generator in eval_generators.values():
         generator.set_specification_from_model(model, MODE_EVAL)
@@ -629,20 +670,25 @@ def train_eval_model(
         # uninterrupted run saw: deterministic generators restart their
         # stream from batch 0, so skip the batches already consumed.
         host_batches = itertools.islice(host_batches, start_step, None)
-    host_batches = infeed.shard_batches(host_batches, trainer.mesh)
+    host_batches = infeed.shard_batches(
+        host_batches, trainer.mesh, trainer.grad_accum_steps,
+        presharded=_reads_its_shard(input_generator_train, mesh))
 
     writer = MetricsWriter(os.path.join(model_dir, "train")) if chief else None
     eval_writers = {
         name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
         for name in eval_generators
     } if chief else {}
+    exporting = trainer.single_device()
     hooks: List[Hook] = []
-    for builder in hook_builders or []:
-        hooks.extend(builder.create_hooks(model, trainer=trainer))
-    ctx = HookContext(model=model, model_dir=model_dir, step=start_step, state=state)
-    exporters = (
-        create_exporters_fn(model) if create_exporters_fn is not None else []
-    )
+    exporters = []
+    if chief:
+        for builder in hook_builders or []:
+            hooks.extend(builder.create_hooks(exporting.model, trainer=exporting))
+        if create_exporters_fn is not None:
+            exporters = create_exporters_fn(exporting.model)
+    ctx = HookContext(model=exporting.model, model_dir=model_dir, step=start_step,
+                      state=state)
     final_eval: Dict[str, float] = {}
     step = last_saved_step = last_log_step = start_step
     t_last = time.time()
@@ -683,11 +729,12 @@ def train_eval_model(
         for exporter in exporters:
             exporter.maybe_export(
                 step=step, state=state, eval_metrics=eval_metrics,
-                compiled=trainer, model_dir=model_dir,
+                compiled=exporting, model_dir=model_dir,
             )
         ctx.eval_metrics = eval_metrics
         for hook in hooks:
             hook.after_eval(ctx)
+        _barrier(trainer)  # the other ranks wait for rank 0's exports
         return eval_metrics
 
     try:
@@ -733,6 +780,7 @@ def train_eval_model(
             eval_writer.close()
         if chief:
             _save_operative_config(model_dir)
+    _barrier(trainer)  # rank 0's last export and writes are done
     return final_eval
 
 

@@ -419,9 +419,13 @@ def test_png_phase(chip_smoke, tmp_path, capsys, monkeypatch):
 def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     """The parallel phase on 4 gloo ranks on the CPU at the rehearsal BC
     width (T = 16, 4 frames a rank; 4 heads of 8 so Ulysses splits them;
-    a window of 6 truncates the ring to 3 of its 4 hops). The ranks import
-    chip_smoke afresh and take their sizes and device from the phase's
-    spec, and count the plain versions' calls as launches themselves."""
+    a window of 6 truncates the ring to 3 of its 4 hops), then its
+    sub-phases: the critic at 96x96 (num_convs (2, 2, 1), batch 8) on 2
+    data x 2 fsdp ranks, its train_eval_model run from 16 + 8 records, and
+    MoE BC at the same rehearsal width on 2 data x 2 expert ranks. The
+    ranks import chip_smoke afresh and take their sizes and device from
+    the phase's spec, and count the plain versions' calls as launches
+    themselves."""
     import sys
 
     monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
@@ -431,21 +435,33 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "PARALLEL_REGIMES", {
         "ring": ("ring", None, 2 * 4), "ulysses": ("ulysses", None, 2),
         "ring_window6": ("ring", 6, 2 * 3)})
+    monkeypatch.setattr(chip_smoke, "PARALLEL_CRITIC", dict(
+        model=dict(image_size=(96, 96), num_convs=(2, 2, 1)), batch=8, mesh=(2, 2),
+        timed=2, steps=2, records=(16, 4, 8)))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_MOE", dict(experts=4, mesh=(2, 2), timed=2))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
     # 2 more steps; the 2 x 2 run's 10 steps and 2 evals of 2 hops x 2
-    # layers; and the served batch's B2 in this process.
+    # layers; the served batch's B2 in this process; and MoE's checked
+    # step and 2 + 2 timed steps, 2 layers each.
     steps = 1 + 4 + 2
+    moe = 4 * (1 + 4) * 2
     assert launches == {
         "flash_fwd": 4 * 2 + 2,
-        "flash_fwd_tile": 4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 12),
-        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 10),
-        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 10),
+        "flash_fwd_tile": 4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 12) + moe,
+        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 10) + moe,
+        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 10) + moe,
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
                  "[parallel] ulysses (sequence 4", "[parallel] ring_window6 (sequence 4",
                  "worst gradient", "gloo host-staged 0.000 MB a step",
                  "[parallel] train_eval_model on a 2 x 2 data x sequence mesh",
-                 "10.pt served on one card by CheckpointPredictor"):
+                 "10.pt served on one card by CheckpointPredictor",
+                 "[parallel_critic] full-width f32 critic (96, 96), batch 8 on a 2 data x 2",
+                 "control with per-shard moments", "(fails, as it must)",
+                 "[parallel_critic] train_eval_model on the mesh",
+                 "StepTimingHook on rank 0 only (1 rows",
+                 "[parallel_moe] MoE BC (4 experts, k = 2, 2 resident a rank)",
+                 "B1/B3/B4 2 each a rank a step", "[parallel_moe] sub-phase"):
         assert line in out, out

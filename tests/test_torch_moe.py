@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from tensor2robot_tpu.layers import moe as jax_moe_layers
 from tensor2robot_tpu.layers import transformer as jax_transformer
@@ -27,6 +28,7 @@ from tensor2robot_tpu_torch.layers import moe as moe_layers
 from tensor2robot_tpu_torch.layers import transformer
 from tensor2robot_tpu_torch.models.abstract_model import init_parameters
 from tensor2robot_tpu_torch.ops import moe
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.utils.jax_params import flax_params_to_state_dict
 
 # Softmax from logits: XLA's and torch's exp differ by one ulp on some
@@ -175,11 +177,20 @@ class TestMoeMlp:
             moe.moe_mlp(torch.zeros(10, FEATURES), *weights, group_size=4)
 
     def test_mesh_names_its_roadmap_item(self):
+        """Experts take a mesh now (tests/test_torch_expert_parallel.py);
+        what a mesh still refuses names its item: experts under a sequence
+        dim (ROADMAP.md A9). Anything but a DeviceMesh of the six dims is a
+        TypeError."""
         weights = [torch.from_numpy(w) for w in _weights(0)]
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A9"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             moe.moe_mlp(torch.zeros(8, FEATURES), *weights, mesh=object())
+        mesh_lib.make_mesh()  # the in-process group of one
+        # A sequence dim of 2, made without its process groups: MoEBlock
+        # refuses it before any collective.
+        sequence = DeviceMesh("cpu", torch.arange(2).reshape(1, 1, 1, 2, 1, 1),
+                              mesh_dim_names=mesh_lib.AXES, _init_backend=False)
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md A9"):
-            moe_layers.MoEBlock(FEATURES, EXPERTS, HIDDEN, mesh=object())
+            moe_layers.MoEBlock(FEATURES, EXPERTS, HIDDEN, mesh=sequence)
 
 
 def _flax_params(module, x, seed):

@@ -154,30 +154,22 @@ def test_train_eval_model_on_a_2x2_mesh_writes_the_single_device_layout(world, t
 
 
 @pytest.fixture(scope="module")
-def pins(world, tmp_path_factory):
-    return world.run(ranks.unported_pins, str(tmp_path_factory.mktemp("pins")))
+def pins(world):
+    return world.run(ranks.unported_pins)
 
 
-@pytest.mark.parametrize("case", [
-    "pipeline_stages", "expert_axis", "experts_over_a_mesh", "decode_over_a_mesh",
-    "trainer_expert_axis", "trainer_plan", "exporters_over_a_mesh",
-    "continuous_eval_over_a_mesh", "batch_norm_over_data_shards",
-    "random_preprocessing_over_data_shards", "shard_by_host_over_a_mesh",
-])
+@pytest.mark.parametrize("case", ["pipeline_stages", "decode_over_a_mesh", "trainer_plan"])
 def test_what_a_real_mesh_still_refuses_names_a9(pins, case):
-    """Part 2 of A9 (pipelining, expert parallelism, the plan), the entry
-    points not ported over a mesh, per-shard train state over data shards
-    (batch-norm buffers, random preprocessing) and record input split by
-    the global rank raise on every rank of a real mesh, naming ROADMAP.md
-    A9."""
+    """Part 2 of A9 still open (pipelining, the plan) and decoding over a
+    mesh raise on every rank of a real mesh, naming ROADMAP.md A9.
+    Experts under a sequence dim: tests/test_torch_expert_parallel.py."""
     for rank_pins in pins:
         assert "ROADMAP.md A9" in rank_pins[case]
 
 
 def test_a_stateless_step_trains_over_data_shards(world):
-    """The refusals above are about per-shard state, not data shards: a
-    network without buffers whose preprocessing draws nothing steps on a
-    data mesh of 4, every rank with the same averaged loss."""
+    """A network without buffers whose preprocessing draws nothing steps
+    on a data mesh of 4, every rank with the same averaged loss."""
     results = world.run(ranks.what_data_shards_train)
     assert all(r == dict(results[0]) for r in results)
     assert results[0]["data_shards"] == 4 and np.isfinite(results[0]["loss"])

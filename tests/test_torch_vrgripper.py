@@ -4,9 +4,11 @@ package's.
   * Decoders (MSE, MDN with 3 components, discrete, MAF with 1 and 2
     flows) from the same seeded variables: action and NLL within 1e-5
     abs + rel (the MAF action from the base mean; its sampled action from
-    a generator inverts to the drawn base); MADE is autoregressive (the
-    Jacobian of shift and log-scale is strictly lower triangular); the
-    MAF density integrates to 1 in one dimension.
+    a generator inverts to the drawn base); MADE is autoregressive (its
+    masks reach exactly the earlier inputs, and over 16 seeded points the
+    Jacobian of shift and log-scale is strictly lower triangular with every
+    allowed entry nonzero somewhere; a MADE with two degrees swapped fails
+    that check); the MAF density integrates to 1 in one dimension.
   * DefaultVRGripperPreprocessor: with no generator its output equals
     JAX's with no rng (center crop, resize); Mixup with given draws (JAX's
     gamma draws and random crop patched to fixed values and the center
@@ -43,6 +45,7 @@ from tensor2robot_tpu_torch.data.parser import decode_example
 from tensor2robot_tpu_torch.research import vrgripper
 from tensor2robot_tpu_torch.research.vrgripper import decoders, vrgripper_env_models
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
+from tensor2robot_tpu_torch.train import train_eval
 from tensor2robot_tpu_torch.utils import jax_params
 from tests.test_torch_resnet import (
     GRAD_TOL,
@@ -107,15 +110,65 @@ def test_decoder_matches_jax(name):
         assert_close(aux[key], want_aux[key], TOL, key)
 
 
-def test_made_is_autoregressive():
-    made = decoders.MADE(4, (8, 8))
+MADE_DRAWS = 16
+
+
+def _initialized_made(event_size=4, hidden=(8, 8)):
+    made = decoders.MADE(event_size, hidden)
     made.apply(lambda m: m.flax_init(torch.Generator().manual_seed(0))
                if hasattr(m, "flax_init") else None)
-    x = torch.randn(4)
+    return made
+
+
+def check_autoregressive(made, event_size=4) -> None:
+    """Raises AssertionError unless every output (shift and log-scale)
+    depends on exactly the strictly earlier inputs. The masks' product
+    says which inputs each output can reach (a path through every masked
+    layer): it must be the strict lower triangle. Then at MADE_DRAWS
+    seeded points the Jacobian's upper triangle (diagonal included) is
+    exactly 0, and every entry of the strict lower triangle is nonzero at
+    some point: at one point dead ReLUs can zero an allowed dependence."""
+    reach = None
+    for i in range(made.num_hidden):
+        mask = getattr(made, f"masked{i}").mask  # [out, in]
+        reach = mask if reach is None else (mask @ reach > 0).float()
+    reach = (made.masked_out.mask @ reach > 0).float()
+    lower = torch.tril(torch.ones(event_size, event_size), -1)
     for output in (0, 1):
-        jacobian = torch.autograd.functional.jacobian(lambda v: made(v)[output], x)
-        assert torch.all(torch.triu(jacobian) == 0), jacobian
-        assert torch.any(torch.tril(jacobian, -1) != 0)
+        rows = reach[output * event_size:(output + 1) * event_size]
+        assert torch.equal(rows, lower), rows
+    generator = torch.Generator().manual_seed(7)
+    seen = [torch.zeros(event_size, event_size, dtype=torch.bool) for _ in (0, 1)]
+    for _ in range(MADE_DRAWS):
+        x = torch.randn(event_size, generator=generator)
+        for output in (0, 1):
+            jacobian = torch.autograd.functional.jacobian(lambda v: made(v)[output], x)
+            assert torch.all(torch.triu(jacobian) == 0), jacobian
+            seen[output] |= jacobian != 0
+    for output in (0, 1):
+        assert torch.equal(seen[output], lower.bool()), seen[output]
+
+
+def test_made_is_autoregressive():
+    check_autoregressive(_initialized_made())
+
+
+def test_the_autoregressive_check_fails_for_a_wrong_mask(monkeypatch):
+    """Input degrees with the first and last swapped (a MADE over another
+    order): the check above must fail."""
+
+    def swapped_masks(event_size, hidden_layers):
+        degrees = [np.arange(1, event_size + 1)]
+        degrees[0][[0, -1]] = degrees[0][[-1, 0]]
+        for width in hidden_layers:
+            degrees.append((np.arange(width) % max(1, event_size - 1)) + 1)
+        masks = [(previous[:, None] <= current[None, :]).astype(np.float32)
+                 for previous, current in zip(degrees[:-1], degrees[1:])]
+        return masks, (degrees[-1][:, None] < degrees[0][None, :]).astype(np.float32)
+
+    monkeypatch.setattr(decoders, "_made_masks", swapped_masks)
+    with pytest.raises(AssertionError):
+        check_autoregressive(_initialized_made())
 
 
 def test_maf_density_and_sampling():
@@ -313,6 +366,72 @@ def test_regression_model_matches_jax(name):
     check_model(*_models(jax_vrg.VRGripperRegressionModel,
                          vrgripper.VRGripperRegressionModel, **REGRESSION[name]),
                 *_episodes())
+
+
+SAMPLE_DRAWS = 20000
+
+
+def test_the_trainer_samples_the_mdn_train_action():
+    """With output_mixture_sample the train action is a sample from the
+    step's "net" generator, as JAX's is from its 'sample' key: two steps'
+    actions differ, each equals the mixture's sample from that generator,
+    and over 20000 draws the sample mean and variance of every action dim
+    lie within 4 standard errors of the mixture's. The draws reach no
+    loss or metric: both equal JAX's (with a sample key) within 1e-5 and
+    the port's without a generator exactly."""
+    jax_model, model = _models(jax_vrg.VRGripperRegressionModel,
+                               vrgripper.VRGripperRegressionModel,
+                               num_mixture_components=3, output_mixture_sample=True)
+    features, labels = _episodes()
+    shapes = jax.eval_shape(lambda: jax_model.init_variables(jax.random.PRNGKey(0),
+                                                             features))
+    variables = seeded_variables(dict(shapes), 1)
+    outputs, _ = jax_model.inference_network_fn(variables, features, "train",
+                                                rng=jax.random.PRNGKey(5), labels=labels)
+    want_loss, want_metrics = host(jax_model.model_train_fn(features, labels, outputs,
+                                                            "train"))
+    network = model.create_network()
+    jax_params.load_flax_variables(network, variables)
+    trainer = train_eval.Trainer(model, device="cpu")
+    seen = []
+    train_fn = model.model_train_fn
+
+    def recording(f, l, outputs, mode):
+        seen.append({k: v.detach() for k, v in outputs.items()})
+        return train_fn(f, l, outputs, mode)
+
+    model.model_train_fn = recording
+    f, l = TensorSpecStruct(_as_torch(features)), TensorSpecStruct(_as_torch(labels))
+    runs = [trainer.backward(network, f, l, step=step) for step in (0, 1)]
+    plain = trainer.backward(network, f, l)
+    for loss, metrics in runs:
+        np.testing.assert_allclose(loss.item(), float(want_loss), rtol=TOL, atol=TOL)
+        assert set(metrics) == set(want_metrics)
+        for key, value in want_metrics.items():
+            assert_close(metrics[key], value, TOL, key)
+        assert loss.item() == plain[0].item()
+    first, second, deterministic = seen
+    assert not torch.equal(first["inference_output"], second["inference_output"])
+    mixture = lambda params: vrgripper_env_models.mdn_lib.get_mixture_distribution(
+        params, 3, 7)
+    for step, outputs in enumerate((first, second)):
+        want = mixture(outputs["dist_params"].reshape(-1, outputs["dist_params"].shape[-1]))
+        drawn = want.sample(trainer.step_generator(step, "net"))
+        torch.testing.assert_close(outputs["inference_output"].reshape(drawn.shape), drawn,
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(deterministic["inference_output"],
+                               mixture(deterministic["dist_params"]).approximate_mode())
+    one = mixture(first["dist_params"][0, 0].expand(SAMPLE_DRAWS, -1).double())
+    draws = one.sample(torch.Generator().manual_seed(0))
+    weights = torch.softmax(one.logits[0], dim=-1)[:, None]
+    mean = (weights * one.mus[0]).sum(0)
+    variance = (weights * (one.sigmas[0] ** 2 + one.mus[0] ** 2)).sum(0) - mean ** 2
+    assert torch.all((draws.mean(0) - mean).abs()
+                     <= 4 * torch.sqrt(variance / SAMPLE_DRAWS))
+    # The variance's standard error, from the draws' fourth central moment.
+    central4 = ((draws - mean) ** 4).mean(0)
+    assert torch.all((draws.var(0) - variance).abs()
+                     <= 4 * torch.sqrt((central4 - variance ** 2) / SAMPLE_DRAWS))
 
 
 @pytest.mark.parametrize("inner", [False, True], ids=["outer", "inner"])

@@ -24,11 +24,13 @@ _MESHES = {}
 SEQ = mesh_lib.SEQUENCE_AXIS
 
 
-def mesh(data: int = 1, sequence: int = 4):
+def mesh(data: int = 1, sequence: int = 4, fsdp: int = 1, expert: int = 1):
     """This rank's mesh of the shape, made once per rank process."""
-    if (data, sequence) not in _MESHES:
-        _MESHES[(data, sequence)] = mesh_lib.make_mesh(data=data, sequence=sequence)
-    return _MESHES[(data, sequence)]
+    key = (data, sequence, fsdp, expert)
+    if key not in _MESHES:
+        _MESHES[key] = mesh_lib.make_mesh(data=data, fsdp=fsdp, sequence=sequence,
+                                          expert=expert)
+    return _MESHES[key]
 
 
 def _chunk(array: np.ndarray, index: int, count: int, axis: int = 0) -> np.ndarray:
@@ -188,81 +190,25 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
     return final, shapes
 
 
-def _noisy_mock_model():
-    """The mock classifier without batch norm, whose preprocessing adds
-    noise drawn from the step's generator."""
-    from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
-        NoOpPreprocessor,
-    )
-    from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
-
-    class NoisyPreprocessor(NoOpPreprocessor):
-        def _preprocess_fn(self, features, labels, mode, generator):
-            x = features["x"]
-            features["x"] = x + torch.randn(x.shape, generator=generator)
-            return features, labels
-
-    return MockT2RModel(use_batch_norm=False, preprocessor_cls=NoisyPreprocessor)
-
-
-def _noisy_step_over_data_shards():
-    from tensor2robot_tpu_torch.train.infeed import to_device
-    from tensor2robot_tpu_torch.train.train_eval import Trainer
-    from tensor2robot_tpu_torch.utils.mocks import MockInputGenerator
-
-    data = mesh(4, 1)
-    trainer = Trainer(_noisy_mock_model(), device="cpu", mesh=data)
-    state = trainer.init_state()
-    batch = next(iter(MockInputGenerator(batch_size=8).create_dataset("train")))
-    trainer.train_step(state, to_device(mesh_lib.shard_batch(batch, data), "cpu"))
-
-
-def unported_pins(model_dir: str) -> dict:
-    """What a real mesh still refuses (ROADMAP.md A9, part 2): each case's
-    NotImplementedError message ("" when nothing was raised)."""
-    from tensor2robot_tpu_torch.data.input_generators import (
-        DefaultRandomInputGenerator,
-        DefaultRecordInputGenerator,
-    )
+def unported_pins() -> dict:
+    """What a real mesh still refuses (ROADMAP.md A9: pipelining, the
+    plan, decoding over a mesh): each case's NotImplementedError message
+    ("" when nothing was raised)."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
-    from tensor2robot_tpu_torch.train.continuous_eval import continuous_eval
-    from tensor2robot_tpu_torch.train.train_eval import Trainer, train_eval_model
-    from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
 
     pipe = mesh_lib.make_mesh(sequence=2, pipe=2)
-    expert = mesh_lib.make_mesh(sequence=2, expert=2)
     seq = mesh(1, 4)
-    data = mesh(4, 1)
     small = dict(episode_length=16, image_size=(16, 16), d_model=32, num_layers=2,
                  num_heads=4, head_dim=8, device_type="cpu")
     cases = {
         "pipeline_stages": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
                                                       pipeline_stages=2),
-        "expert_axis": lambda: TransformerEncoder(32, 2, 4, 8, mesh=expert),
-        "experts_over_a_mesh": lambda: TransformerEncoder(32, 2, 4, 8, mesh=seq,
-                                                          num_experts=4),
         "decode_over_a_mesh": lambda: TransformerEncoder(32, 2, 4, 8, mesh=seq,
                                                          decode=True),
-        "trainer_expert_axis": lambda: Trainer(
-            TransformerBCModel(mesh=expert, **small), device="cpu", mesh=expert),
         "trainer_plan": lambda: Trainer(TransformerBCModel(mesh=seq, **small),
                                         device="cpu", mesh=seq, plan=object()),
-        "exporters_over_a_mesh": lambda: train_eval_model(
-            TransformerBCModel(mesh=seq, **small),
-            DefaultRandomInputGenerator(batch_size=4), model_dir=model_dir,
-            device="cpu", mesh=seq, create_exporters_fn=lambda m: []),
-        "continuous_eval_over_a_mesh": lambda: continuous_eval(
-            TransformerBCModel(mesh=seq, **small), model_dir,
-            DefaultRandomInputGenerator(batch_size=4), mesh=seq, device="cpu"),
-        "batch_norm_over_data_shards": lambda: Trainer(
-            MockT2RModel(), device="cpu", mesh=data).init_state(),
-        "random_preprocessing_over_data_shards": _noisy_step_over_data_shards,
-        "shard_by_host_over_a_mesh": lambda: train_eval_model(
-            TransformerBCModel(mesh=seq, **small),
-            DefaultRecordInputGenerator(file_patterns=f"{model_dir}/none-*",
-                                        batch_size=4, shard_by_host=True),
-            model_dir=model_dir, device="cpu", mesh=seq),
     }
     out = {}
     for name, fn in cases.items():
@@ -275,9 +221,9 @@ def unported_pins(model_dir: str) -> dict:
 
 
 def what_data_shards_train() -> dict:
-    """The control of the data-shard refusals: on a data mesh of 4 the
-    mock classifier without batch norm and with its NoOp preprocessor
-    takes a step. Returns the step's loss and the trainer's shard count."""
+    """On a data mesh of 4 the mock classifier without batch norm and
+    with its NoOp preprocessor takes a step. Returns the step's loss and
+    the trainer's shard count."""
     from tensor2robot_tpu_torch.train.infeed import to_device
     from tensor2robot_tpu_torch.train.train_eval import Trainer
     from tensor2robot_tpu_torch.utils.mocks import MockInputGenerator, MockT2RModel
@@ -302,3 +248,246 @@ def trainer_without_the_models_mesh() -> str:
     except ValueError as err:
         return str(err)
     return ""
+
+
+# -- global-batch training over data x fsdp shards, and experts ----------------------
+
+
+def _critic(model_kwargs: dict):
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom as Critic,
+    )
+
+    return Critic(device_type="cpu", **model_kwargs)
+
+
+def _struct(tree: dict):
+    from tensor2robot_tpu_torch.specs import TensorSpecStruct
+
+    return TensorSpecStruct({k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()})
+
+
+CRITIC_REGIMES = {
+    # regime: (Trainer kwargs, whether the norms are synchronized)
+    "plain": (dict(), True),
+    "remat": (dict(remat=True), True),
+    "grad_accum2": (dict(grad_accum_steps=2), True),
+    "unsynchronized": (dict(), False),
+}
+
+
+def critic_step(model_kwargs: dict, state: dict, features: dict, labels: dict,
+                regime: str, shape=(2, 2)):
+    """One critic backward on a data x fsdp mesh from preprocessed global
+    features: this rank's shard (in the regime's microbatches), the
+    trainer's regime, the gradients averaged by its bucket. Returns (loss,
+    {name: gradient}, {name: buffer after the step}). The control regime
+    "unsynchronized" points the norms at no mesh, so each shard
+    normalizes by its own moments."""
+    from tensor2robot_tpu_torch.layers import batch_norm
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    trainer_kwargs, synchronized = CRITIC_REGIMES[regime]
+    m = mesh(data=shape[0], sequence=1, fsdp=shape[1])
+    trainer = Trainer(_critic(model_kwargs), device="cpu", mesh=m, **trainer_kwargs)
+    network = trainer.init_state(
+        params={k: torch.from_numpy(v) for k, v in state.items()}).network
+    if not synchronized:
+        batch_norm.synchronize(network, None)
+    micro = trainer.grad_accum_steps
+    f = _struct(mesh_lib.shard_batch(features, m, micro))
+    l = _struct(mesh_lib.shard_batch(labels, m, micro))
+    network.train()
+    loss, metrics = trainer.backward(network, f, l)
+    loss, _ = trainer.average_over_ranks(network, loss, metrics)
+    return (float(loss), {n: p.grad.numpy() for n, p in network.named_parameters()},
+            {n: b.numpy() for n, b in network.named_buffers()})
+
+
+def critic_draws(model_kwargs: dict, batch: dict, step: int):
+    """This rank's train preprocessing of `batch` (the same on every
+    rank) at `step` on a 2 x 2 data x fsdp mesh: (its data x fsdp index,
+    the preprocessed image)."""
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    m = mesh(data=2, sequence=1, fsdp=2)
+    trainer = Trainer(_critic(model_kwargs), device="cpu", mesh=m)
+    features, _ = trainer.preprocess_train(to_device(batch, "cpu"),
+                                           trainer.step_generator(step))
+    return trainer.shard, features["state/image"].numpy()
+
+
+def shard_by_host_reads(pattern: str, model_kwargs: dict, batch_size: int):
+    """On a 2 data x 2 sequence mesh: the files this rank's shard_by_host
+    stream reads and its first batch's rewards (sequence ranks of one data
+    replica must read the same)."""
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.train.train_eval import shard_inputs
+
+    m = mesh(data=2, sequence=2)
+    generator = DefaultRecordInputGenerator(file_patterns=pattern, batch_size=batch_size,
+                                            shuffle_buffer_size=0, seed=3,
+                                            num_parse_workers=0, shard_by_host=True)
+    generator.set_specification_from_model(_critic(model_kwargs), "train")
+    shard_inputs([generator], m)
+    dataset = generator.create_record_dataset("train")
+    batch = next(iter(dataset))
+    return (mesh_lib.data_shard(m)[0], list(dataset._files[""]),
+            np.asarray(batch["labels/reward"]))
+
+
+def shard_by_host_too_few_files(pattern: str, model_kwargs: dict) -> str:
+    """shard_by_host over 4 data shards of a single file: JAX's error."""
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.train.train_eval import shard_inputs
+
+    generator = DefaultRecordInputGenerator(file_patterns=pattern, batch_size=4,
+                                            shard_by_host=True)
+    generator.set_specification_from_model(_critic(model_kwargs), "train")
+    shard_inputs([generator], mesh(data=4, sequence=1))
+    try:
+        generator.create_record_dataset("train")
+    except ValueError as err:
+        return str(err)
+    return ""
+
+
+def critic_train_eval(model_kwargs: dict, patterns: dict, model_dir: str, steps: int,
+                      batch_size: int):
+    """train_eval_model on a 2 x 2 data x fsdp mesh from shard_by_host
+    train records (the eval records, one file, are read whole and
+    sliced), with an exporter pair and StepTimingHook (rank 0 builds
+    them), then continuous_eval over the same mesh with an exporter.
+    Returns what this rank saw: its final evals and its timing rows."""
+    import functools
+
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRecordInputGenerator
+    from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
+    from tensor2robot_tpu_torch.export.exporters import (
+        LatestExporter,
+        create_default_exporters,
+    )
+    from tensor2robot_tpu_torch.hooks.profiling_hook_builder import StepTimingHookBuilder
+    from tensor2robot_tpu_torch.train.continuous_eval import continuous_eval
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    m = mesh(data=2, sequence=1, fsdp=2)
+
+    def records(split):
+        return DefaultRecordInputGenerator(file_patterns=patterns[split],
+                                           batch_size=batch_size, seed=5,
+                                           num_parse_workers=0,
+                                           shard_by_host=split == "train")
+
+    timing = StepTimingHookBuilder(sync_every=1)
+    final = train_eval_model(
+        _critic(model_kwargs), records("train"), records("eval"), model_dir=model_dir,
+        max_train_steps=steps, save_checkpoints_steps=steps, eval_steps=1,
+        log_every_steps=1, device="cpu", mesh=m, hook_builders=[timing],
+        create_exporters_fn=functools.partial(create_default_exporters,
+                                              warmup_batch_sizes=(1, 2)),
+    )
+    timed = getattr(timing, "hook", None)
+    evaluated = continuous_eval(
+        _critic(model_kwargs), model_dir, records("eval"), eval_steps=1,
+        max_train_steps=steps, timeout=5.0, poll_interval=0.1, mesh=m, device="cpu",
+        create_exporters_fn=lambda model: [LatestExporter(
+            name="continuous", export_generator=DefaultExportGenerator(),
+            export_program=False)],
+    )
+    return dict(final=final, evaluated=evaluated, rank=torch.distributed.get_rank(),
+                timed_rows=None if timed is None else len(timed.rows))
+
+
+def moe_step(shape, model_kwargs: dict, state: dict, batch: dict):
+    """One MoE BC backward on a data x expert mesh: this rank's data shard
+    through its resident experts. Returns (loss, aux, this rank's own
+    w_in/w_out gradients before the bucket, {name: averaged gradient},
+    its resident experts)."""
+    from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.ops import moe as moe_ops
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    m = mesh(data=shape[0], sequence=1, expert=shape[1])
+    model = TransformerBCModel(mesh=m, device_type="cpu", **model_kwargs)
+    trainer = Trainer(model, device="cpu", mesh=m)
+    network = trainer.init_state(
+        params={k: torch.from_numpy(v) for k, v in state.items()}).network
+    local = to_device(mesh_lib.shard_batch(batch, m), "cpu")
+    features, labels = trainer.preprocess_train(local)
+    network.train()
+    loss, metrics = trainer.backward(network, features, labels)
+    own = {n: p.grad.clone().numpy() for n, p in network.named_parameters()
+           if n.endswith(("moe.w_in", "moe.w_out"))}
+    loss, metrics = trainer.average_over_ranks(network, loss, metrics)
+    resident = moe_ops.resident_experts(model_kwargs["num_experts"], m)
+    return (float(loss), float(metrics["loss/moe_aux"]), own,
+            {n: p.grad.numpy() for n, p in network.named_parameters()},
+            (resident.start, resident.stop))
+
+
+def moe_forward_flops(model_kwargs: dict, batch: dict, expert: int) -> int:
+    """FLOPs of one MoEBlock forward over the batch's tokens on this rank
+    of a mesh with `expert` expert ranks (1: no mesh)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tensor2robot_tpu_torch.layers.moe import MoEBlock
+
+    m = None if expert == 1 else mesh(data=4 // expert, sequence=1, expert=expert)
+    d = model_kwargs["d_model"]
+    block = MoEBlock(d, model_kwargs["num_experts"], 4 * d, mesh=m)
+    block.init_own_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(batch)
+    with FlopCounterMode(display=False) as counter:
+        block(x)
+    return counter.get_total_flops()
+
+
+def moe_unported(model_kwargs: dict) -> dict:
+    """What experts over a mesh still refuse: a sequence dim (expert x
+    sequence, NotImplementedError naming A9) and an expert dim that does
+    not divide the experts (ValueError)."""
+    from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
+
+    cases = {
+        "expert_x_sequence": lambda: TransformerEncoder(
+            32, 2, 4, 8, mesh=mesh(data=1, sequence=2, expert=2), num_experts=4),
+        "experts_not_dividing": lambda: TransformerEncoder(
+            32, 2, 4, 8, mesh=mesh(data=1, sequence=1, expert=4), num_experts=2),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = ""
+        except (NotImplementedError, ValueError) as err:
+            out[name] = f"{type(err).__name__}: {err}"
+    return out
+
+
+def grasp2vec_step(model_kwargs: dict, state: dict, features: dict):
+    """One float64 Grasp2Vec backward on a 2 data x 2 sequence mesh (the
+    sequence ranks replicate): this rank's data shard through the towers,
+    their batch norms over both data shards, the n-pairs loss over the
+    gathered embeddings, the gradients averaged by the trainer's bucket.
+    Returns (loss, {name: gradient}, {name: buffer})."""
+    from tensor2robot_tpu_torch.research.grasp2vec import Grasp2VecModel
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    m = mesh(data=2, sequence=2)
+    model = Grasp2VecModel(mesh=m, device_type="cpu", **model_kwargs)
+    trainer = Trainer(model, device="cpu", mesh=m)
+    network = trainer.init_state(
+        params={k: torch.from_numpy(v) for k, v in state.items()}).network.double()
+    local = {k: torch.from_numpy(v).double()
+             for k, v in mesh_lib.shard_batch(features, m).items()}
+    network.train()
+    outputs, _ = model.inference_network_fn(network, local, "train")
+    loss, metrics = model.model_train_fn(local, None, outputs, "train")
+    loss.backward()
+    loss, _ = trainer.average_over_ranks(
+        network, loss.detach(), {k: v.detach() for k, v in metrics.items()})
+    return (float(loss), {n: p.grad.numpy() for n, p in network.named_parameters()},
+            {n: b.numpy() for n, b in network.named_buffers()})
