@@ -239,10 +239,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                 and forward from the same weights and batch on rank 0 (the
                 BC gate; 1e-4 abs + rel); B1, B3 and B4 must launch exactly
                 16, 4 and 12 times a rank a step (B2 4 times in Ulysses'
-                eval); then the synced step (median of 10), peak memory,
+                eval); then the synced step (median of 5), peak memory,
                 gloo-staged MB a step and rank 0's profiled step. Then train_eval_model on a
-                2 x 2 data x sequence mesh (10 steps, checkpoints at 5 and
-                10 from rank 0, exact launches) and its 10.pt served on one
+                2 x 2 data x sequence mesh (4 steps, checkpoints at 2 and
+                4 from rank 0, exact launches) and its 4.pt served on one
                 card by CheckpointPredictor within 1e-4 of the einsum
                 path. Then on the same ranks, parallel_critic: the
                 full-width f32 critic (batch 64) on a 2 data x 2 fsdp
@@ -265,8 +265,21 @@ Phases, each fatal on failure (exit code 1, no result line):
                 differ only under a top-2 margin of 1e-5 leave their
                 episodes out), B1, B3 and B4 exactly 4 times a rank a
                 step, the synced step (median of 5), peak GiB and staged
-                MB. The four processes share one card: no time here is a
-                multi-card speed.
+                MB. And parallel_pipe: the BC width with its encoder
+                pipelined (GPipe over the pipe dim, 2 blocks a stage) on a
+                2 data x 2 pipe mesh, 4 microbatches: loss and every
+                gradient (each stage's gathered from its ranks) and an
+                eval forward held to the BC gate against the single-device
+                flash step from the same weights and batch, B1, B3 and B4
+                exactly 8 times a rank a step (B2 8 times in its eval);
+                the synced step (median of 5), peak GiB and staged MB;
+                one step on a 2 sequence x 2 pipe mesh (the manual einsum
+                ring in every stage, no kernel) under the same gate; then
+                train_eval_model on 2 data x 2 pipe (2 steps, a checkpoint
+                with the stages stacked, a resume to 4) and the 4.pt
+                served on one card by CheckpointPredictor through B2
+                within 1e-4 of the einsum path. The four processes share
+                one card: no time here is a multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -4793,11 +4806,19 @@ PARALLEL_REGIMES = {
     "ulysses": ("ulysses", None, NUM_LAYERS),
     "ring_window300": ("ring", 300, NUM_LAYERS * 3),
 }
-PARALLEL_TIMED_STEPS = 10
+# Timed steps of each sequence regime and of the pipelined step (5 holds
+# the whole run near 750 s).
+PARALLEL_TIMED_STEPS = 5
 # train_eval_model on a 2 x 2 data x sequence mesh: steps, checkpoint
-# interval and eval batches.
-PARALLEL_TRAIN = dict(steps=10, save_every=5, eval_steps=1)
+# interval and eval batches (4 steps hold the whole run near 750 s).
+PARALLEL_TRAIN = dict(steps=4, save_every=2, eval_steps=1)
 PARALLEL_TIMEOUT = 600
+# Pipelined BC at the BC width: a 2 data x 2 pipe mesh (2 blocks a stage,
+# the default 4 microbatches of 1 episode a rank), the sequence x pipe
+# mesh of the ring-in-pipe step, and train_eval_model's first run (steps,
+# checkpoint interval, eval batches) before its resume to 2 x steps.
+PARALLEL_PIPE = dict(mesh=(2, 2), ring=(2, 2), train=dict(steps=2, save_every=2,
+                                                          eval_steps=1))
 # The ranks' device: the card, shared (a CPU rehearsal passes "cpu").
 PARALLEL_DEVICE = "cuda:0"
 # Per-rank state of a parallel-phase child: its meshes, one per shape.
@@ -4810,10 +4831,12 @@ def _parallel_spec() -> dict:
     return dict(device=PARALLEL_DEVICE, model=bc_model_kwargs(True),
                 batch=SLICE["batch"], layers=NUM_LAYERS, timed=PARALLEL_TIMED_STEPS,
                 regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN,
-                critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE))
+                critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE),
+                pipe=dict(PARALLEL_PIPE))
 
 
-def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1):
+def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
+                pipe: int = 1):
     """A rank's f32 settings (as main() sets them) and its mesh. On the
     CPU (a rehearsal) the kernels' plain versions count as their kernels
     would, so the launch checks run as on the card."""
@@ -4837,10 +4860,10 @@ def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int
                                                 "flash_fwd_tile")
         fa.flash_attention_bwd_plain = counted(fa.flash_attention_bwd_plain,
                                                "flash_bwd_dq", "flash_bwd_dkv")
-    key = (data, sequence, fsdp, expert)
+    key = (data, sequence, fsdp, expert, pipe)
     if key not in _RANK_MESHES:
         _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, fsdp=fsdp, sequence=sequence,
-                                               expert=expert)
+                                               expert=expert, pipe=pipe)
     return _RANK_MESHES[key]
 
 
@@ -4871,7 +4894,7 @@ def parallel_rank_regime(spec: dict, regime: str) -> dict:
     """On every rank (sequence = 4): one step's loss and every gradient,
     averaged over the ranks by the trainer's bucket, and one eval forward;
     rank 0 holds them against the single-device flash step and forward on
-    the same weights and batch. Then the synced step (median of 10), peak
+    the same weights and batch. Then the synced step (median of 5), peak
     memory and staged bytes a step. Returns the rank's numbers and the
     launches its main-path calls made."""
     import torch
@@ -4972,10 +4995,11 @@ def parallel_rank_regime(spec: dict, regime: str) -> dict:
 
 
 def _single_device_reference(kwargs, device, weights, batch, loss, grads,
-                             action) -> dict:
+                             action, rows=slice(None)) -> dict:
     """Rank 0: the single-device flash step and eval forward from the same
     weights and batch on the card, against the mesh's (the BC gate and
-    the served-action gate)."""
+    the served-action gate); the mesh's `action` holds the episodes
+    `rows` of the batch."""
     import torch
 
     from tensor2robot_tpu_torch.models.transformer_models import (
@@ -5006,7 +5030,8 @@ def _single_device_reference(kwargs, device, weights, batch, loss, grads,
     with torch.inference_mode():
         network.eval()
         features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
-        ref_action = model.packed_inference(network, features, "eval")[2]["inference_output"]
+        ref_action = model.packed_inference(
+            network, features, "eval")[2]["inference_output"][rows]
     eval_err = ((action - ref_action).abs() / (1 + ref_action.abs())).max().item()
     if not eval_err <= SERVE_TOL:
         raise AssertionError(f"mesh eval forward off the single-device one by {eval_err}")
@@ -5046,9 +5071,11 @@ def parallel_rank_train(spec: dict, model_dir: str) -> dict:
             "peak_gib": _peak_gib(spec["device"])}
 
 
-def _serve_mesh_checkpoint(model_dir: str) -> tuple:
-    """The 2 x 2 mesh's step-10 checkpoint served on one card by
-    CheckpointPredictor, against the same weights on the einsum path;
+def _serve_mesh_checkpoint(model_dir: str, want: list) -> tuple:
+    """A mesh run's newest checkpoint served on one card by
+    CheckpointPredictor (the single-device model; a pipelined run's
+    stacked stages load as its chain), against the same weights on the
+    einsum path, after checking the run left the checkpoints `want`;
     returns (what it found, the launches of the served batch)."""
     import numpy as np
 
@@ -5057,13 +5084,11 @@ def _serve_mesh_checkpoint(model_dir: str) -> tuple:
     from tensor2robot_tpu_torch.train import state as state_lib
 
     steps = state_lib.checkpoint_steps(model_dir)
-    want = list(range(PARALLEL_TRAIN["save_every"], PARALLEL_TRAIN["steps"] + 1,
-                      PARALLEL_TRAIN["save_every"]))
     if steps != want:
         raise AssertionError(f"mesh run checkpoints {steps} != {want}")
     predictor = CheckpointPredictor(full_width_model(True), checkpoint_dir=model_dir,
                                     device=DEVICE)
-    if not predictor.restore() or predictor.model_version != PARALLEL_TRAIN["steps"]:
+    if not predictor.restore() or predictor.model_version != want[-1]:
         raise AssertionError(f"restored version {predictor.model_version}")
     plain = CheckpointPredictor(full_width_model(False), device=DEVICE)
     trained = state_lib.load_checkpoint(model_dir)
@@ -5112,8 +5137,10 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 # §6 has the reckoning): the critic's single-device and mesh steps, the
 # control, 7 timed steps, 192 JPEG records, 4 steps with an eval and an
 # export, and continuous_eval; MoE's step, its single-device reference
-# and 7 steps.
-PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45}
+# and 7 steps; the pipelined step, its reference and 12 steps, the ring-
+# in-pipe step and its reference, 4 trainer steps with 2 evals, a
+# resume and a served checkpoint.
+PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60}
 
 
 @contextlib.contextmanager
@@ -5643,14 +5670,261 @@ def parallel_moe(world, spec: dict) -> dict:
         f"{PARALLEL_RECKONED_S['parallel_moe']} s)")
     return launches
 
+# -- parallel_pipe: the BC encoder pipelined over the pipe dim on the same ranks -----
+
+
+def _pipe_micro(local_batch: int, stages: int) -> int:
+    """The pipelined encoder's default microbatches (JAX's rule)."""
+    return max(d for d in range(1, min(local_batch, 2 * stages) + 1)
+               if local_batch % d == 0)
+
+
+def parallel_rank_pipe(spec: dict, sequence: bool) -> dict:
+    """On every rank of the 2 data x 2 pipe mesh (or, `sequence`, the
+    2 sequence x 2 pipe mesh): one pipelined BC step's loss and every
+    gradient (averaged by the trainer's bucket; each stage's gathered over
+    the pipe ranks and relabelled as the chain's) and an eval forward;
+    rank 0 holds them against the single-device flash step and forward on
+    the same weights and batch. Then, on data x pipe, the synced step
+    (median of PARALLEL_TIMED_STEPS), peak memory and staged bytes a
+    step, and rank 0's profiled step. Returns the rank's numbers and its
+    main-path launches."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import collectives
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.parallel import pipeline
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    device = spec["device"]
+    outer, stages = spec["pipe"]["ring" if sequence else "mesh"]
+    mesh = (_rank_setup(spec, 1, outer, pipe=stages) if sequence
+            else _rank_setup(spec, outer, 1, pipe=stages))
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerBCModel(mesh=mesh, pipeline_stages=stages, **spec["model"])
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    host = _bc_batch(model, spec["batch"], seed=0)
+    batch = to_device(mesh_lib.shard_batch(host, mesh), device)
+    shard, shards = mesh_lib.data_shard(mesh)
+    local = spec["batch"] // shards
+    # B1 = B3 = B4 a rank a step: blocks a stage x microbatches; the
+    # manual ring of sequence x pipe runs the einsum tiles (no kernel).
+    per_step = 0 if sequence else spec["layers"] // stages * _pipe_micro(local, stages)
+    want = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    rank = dist.get_rank()
+    out = {"rank": rank, "launches": {k: 0 for k in read_launches()},
+           "per_step": per_step}
+
+    def counted(fn):
+        reset_launches()
+        result = fn()
+        _sync(device)
+        for name, count in read_launches().items():
+            out["launches"][name] += count
+        return result, read_launches()
+
+    network = state.network
+    network.train()
+
+    def step():
+        features, labels = trainer.preprocess_train(batch)
+        loss, metrics = trainer.backward(network, features, labels)
+        return trainer.average_over_ranks(network, loss, metrics)[0]
+
+    loss, launches = counted(step)
+    if launches != want:
+        raise AssertionError(f"rank {rank} pipelined step launched {launches} != {want}")
+    grads = pipeline.unstack_stages({
+        n: (collectives.stack_over(p.grad, mesh, mesh_lib.PIPE_AXIS)
+            if trainer.stage_local(n) else p.grad.detach().clone())
+        for n, p in network.named_parameters()})
+    weights = trainer.checkpoint_state(state, optimizer=False)["params"]
+    network.zero_grad(set_to_none=True)
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        action, launches = counted(
+            lambda: model.packed_inference(network, features, "eval")[2]["inference_output"])
+    eval_want = {"flash_fwd": per_step, "flash_fwd_tile": 0, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
+    if launches != eval_want:
+        raise AssertionError(f"rank {rank} pipelined eval launched {launches} != {eval_want}")
+    if rank == 0:
+        out.update(_single_device_reference(
+            spec["model"], device, weights, to_device(host, device), loss, grads, action,
+            rows=slice(shard * local, (shard + 1) * local)))
+    del grads, weights, action
+    dist.barrier()
+    if sequence:
+        return out
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    times, staged = [], []
+    for i in range(2 + spec["timed"]):
+        collectives.reset_staged_bytes()
+        _sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: trainer.train_step(state, batch))
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+            staged.append(collectives.staged_bytes())
+        if launches != want:
+            raise AssertionError(f"rank {rank} pipelined train step launched {launches}")
+    out.update(
+        step_ms=sorted(times)[len(times) // 2], step_min=min(times),
+        step_max=max(times), peak_gib=_peak_gib(device),
+        staged_mb=sorted(staged)[len(staged) // 2] / 1e6,
+    )
+    # Where a pipelined step's time goes on the card: rank 0 (stage 0)
+    # profiles the second of two steps while the other ranks step.
+    if rank == 0 and device.startswith("cuda"):
+        counted(lambda: device_profile(
+            f"pipelined train step, rank 0 (stage 0) of {PARALLEL_RANKS} sharing the card",
+            lambda: trainer.train_step(state, batch), rows=8))
+    else:
+        counted(lambda: [trainer.train_step(state, batch) for _ in range(2)])
+    return out
+
+
+def parallel_rank_pipe_train(spec: dict, model_dir: str, steps: int) -> dict:
+    """On every rank: train_eval_model of pipelined BC on the 2 data x 2
+    pipe mesh up to `steps` (resuming from model_dir's newest checkpoint);
+    returns the final eval, the rank's launches and peak GiB."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    data, stages = spec["pipe"]["mesh"]
+    mesh = _rank_setup(spec, data, 1, pipe=stages)
+    model = TransformerBCModel(mesh=mesh, pipeline_stages=stages, **spec["model"])
+    train = spec["pipe"]["train"]
+    if spec["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final_eval = train_eval_model(
+        model,
+        DefaultRandomInputGenerator(batch_size=spec["batch"], seed=0),
+        DefaultRandomInputGenerator(batch_size=spec["batch"], seed=1000),
+        model_dir=model_dir, max_train_steps=steps,
+        save_checkpoints_steps=train["save_every"], eval_steps=train["eval_steps"],
+        log_every_steps=train["save_every"], device=spec["device"], mesh=mesh,
+    )
+    _sync(spec["device"])
+    return {"final_eval": final_eval, "launches": read_launches(),
+            "peak_gib": _peak_gib(spec["device"])}
+
+
+def parallel_pipe(world, spec: dict, model_dir: str) -> dict:
+    """Pipelined BC on the ranks: the 2 data x 2 pipe step and the
+    2 sequence x 2 pipe step against the single-device step, the synced
+    step, then train_eval_model with a stacked checkpoint and a resume,
+    served on one card. Returns the launches of every rank's main-path
+    calls."""
+    from tensor2robot_tpu_torch.train import state as state_lib
+
+    t0 = time.monotonic()
+    pipe = spec["pipe"]
+    launches = {name: 0 for name in read_launches()}
+
+    def add(counts) -> None:
+        for name, count in counts.items():
+            launches[name] += count
+
+    ranks = world.run(parallel_rank_pipe, spec, False, timeout_s=PARALLEL_TIMEOUT)
+    for r in ranks:
+        add(r["launches"])
+    head, per_step = ranks[0], ranks[0]["per_step"]
+    data, stages = pipe["mesh"]
+    micro = _pipe_micro(spec["batch"] // data, stages)
+    log(f"[parallel_pipe] BC pipelined over {stages} stages ({spec['layers'] // stages} "
+        f"blocks a stage, {micro} microbatches of {spec['batch'] // data // micro} "
+        f"episode(s)) on a {data} data x {stages} pipe mesh on {card_line()}: loss "
+        f"{head['loss']:.7f} vs one card {head['ref_loss']:.7f} (rel "
+        f"{head['loss_err']:.2e}); worst gradient {head['worst_name']} at "
+        f"{head['worst']:.2e} of its max; eval forward within {head['eval_err']:.2e}; "
+        f"B1/B3/B4 {per_step} each a rank a step (B2 {per_step} in its eval); synced "
+        f"step median {head['step_ms']:.3f} ms (min {head['step_min']:.3f}, max "
+        f"{head['step_max']:.3f}) over {spec['timed']} on rank 0, medians by rank "
+        f"{[round(r['step_ms'], 3) for r in ranks]}; peak GiB by rank "
+        f"{[round(r['peak_gib'], 3) for r in ranks]} (one card's step on an H100: "
+        f"6.082 GiB, PERF.md §5); gloo host-staged {head['staged_mb']:.3f} MB a "
+        f"step on rank 0, by rank {[round(r['staged_mb'], 3) for r in ranks]}")
+    ring = world.run(parallel_rank_pipe, spec, True, timeout_s=PARALLEL_TIMEOUT)
+    for r in ring:
+        add(r["launches"])
+    head = ring[0]
+    log(f"[parallel_pipe] ring in pipe: one step on a {pipe['ring'][0]} sequence x "
+        f"{pipe['ring'][1]} pipe mesh (the manual einsum ring in every stage) on "
+        f"{card_line()}: loss {head['loss']:.7f} vs one card {head['ref_loss']:.7f} (rel "
+        f"{head['loss_err']:.2e}); worst gradient {head['worst_name']} at "
+        f"{head['worst']:.2e} of its max; eval forward within {head['eval_err']:.2e}; "
+        f"no kernel launch")
+    train = pipe["train"]
+    steps = train["steps"]
+    evals = steps // train["save_every"]
+    want = {"flash_fwd": per_step * evals * train["eval_steps"],
+            "flash_fwd_tile": per_step * steps, "flash_bwd_dq": per_step * steps,
+            "flash_bwd_dkv": per_step * steps}
+    with tempfile.TemporaryDirectory(dir=model_dir) as run_dir:
+        t_train = time.monotonic()
+        runs = []
+        for last in (steps, 2 * steps):  # the second resumes from the first's checkpoint
+            runs.append(world.run(parallel_rank_pipe_train, spec, run_dir, last,
+                                  timeout_s=PARALLEL_TIMEOUT))
+            for r in runs[-1]:
+                if r["launches"] != want:
+                    raise AssertionError(f"pipelined train_eval_model to {last} launched "
+                                         f"{r['launches']} != {want}")
+                add(r["launches"])
+            finals = {round(r["final_eval"]["eval/mse"], 9) for r in runs[-1]}
+            if len(finals) != 1 or not all(math.isfinite(e) for e in finals):
+                raise AssertionError(f"ranks' final evals {finals}")
+            if last == steps:
+                stacked = state_lib.load_checkpoint(run_dir, steps)["params"]
+                qkv = stacked["encoder.pipe_stages.block_0.attention.qkv.weight"]
+                if qkv.shape[0] != stages or "encoder.block_0.attention.qkv.weight" in stacked:
+                    raise AssertionError(f"checkpoint stage layout {tuple(qkv.shape)}")
+        served, served_launches = _serve_mesh_checkpoint(
+            run_dir, list(range(train["save_every"], 2 * steps + 1, train["save_every"])))
+        add(served_launches)
+        log(f"[parallel_pipe] train_eval_model on the {data} x {stages} data x pipe mesh on "
+            f"{card_line()}: {steps} steps, then a resume to {2 * steps} (each run "
+            f"B1/B3/B4 {per_step * steps} a rank, B2 {want['flash_fwd']} in its eval); "
+            f"{steps}.pt holds the stages stacked ({tuple(qkv.shape)} qkv); final eval "
+            f"{runs[-1][0]['final_eval']} on every rank; {served}; peak GiB by rank "
+            f"{[round(r['peak_gib'], 3) for r in runs[-1]]}; "
+            f"{time.monotonic() - t_train:.1f}s")
+    log(f"[parallel_pipe] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_pipe']} s)")
+    return launches
+
 
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
     single-device step, then train_eval_model on a 2 x 2 mesh served from
-    one card; then on the same ranks the critic over data x fsdp and MoE
-    BC over data x expert (parallel_critic, parallel_moe). Returns the
-    launches of every rank's main-path calls."""
+    one card; then on the same ranks the critic over data x fsdp, MoE BC
+    over data x expert and BC pipelined over data x pipe
+    (parallel_critic, parallel_moe, parallel_pipe). Returns the launches
+    of every rank's main-path calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -5701,7 +5975,9 @@ def phase_parallel(model_dir: str) -> dict:
             evals = {round(r["final_eval"]["eval/mse"], 9) for r in ranks}
             if len(evals) != 1 or not all(math.isfinite(e) for e in evals):
                 raise AssertionError(f"ranks' final evals {evals}")
-            served, served_launches = _serve_mesh_checkpoint(run_dir)
+            served, served_launches = _serve_mesh_checkpoint(
+                run_dir, list(range(train["save_every"], train["steps"] + 1,
+                                    train["save_every"])))
             for name, count in served_launches.items():
                 launches[name] += count
             log(f"[parallel] train_eval_model on a 2 x 2 data x sequence mesh on "
@@ -5710,6 +5986,8 @@ def phase_parallel(model_dir: str) -> dict:
                 f"{[round(r['peak_gib'], 3) for r in ranks]}")
         parallel_critic(world, spec, model_dir)
         for name, count in parallel_moe(world, spec).items():
+            launches[name] += count
+        for name, count in parallel_pipe(world, spec, model_dir).items():
             launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
         f"{launches}")

@@ -44,15 +44,32 @@ Expert parallelism (`mesh` with an `expert` dim above 1): each block's
 MoE computes only this rank's resident experts (ops/moe.py has the rule);
 expert ranks share their batch and run everything else whole.
 
+Pipelining (`pipeline_stages` = S > 1 over a mesh whose `pipe` dim is S):
+the blocks split into S equal stages and pipe rank s holds only stage s's
+blocks, as the module `pipe_stages` (a `PipelineStage`: its `block_<b>`
+is the chain's block s * L/S + b). The batch streams through in
+`pipeline_microbatches` microbatches (parallel/pipeline.py's GPipe
+schedule); the positional table, ln_final and everything outside the
+encoder stay whole on every rank. Each stage's attention follows the
+single-device policy (use_flash: B1 forward and B3/B4 backward under
+autograd, B2 without), or, over a `sequence` dim above 1, the manual ring
+or Ulysses (`manual_sequence_size`, the einsum tiles, as JAX's manual
+entries): the local sequence is sliced before the pipeline and gathered
+after ln_final, as above. The state dict holds the stage's blocks under
+`pipe_stages.block_<b>`; `load_state_dict` also takes the stacked
+[S, ...] layout of the JAX tree and of the trainer's checkpoints (this
+rank's slice) and the chain's `block_<i>` (this stage's blocks), and a
+plain encoder takes the stacked layout as its chain (stage s's block b is
+block s * L/S + b), so a pipelined checkpoint serves on one card.
+
 Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
-A9: pipelining (`pipeline_stages > 1`), manual sequence parallelism inside
-a pipeline (`manual_sequence_size > 1`), a mesh whose model or pipe dim is
-above 1, experts under a sequence dim above 1 (layers/moe.py) and decoding
-with a mesh.
+A9: a mesh whose model dim is above 1, experts under a sequence dim
+above 1 (layers/moe.py) and decoding with a mesh.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -64,35 +81,45 @@ from tensor2robot_tpu_torch.layers.moe import MoEBlock
 from tensor2robot_tpu_torch.ops import flash_attention as flash_lib
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
-from tensor2robot_tpu_torch.parallel.ring_attention import ring_attention
-from tensor2robot_tpu_torch.parallel.ulysses_attention import ulysses_attention
+from tensor2robot_tpu_torch.parallel import pipeline
+from tensor2robot_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ring_attention_manual,
+)
+from tensor2robot_tpu_torch.parallel.ulysses_attention import (
+    ulysses_attention,
+    ulysses_attention_manual,
+)
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
-# sequence_parallel_mode -> the attention a sequence mesh runs.
+# sequence_parallel_mode -> the attention a sequence mesh runs, and the
+# manual entry a pipeline stage's blocks run (always the einsum tiles).
 SEQUENCE_PARALLEL = {"ring": ring_attention, "ulysses": ulysses_attention}
+MANUAL_SEQUENCE_PARALLEL = {"ring": ring_attention_manual,
+                            "ulysses": ulysses_attention_manual}
 
 
 def _check_mesh(
     mesh: Optional[object] = None,
     sequence_parallel_mode: str = "ring",
-    pipeline_stages: int = 1,
     manual_sequence_size: int = 1,
     decode: bool = False,
 ) -> None:
     """Eager checks of the parallel arguments: a mode typo fails on the
     laptop run (ValueError, as JAX), a mesh of the wrong type with a
-    TypeError, and the regimes not ported with NotImplementedError naming
+    TypeError, a manual sequence size that is not the mesh's with a
+    ValueError, and the regimes not ported with NotImplementedError naming
     ROADMAP.md A9."""
     if sequence_parallel_mode not in SEQUENCE_PARALLEL:
         raise ValueError(
             "sequence_parallel_mode must be 'ring' or 'ulysses', "
             f"got {sequence_parallel_mode!r}"
         )
-    if pipeline_stages > 1 or manual_sequence_size > 1:
-        raise NotImplementedError(
-            "pipelining (pipeline_stages > 1, manual_sequence_size > 1) is "
-            "not ported yet (ROADMAP.md A9)"
+    if manual_sequence_size > 1 and _sequence_size(mesh) != manual_sequence_size:
+        raise ValueError(
+            f"manual_sequence_size={manual_sequence_size} needs the mesh whose "
+            f"sequence dim it names (got {_sequence_size(mesh)})"
         )
     if mesh is None:
         return
@@ -101,6 +128,58 @@ def _check_mesh(
         raise NotImplementedError(
             "decoding over a mesh is not ported (ROADMAP.md A9): decode is "
             "single-device serving, build the decode network without a mesh"
+        )
+
+
+def _check_pipeline(
+    num_layers: int,
+    pipeline_stages: int,
+    num_experts: int,
+    mesh: Optional[object],
+    sequence_parallel_mode: str,
+    num_heads: int,
+    decode: bool,
+) -> None:
+    """JAX's composition rules of a pipelined encoder
+    (`_pipelined_blocks`), each with its ValueError, in its order."""
+    if pipeline_stages <= 1:
+        return
+    if decode:
+        raise ValueError("decode mode does not compose with pipelining")
+    if num_layers % pipeline_stages != 0:
+        raise ValueError(
+            f"num_layers={num_layers} not divisible by "
+            f"pipeline_stages={pipeline_stages}"
+        )
+    if num_experts > 1:
+        raise ValueError(
+            "pipeline_stages > 1 does not compose with MoE feed-"
+            "forwards (the router aux-loss channel does not cross the "
+            "pipeline schedule)"
+        )
+    if mesh is None:
+        raise ValueError("pipeline_stages > 1 requires a mesh")
+    shape = mesh_lib.mesh_shape(mesh)
+    if shape[mesh_lib.PIPE_AXIS] != pipeline_stages:
+        raise ValueError(
+            f"mesh pipe axis {shape[mesh_lib.PIPE_AXIS]} "
+            f"!= pipeline_stages={pipeline_stages}"
+        )
+    seq_size = shape[mesh_lib.SEQUENCE_AXIS]
+    if seq_size > 1 and sequence_parallel_mode not in SEQUENCE_PARALLEL:
+        raise ValueError(
+            "pipeline_stages > 1 composes with sequence parallelism "
+            "in ring or ulysses mode (the in-shard_map manual "
+            "strategies); got "
+            f"sequence_parallel_mode={sequence_parallel_mode!r}"
+        )
+    if (seq_size > 1 and sequence_parallel_mode == "ulysses"
+            and num_heads % seq_size != 0):
+        raise ValueError(
+            f"ulysses inside the pipeline needs num_heads="
+            f"{num_heads} divisible by the sequence axis size "
+            f"{seq_size} (each device owns whole heads after the "
+            "all_to_all scatter); use ring mode otherwise"
         )
 
 
@@ -151,6 +230,12 @@ class MultiHeadAttention(nn.Module):
     `sequence_parallel_mode="ulysses"`, each with its own use_flash policy
     (None = auto on the length it attends).
 
+    manual_sequence_size: above 1, x is this rank's sequence shard inside
+    a pipeline stage and attention is the manual entry of the mode over
+    the mesh's sequence dim (of that size), the einsum tiles whatever
+    use_flash says (JAX's `ring_attention_manual`,
+    `ulysses_attention_manual`).
+
     decode: one step per call against a K/V cache of `decode_max_len`
     slots, `kv_heads` wide (GQA expands heads only at attend time); see
     `_decode_step`.
@@ -169,9 +254,10 @@ class MultiHeadAttention(nn.Module):
         decode_max_len: int = 2048,
         mesh: Optional[object] = None,
         sequence_parallel_mode: str = "ring",
+        manual_sequence_size: int = 1,
     ):
         super().__init__()
-        _check_mesh(mesh, sequence_parallel_mode, decode=decode)
+        _check_mesh(mesh, sequence_parallel_mode, manual_sequence_size, decode=decode)
         kv_heads = num_kv_heads if num_kv_heads is not None else num_heads
         if num_heads % kv_heads != 0:
             raise ValueError(
@@ -188,6 +274,7 @@ class MultiHeadAttention(nn.Module):
         self.decode_max_len = decode_max_len
         self.mesh = mesh
         self.sequence_parallel_mode = sequence_parallel_mode
+        self.manual_sequence_size = manual_sequence_size
         inner = num_heads * head_dim
         self.qkv = nn.Linear(
             features, inner + 2 * kv_heads * head_dim, bias=False
@@ -228,6 +315,10 @@ class MultiHeadAttention(nn.Module):
             return self.out(out.reshape(batch, seq, inner))
         # The flash, ring and Ulysses paths take equal q/k/v head counts.
         k, v = self._expand_kv(k), self._expand_kv(v)
+        if self.manual_sequence_size > 1:
+            out = MANUAL_SEQUENCE_PARALLEL[self.sequence_parallel_mode](
+                q, k, v, mesh=self.mesh, causal=self.causal, window=self.window)
+            return self.out(out.reshape(batch, seq, inner))
         if _sequence_size(self.mesh) > 1:
             out = SEQUENCE_PARALLEL[self.sequence_parallel_mode](
                 q, k, v, self.mesh, causal=self.causal, use_flash=self.use_flash,
@@ -308,6 +399,7 @@ class TransformerBlock(nn.Module):
         decode_max_len: int = 2048,
         mesh: Optional[object] = None,
         sequence_parallel_mode: str = "ring",
+        manual_sequence_size: int = 1,
     ):
         super().__init__()
         self.attention = MultiHeadAttention(
@@ -315,6 +407,7 @@ class TransformerBlock(nn.Module):
             window=window, num_kv_heads=num_kv_heads, decode=decode,
             decode_max_len=decode_max_len, mesh=mesh,
             sequence_parallel_mode=sequence_parallel_mode,
+            manual_sequence_size=manual_sequence_size,
         )
         self.ln_attn = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
         self.ln_mlp = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
@@ -341,6 +434,53 @@ class TransformerBlock(nn.Module):
         return x + h, aux_loss
 
 
+class PipelineStage(nn.Module):
+    """The repeating unit of the pipelined encoder: a run of pre-norm
+    blocks `block_0..block_<n-1>`, each a remat segment. Attention inside
+    follows the single-device policy, or with `sequence_axis_size` > 1 the
+    manual ring or Ulysses (`sequence_parallel_mode`) over the mesh's
+    sequence dim: the stage then runs on this rank's sequence shard."""
+
+    def __init__(
+        self,
+        num_blocks: int,
+        features: int,
+        num_heads: int,
+        head_dim: int,
+        mlp_ratio: int = 4,
+        causal: bool = True,
+        use_flash: Optional[bool] = None,
+        window: Optional[int] = None,
+        num_kv_heads: Optional[int] = None,
+        mesh: Optional[object] = None,
+        sequence_axis_size: int = 1,
+        sequence_parallel_mode: str = "ring",
+    ):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(
+                f"block_{i}",
+                TransformerBlock(
+                    features, num_heads, head_dim, mlp_ratio=mlp_ratio,
+                    causal=causal, use_flash=use_flash, window=window,
+                    num_kv_heads=num_kv_heads,
+                    mesh=mesh if sequence_axis_size > 1 else None,
+                    sequence_parallel_mode=sequence_parallel_mode,
+                    manual_sequence_size=sequence_axis_size,
+                ),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_blocks):
+            x, _ = remat.segment(getattr(self, f"block_{i}"), x)
+        return x
+
+
+# A chain block's state entry, relative to the encoder: (index, the rest).
+_BLOCK_ENTRY = re.compile(r"^block_(\d+)\.(.+)$")
+
+
 class TransformerEncoder(nn.Module):
     """N pre-norm blocks with learned positional embeddings over
     [batch, seq, features]; final LayerNorm. Each block is a remat
@@ -354,6 +494,11 @@ class TransformerEncoder(nn.Module):
     mesh: with a `sequence` dim above 1 the blocks run on this rank's
     sequence shard and the output is all_gathered back (module
     docstring); `sequence_parallel_mode` picks ring or Ulysses.
+
+    pipeline_stages: above 1, this rank's stage of the blocks runs in the
+    GPipe schedule over the mesh's pipe dim (module docstring), in
+    `pipeline_microbatches` microbatches (None: the largest divisor of
+    the local batch up to 2 x pipeline_stages, JAX's default).
     """
 
     def __init__(
@@ -373,28 +518,87 @@ class TransformerEncoder(nn.Module):
         decode: bool = False,
         mesh: Optional[object] = None,
         pipeline_stages: int = 1,
+        pipeline_microbatches: Optional[int] = None,
         sequence_parallel_mode: str = "ring",
     ):
         super().__init__()
-        _check_mesh(mesh, sequence_parallel_mode, pipeline_stages, decode=decode)
+        _check_pipeline(num_layers, pipeline_stages, num_experts, mesh,
+                        sequence_parallel_mode, num_heads, decode)
+        _check_mesh(mesh, sequence_parallel_mode, decode=decode)
         self.max_seq_len = max_seq_len
         self.decode = decode
         self.mesh = mesh
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
         self.pos_embedding = nn.Parameter(torch.zeros(max_seq_len, features))
         self.num_layers = num_layers
-        for i in range(num_layers):
-            self.add_module(
-                f"block_{i}",
-                TransformerBlock(
-                    features, num_heads, head_dim, mlp_ratio=mlp_ratio,
-                    causal=causal, use_flash=use_flash, window=window,
-                    num_kv_heads=num_kv_heads, num_experts=num_experts,
-                    num_selected_experts=num_selected_experts, decode=decode,
-                    decode_max_len=max_seq_len, mesh=mesh,
-                    sequence_parallel_mode=sequence_parallel_mode,
-                ),
-            )
+        if pipeline_stages > 1:
+            # Only this rank's stage: pipelining exists to save the rest.
+            self.stage = collectives.axis_index(mesh, mesh_lib.PIPE_AXIS)
+            self.add_module(mesh_lib.PIPE_STAGES_KEY, PipelineStage(
+                num_layers // pipeline_stages, features, num_heads, head_dim,
+                mlp_ratio=mlp_ratio, causal=causal, use_flash=use_flash,
+                window=window, num_kv_heads=num_kv_heads, mesh=mesh,
+                sequence_axis_size=_sequence_size(mesh),
+                sequence_parallel_mode=sequence_parallel_mode,
+            ))
+            self._register_load_state_dict_pre_hook(self._stage_entries)
+        else:
+            for i in range(num_layers):
+                self.add_module(
+                    f"block_{i}",
+                    TransformerBlock(
+                        features, num_heads, head_dim, mlp_ratio=mlp_ratio,
+                        causal=causal, use_flash=use_flash, window=window,
+                        num_kv_heads=num_kv_heads, num_experts=num_experts,
+                        num_selected_experts=num_selected_experts, decode=decode,
+                        decode_max_len=max_seq_len, mesh=mesh,
+                        sequence_parallel_mode=sequence_parallel_mode,
+                    ),
+                )
+            self._register_load_state_dict_pre_hook(self._chain_entries)
         self.ln_final = nn.LayerNorm(features, eps=LAYER_NORM_EPS)
+
+    def _stage_entries(self, state_dict, prefix, *args) -> None:
+        """load_state_dict's pre-hook of a pipelined encoder: a stacked
+        [S, ...] stage entry becomes this rank's slice, and a chain entry
+        `block_<i>` of this stage's blocks its `pipe_stages.block_<b>`
+        (another stage's block is dropped: its rank loads it)."""
+        stage = getattr(self, mesh_lib.PIPE_STAGES_KEY)
+        own = {k: v.ndim for k, v in stage.state_dict().items()}
+        stage_prefix = f"{prefix}{mesh_lib.PIPE_STAGES_KEY}."
+        first = self.stage * stage.num_blocks
+        for key in list(state_dict):
+            if key.startswith(stage_prefix):
+                rest = key[len(stage_prefix):]
+                if rest in own and state_dict[key].ndim == own[rest] + 1:
+                    state_dict[key] = state_dict[key][self.stage]
+                continue
+            match = _BLOCK_ENTRY.match(key[len(prefix):]) if key.startswith(prefix) else None
+            if match is None or int(match[1]) >= self.num_layers:
+                continue
+            value = state_dict.pop(key)
+            if first <= int(match[1]) < first + stage.num_blocks:
+                state_dict[f"{stage_prefix}block_{int(match[1]) - first}.{match[2]}"] = value
+
+    def _chain_entries(self, state_dict, prefix, *args) -> None:
+        """load_state_dict's pre-hook of a plain encoder: the stacked stage
+        entries of a pipelined one (`pipe_stages.block_<b>.*`, [S, ...])
+        become the chain's blocks, stage s's block b as block s * L/S + b
+        (pipeline.unstack_stages)."""
+        stage_prefix = f"{prefix}{mesh_lib.PIPE_STAGES_KEY}.block_"
+        keys = [key for key in state_dict if key.startswith(stage_prefix)]
+        if not keys:
+            return
+        own = {k: v.ndim for k, v in self.block_0.state_dict().items()}
+        stacked = {}
+        for key in keys:
+            rest = key[len(stage_prefix):].partition(".")[2]
+            # Only the stacked layout; anything else is left unexpected.
+            if state_dict[key].ndim == own.get(rest, -1) + 1:
+                stacked[key[len(prefix):]] = state_dict.pop(key)
+        for key, value in pipeline.unstack_stages(stacked).items():
+            state_dict[prefix + key] = value
 
     def init_own_parameters(self, generator: torch.Generator) -> None:
         """flax's normal(0.02) initializer for the position table."""
@@ -434,6 +638,11 @@ class TransformerEncoder(nn.Module):
         shards = _sequence_size(self.mesh)
         if shards > 1:
             if seq % shards:
+                if self.pipeline_stages > 1:
+                    raise ValueError(
+                        f"sequence length {seq} not divisible by the "
+                        f"sequence axis size {shards}"
+                    )
                 raise ValueError(
                     f"sequence length {seq} must be divisible by the "
                     f"'sequence' axis size {shards}"
@@ -442,15 +651,48 @@ class TransformerEncoder(nn.Module):
             me = collectives.axis_index(self.mesh, mesh_lib.SEQUENCE_AXIS)
             x = x[:, me * block:(me + 1) * block]
         aux_losses = []
-        for i in range(self.num_layers):
-            block = getattr(self, f"block_{i}")
-            if self.decode:
-                x, aux_loss = block(x, cache.child(f"block_{i}"))
-            else:
-                x, aux_loss = remat.segment(block, x)
-            if aux_loss is not None:
-                aux_losses.append(aux_loss)
+        if self.pipeline_stages > 1:
+            x = self._pipelined_blocks(x)
+        else:
+            for i in range(self.num_layers):
+                block = getattr(self, f"block_{i}")
+                if self.decode:
+                    x, aux_loss = block(x, cache.child(f"block_{i}"))
+                else:
+                    x, aux_loss = remat.segment(block, x)
+                if aux_loss is not None:
+                    aux_losses.append(aux_loss)
         x = self.ln_final(x)
         if shards > 1:
             x = collectives.all_gather(x, self.mesh, mesh_lib.SEQUENCE_AXIS, axis=1)
         return x, aux_losses
+
+    def _pipelined_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's stage in the GPipe schedule over the pipe dim, on
+        its batch shard (and sequence shard)."""
+        shape = mesh_lib.mesh_shape(self.mesh)
+        batch_axes = tuple(a for a in (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS)
+                           if shape[a] > 1)
+        shards = shape[mesh_lib.DATA_AXIS] * shape[mesh_lib.FSDP_AXIS]
+        if self.pipeline_microbatches is not None:
+            micro = self.pipeline_microbatches
+            if (x.shape[0] * shards) % micro != 0:
+                raise ValueError(
+                    f"batch {x.shape[0] * shards} not divisible by "
+                    f"pipeline_microbatches={micro}"
+                )
+        else:
+            # JAX's default: the largest divisor of the shard's batch up to
+            # 2 x S (~33% bubble in JAX's schedule).
+            limit = x.shape[0]
+            micro = max(d for d in range(1, min(limit, 2 * self.pipeline_stages) + 1)
+                        if limit % d == 0)
+        stage = getattr(self, mesh_lib.PIPE_STAGES_KEY)
+        return pipeline.pipeline_apply(
+            lambda params, h: stage(h), list(stage.parameters()), x,
+            mesh=self.mesh, num_microbatches=micro,
+            batch_axis=(batch_axes[0] if len(batch_axes) == 1
+                        else batch_axes or None),
+            sequence_axis=(mesh_lib.SEQUENCE_AXIS
+                           if shape[mesh_lib.SEQUENCE_AXIS] > 1 else None),
+        )

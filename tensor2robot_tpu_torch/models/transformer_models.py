@@ -11,10 +11,17 @@ control step at a time from a KV cache (the decode network).
 With a `mesh` (parallel/mesh.py) whose `sequence` dim is above 1 the
 encoder runs sequence-parallel (`sequence_parallel_mode` "ring" or
 "ulysses"; layers/transformer.py), and with an `expert` dim above 1 each
-rank computes its resident experts (ops/moe.py). A mesh adds no
+rank computes its resident experts (ops/moe.py). Such a mesh adds no
 parameter: the state dict, and so the checkpoint, has the single-device
 layout, and `without_mesh()` is the model that exports and serves it.
-Decoding is always single-device.
+
+With `pipeline_stages` = S over a mesh whose `pipe` dim is S, the encoder
+runs as a GPipe pipeline (`pipeline_microbatches` microbatches;
+layers/transformer.py): each pipe rank's network holds one stage's blocks
+under `encoder.pipe_stages`, the trainer's checkpoint stacks them ([S,
+...], the JAX tree's layout), and `without_mesh()` is the
+`pipeline_stages=1` twin, whose network loads that checkpoint as the
+chain of blocks it computes. Decoding is always single-device.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from tensor2robot_tpu_torch.specs import (
     TensorSpecStruct,
     copy_tensorspec,
 )
-from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE
+from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _CONV_FILTERS = (32, 64)
 # Frames per remat segment of the per-frame conv embed, whose activations
@@ -82,6 +89,7 @@ class _TransformerBCNet(nn.Module):
         mesh: Optional[object] = None,
         use_flash: Optional[bool] = None,
         pipeline_stages: int = 1,
+        pipeline_microbatches: Optional[int] = None,
         attention_window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         decode: bool = False,
@@ -101,6 +109,7 @@ class _TransformerBCNet(nn.Module):
             window=attention_window, num_kv_heads=num_kv_heads,
             num_experts=num_experts, decode=decode, mesh=mesh,
             pipeline_stages=pipeline_stages,
+            pipeline_microbatches=pipeline_microbatches,
             sequence_parallel_mode=sequence_parallel_mode,
         )
         self.action_head = nn.Linear(d_model, action_size)
@@ -177,6 +186,7 @@ class TransformerBCModel(TorchT2RModel):
         mesh: Optional[object] = None,
         use_flash: Optional[bool] = None,
         pipeline_stages: int = 1,
+        pipeline_microbatches: Optional[int] = None,
         attention_window: Optional[int] = None,
         num_kv_heads: Optional[int] = None,
         sequence_parallel_mode: str = "ring",
@@ -195,6 +205,7 @@ class TransformerBCModel(TorchT2RModel):
             head_dim=head_dim, max_seq_len=max(episode_length, 8),
             num_experts=num_experts, mesh=mesh, use_flash=use_flash,
             pipeline_stages=pipeline_stages,
+            pipeline_microbatches=pipeline_microbatches,
             attention_window=attention_window, num_kv_heads=num_kv_heads,
             sequence_parallel_mode=sequence_parallel_mode,
         )
@@ -227,11 +238,23 @@ class TransformerBCModel(TorchT2RModel):
 
     def without_mesh(self) -> "TransformerBCModel":
         """This model with no mesh: the same network, single-device (its
-        state dict is the mesh network's)."""
+        state dict is the mesh network's; a pipelined model's twin has
+        pipeline_stages=1 and loads the stacked stages as its chain)."""
         clone = super().without_mesh()
         if clone is not self:
-            clone._net_kwargs = dict(self._net_kwargs, mesh=None)
+            clone._net_kwargs = dict(self._net_kwargs, mesh=None, pipeline_stages=1)
         return clone
+
+    def init_network(self, generator=None, device=DEFAULT_DEVICE) -> nn.Module:
+        """A pipelined network starts from its single-device twin's draw
+        (its stage of the same chain, on every pipe rank), so a pipelined
+        model and its twin start equal."""
+        if self._net_kwargs["pipeline_stages"] == 1:
+            return super().init_network(generator, device)
+        chain = self.without_mesh().init_network(generator, "cpu")
+        network = self.create_network()
+        network.load_state_dict(chain.state_dict())
+        return network.to(resolve_device(device))
 
     def create_network(self, decode: bool = False) -> nn.Module:
         kwargs = dict(self._net_kwargs)

@@ -1,16 +1,19 @@
-"""Parallelism over the device mesh: dims, collectives, sequence parallelism.
+"""Parallelism over the device mesh: dims, collectives, sequence
+parallelism, pipelining.
 
 Port of tensor2robot_tpu/parallel/, one process per rank (parallel/mesh.py).
 Six named mesh dims, as in the JAX package: data and fsdp (the batch),
-model, sequence (ring or Ulysses attention), pipe and expert. Ported: the
-mesh, the collectives, ring and Ulysses attention, and the trainer's
-data x fsdp x sequence x expert regime: global-batch steps over data x
-fsdp shards (synchronized batch-norm moments, per-shard draws,
-shard_by_host input, exporters, hooks and continuous eval on rank 0's
-single-device model) and experts computed by their resident expert rank.
-Still raising, naming ROADMAP.md A9: pipelining (the pipe dim), tensor
-parallelism (the model dim), experts under a sequence dim, sharded
-weights with the ZeRO-2 codecs, and the planner.
+model, sequence (ring or Ulysses attention), pipe (GPipe stages,
+parallel/pipeline.py) and expert. Ported: the mesh, the collectives, ring
+and Ulysses attention, the GPipe schedule, and the trainer's data x fsdp
+x sequence x pipe x expert regime: global-batch steps over data x fsdp
+shards (synchronized batch-norm moments, per-shard draws, shard_by_host
+input, exporters, hooks and continuous eval on rank 0's single-device
+model), experts computed by their resident expert rank, and a pipelined
+encoder's stages held by their pipe ranks (stacked in the checkpoint).
+Still raising, naming ROADMAP.md A9: tensor parallelism (the model dim),
+experts under a sequence dim, sharded weights with the ZeRO-2 codecs, and
+the planner.
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (
@@ -20,6 +23,7 @@ from tensor2robot_tpu_torch.parallel.mesh import (
     FSDP_AXIS,
     MODEL_AXIS,
     PIPE_AXIS,
+    PIPE_STAGES_KEY,
     SEQUENCE_AXIS,
     initialize_distributed,
     make_mesh,

@@ -15,6 +15,11 @@ differentiable with the rule JAX transposes it by:
 all_to_all, all_gather and psum_scatter are JAX's tiled forms (the only
 ones the JAX package calls).
 
+Two have no JAX spelling and no autograd rule, for code that runs its own
+schedule (parallel/pipeline.py) and for checkpoints: `broadcast` (one
+rank's tensor to every rank of the dim) and `stack_over` (every rank's
+tensor stacked on a new dim 0 in the dim's order).
+
 One collective has no JAX spelling: `psum_data_shards`, the sum over the
 data x fsdp ranks of the batch norms' moment sums, whose backward SUMS the
 cotangent over the same ranks (torch.nn.SyncBatchNorm's rule), where
@@ -55,12 +60,14 @@ __all__ = [
     "all_reduce_mean_flat",
     "all_to_all",
     "axis_index",
+    "broadcast",
     "pmean",
     "ppermute",
     "psum",
     "psum_data_shards",
     "psum_scatter",
     "reset_staged_bytes",
+    "stack_over",
     "staged_bytes",
     # not ported (ROADMAP.md A9): each raises
     "FlatShardLayout",
@@ -157,10 +164,10 @@ def _ppermute(x: torch.Tensor, dim: _Dim, perm: Tuple[Tuple[int, int], ...]) -> 
     me = dim.index
     if dest.get(me) == me and source.get(me) == me:
         return x.clone()
-    wire = dim.to_wire(x)
     ops: List[dist.P2POp] = []
     received = None
     if me in dest:
+        wire = dim.to_wire(x)
         ops.append(dist.P2POp(dist.isend, wire, dim.global_rank(dest[me]), dim.group))
     if me in source:
         received = dim.wire_buffer(x)
@@ -171,6 +178,19 @@ def _ppermute(x: torch.Tensor, dim: _Dim, perm: Tuple[Tuple[int, int], ...]) -> 
     if received is None:
         return torch.zeros_like(x)
     return dim.from_wire(received, x.device)
+
+
+def _broadcast(x: torch.Tensor, dim: _Dim, root: int) -> torch.Tensor:
+    """Rank `root`'s x on every rank of the dim (x gives the others its
+    shape and dtype); a new tensor, x is left as it was. Only the root
+    stages what it sends, only the others what they receive."""
+    if dim.index == root:
+        wire = dim.to_wire(x)
+        dist.broadcast(wire, src=dim.global_rank(root), group=dim.group)
+        return x.clone()
+    wire = dim.wire_buffer(x)
+    dist.broadcast(wire, src=dim.global_rank(root), group=dim.group)
+    return dim.from_wire(wire, x.device)
 
 
 def _all_to_all(x: torch.Tensor, dim: _Dim, split_axis: int, concat_axis: int) -> torch.Tensor:
@@ -358,21 +378,38 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
     return x if dim.size == 1 else _PSumScatter.apply(x, dim, scatter_dimension)
 
 
+def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, root: int) -> torch.Tensor:
+    """The dim's rank `root`'s x on every rank of the dim (every rank
+    passes a tensor of the same shape and dtype). No autograd rule: call
+    it on tensors that need none."""
+    dim = _Dim.of(mesh, axis_name)
+    return x if dim.size == 1 else _broadcast(x.detach(), dim, root)
+
+
+def stack_over(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+    """Every rank's x stacked on a new leading dim in the dim's order
+    ([size, *x.shape] on every rank). No autograd rule."""
+    dim = _Dim.of(mesh, axis_name)
+    x = x.detach()[None]
+    return x.clone() if dim.size == 1 else _all_gather(x, dim, 0)
+
+
 def axis_index(mesh: DeviceMesh, axis_name: str) -> int:
     """This rank's index along the dim."""
     return _Dim.of(mesh, axis_name).index
 
 
-def all_reduce_mean_flat(tensors: Sequence[torch.Tensor], group_size: int) -> List[torch.Tensor]:
-    """The mean over every rank of the world (`group_size` ranks) of each
-    tensor, as ONE flat all_reduce of their concatenation (the trainer's
-    gradient bucket)."""
-    if group_size == 1:
+def all_reduce_mean_flat(tensors: Sequence[torch.Tensor], group_size: int,
+                         group=None) -> List[torch.Tensor]:
+    """The mean over the `group_size` ranks of `group` (None: the world) of
+    each tensor, as ONE flat all_reduce of their concatenation (the
+    trainer's gradient bucket)."""
+    if group_size == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    world = _Dim.world()
+    world = _Dim.world() if group is None else _Dim(group, group_size, 0)
     wire = world.to_wire(flat)  # the bucket itself where nothing is staged
-    dist.all_reduce(wire)
+    dist.all_reduce(wire, group=world.group)
     flat = world.from_wire(wire, flat.device) / group_size
     out, offset = [], 0
     for t in tensors:

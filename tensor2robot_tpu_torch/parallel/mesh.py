@@ -16,10 +16,12 @@ buffers for gloo.
 
 What a mesh runs: the batch split over data x fsdp (parameters stay
 replicated, so fsdp is data parallelism here), the sequence dim's ring or
-Ulysses attention, and the expert dim's resident experts (ops/moe.py).
-The model and pipe dims (tensor parallelism, pipelining) and the parameter
-sharding rules (param_sharding, weight_update_sharding,
-pipe_stage_param_rule) are not ported: they raise naming ROADMAP.md A9.
+Ulysses attention, the pipe dim's GPipe stages (parallel/pipeline.py:
+each pipe rank holds one stage's blocks, the entries that
+`pipe_stage_param_rule` names) and the expert dim's resident experts
+(ops/moe.py). The model dim (tensor parallelism) and the sharding rules
+param_sharding and weight_update_sharding are not ported: they raise
+naming ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ SEQUENCE_AXIS = "sequence"
 PIPE_AXIS = "pipe"
 EXPERT_AXIS = "expert"
 AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQUENCE_AXIS, PIPE_AXIS, EXPERT_AXIS)
+
+#: The module name under which a pipelined encoder keeps its stage's blocks
+#: (layers/transformer.py), as the flax param key of the JAX package's
+#: stacked [S, ...] stage parameters: a state entry with this name among
+#: its components is stage-local (pipe_stage_param_rule).
+PIPE_STAGES_KEY = "pipe_stages"
 
 #: Seconds a collective may wait for its peers before it raises: a hung or
 #: dead rank fails the run instead of blocking it.
@@ -142,14 +150,13 @@ def mesh_shape(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
 
 
 def check_ported_dims(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
-    """mesh_shape(mesh), after refusing the dims not ported yet: a model or
-    pipe dim above 1 (tensor or pipeline parallelism) raises
-    NotImplementedError naming ROADMAP.md A9."""
+    """mesh_shape(mesh), after refusing the dim not ported yet: a model dim
+    above 1 (tensor parallelism) raises NotImplementedError naming
+    ROADMAP.md A9."""
     shape = mesh_shape(mesh)
-    wide = [axis for axis in (MODEL_AXIS, PIPE_AXIS) if shape[axis] > 1]
-    if wide:
+    if shape[MODEL_AXIS] > 1:
         raise NotImplementedError(
-            f"a mesh with {wide} above 1 (tensor or pipeline parallelism) is "
+            f"a mesh with ['{MODEL_AXIS}'] above 1 (tensor parallelism) is "
             "not ported yet (ROADMAP.md A9)"
         )
     return shape
@@ -194,6 +201,67 @@ def data_group(mesh: DeviceMesh):
                 mine = group
         cached = _DATA_GROUPS[id(mesh)] = (mesh, mine)
     return cached[1]
+
+
+def pipe_group(mesh: DeviceMesh):
+    """The process group of this rank's pipeline: the ranks that share
+    every coordinate but pipe, in stage order (the pipe dim's group, over
+    which activations and their cotangents travel). None for a pipe dim
+    of 1."""
+    if mesh_shape(mesh)[PIPE_AXIS] == 1:
+        return None
+    return mesh.get_group(PIPE_AXIS)
+
+
+# id(mesh) -> (the mesh, this rank's stage group): made once a mesh.
+_STAGE_GROUPS: Dict[int, Tuple[DeviceMesh, Any]] = {}
+
+
+def stage_group(mesh: DeviceMesh) -> Tuple[Any, int]:
+    """(the process group, its size) of the ranks that share this rank's
+    pipe coordinate: the replicas of its stage, over which a stage-local
+    gradient is averaged. The group is None (the world's default group)
+    for a pipe dim of 1. The first call for a mesh creates the groups
+    (dist.new_group), so every rank makes it, in the same order: the
+    trainer does when it is built."""
+    pipes = mesh_shape(mesh)[PIPE_AXIS]
+    size = dist.get_world_size() // pipes
+    if pipes == 1:
+        return None, size
+    cached = _STAGE_GROUPS.get(id(mesh))
+    if cached is None or cached[0] is not mesh:
+        me, mine = dist.get_rank(), None
+        ranks = mesh.mesh.movedim(AXES.index(PIPE_AXIS), 0).reshape(pipes, -1)
+        for stage_ranks in ranks.tolist():
+            group = dist.new_group(stage_ranks)
+            if me in stage_ranks:
+                mine = group
+        cached = _STAGE_GROUPS[id(mesh)] = (mesh, mine)
+    return cached[1], size
+
+
+def is_stage_entry(name: str) -> bool:
+    """Whether a state entry (a '.'-joined state-dict name, or a '/'-joined
+    flax path) lies under a pipelined module's stages."""
+    return PIPE_STAGES_KEY in name.replace("/", ".").split(".")
+
+
+def pipe_stage_param_rule(mesh: Optional[DeviceMesh], base_rule=None):
+    """The per-rank meaning of the JAX rule (which shards a stacked
+    [S, ...] leaf under PIPE_STAGES_KEY dim 0 over `pipe`): rule(name,
+    tensor) is PIPE_AXIS for a stage-local entry of a mesh whose pipe dim
+    is above 1 (this rank holds its own stage's slice of it), else
+    base_rule(name, tensor) (None: replicated, the entry is whole on every
+    rank). Parameters, their gradients, optimizer moments and the EMA share
+    the names, so one rule places them all."""
+    pipes = mesh_shape(mesh)[PIPE_AXIS]
+
+    def rule(name: str, tensor=None):
+        if pipes > 1 and is_stage_entry(name):
+            return PIPE_AXIS
+        return None if base_rule is None else base_rule(name, tensor)
+
+    return rule
 
 
 def shard_batch(batch, mesh: DeviceMesh, microbatches: int = 1):
@@ -243,4 +311,3 @@ def _unported(name: str):
 
 param_sharding = _unported("param_sharding")
 weight_update_sharding = _unported("weight_update_sharding")
-pipe_stage_param_rule = _unported("pipe_stage_param_rule")

@@ -16,7 +16,9 @@ loop: rank 0 picks each step and backs it up, and tells the others
 evaluates its shard of every eval batch and the totals are averaged over
 the ranks, as the trainer's evaluation does; rank 0 alone writes the
 metrics and runs the exporters, over the model without its mesh, while
-the others wait at a barrier.
+the others wait at a barrier. Over a pipe dim each rank restores its
+stage of the stacked checkpoint, and rank 0's exporters see the
+single-device twin holding the whole chain (Trainer.export_view).
 """
 
 from __future__ import annotations
@@ -104,9 +106,11 @@ def backup_checkpoint_for_eval(
 
 
 def restore_state_from_backup(backup_root: str, step: int, trainer: Trainer) -> TrainState:
-    """A TrainState restored from a backed-up checkpoint root."""
+    """A TrainState restored from a backed-up checkpoint root (this rank's
+    stage of it over a pipe dim)."""
     state = trainer.init_state()
-    state.restore(durability.load_durable(backup_root, step, map_location=trainer.device))
+    checkpoint = durability.load_durable(backup_root, step, map_location=trainer.device)
+    state.restore(trainer.local_checkpoint(checkpoint, state.network))
     return state
 
 
@@ -181,6 +185,9 @@ def continuous_eval(
                 trainer, state, eval_generators, eval_steps=eval_steps,
                 use_ema=use_ema_for_eval, step=step, writers=writers,
             )
+            if exporters and trainer.pipes > 1:
+                state = trainer.export_view(durability.load_durable(
+                    restore_root, step, map_location=trainer.device))
             for exporter in exporters:
                 exporter.maybe_export(
                     step=step, state=state, eval_metrics=metrics,

@@ -53,8 +53,8 @@ asked to export after every eval, with that eval's metrics, under
 `<model_dir>/export/<name>/`. Hooks (hooks/hook_builder.py) are called in
 the JAX package's order.
 
-The mesh (parallel/mesh.py: data x fsdp x sequence x expert; one process
-per rank, each running this trainer on its own shard): every rank feeds
+The mesh (parallel/mesh.py: data x fsdp x sequence x pipe x expert; one
+process per rank, each running this trainer on its own shard): every rank feeds
 its slice of the batch (infeed.shard_batches), the network runs
 sequence-parallel and with its resident experts where the model was built
 with the same mesh, and after the backward every gradient, with the
@@ -85,9 +85,24 @@ weight, is therefore one value per shard, where JAX's default step draws
 one for the global batch. Sequence and expert ranks share their batch and
 their draws.
 
-plan, shard_weight_update and flatten_optimizer_update, and a mesh with a
-model or pipe dim above 1, raise NotImplementedError naming ROADMAP.md
-item A9.
+Over a pipe dim above 1 (a model pipelined over it, layers/transformer.py)
+each pipe rank holds one stage's blocks, and with them their optimizer
+moments and EMA: the entries `mesh.pipe_stage_param_rule` names
+stage-local. The bucket averages a stage-local gradient only over the
+ranks that share the rank's pipe coordinate (`mesh.stage_group`; each
+holds its stage's whole gradient) and every other over all ranks (every
+pipe rank holds the same whole gradient: parallel/pipeline.py). The
+checkpoint stacks the stage-local entries over the pipe ranks ([S, ...],
+the JAX tree's `pipe_stages` layout; `Trainer.checkpoint_state`, a
+collective) and a resume gives each rank its stage back
+(`Trainer.local_checkpoint`). Rank 0's exporters and hooks see the
+single-device twin holding the whole chain (`Trainer.export_view`). Eval
+runs over the pipe mesh. Clipping by a global norm, which would span the
+stages, is refused over a pipe dim.
+
+plan, shard_weight_update and flatten_optimizer_update, a mesh with a
+model dim above 1, and clipping by a global norm over a pipe dim above 1
+raise NotImplementedError naming ROADMAP.md item A9.
 """
 
 from __future__ import annotations
@@ -115,6 +130,7 @@ from tensor2robot_tpu_torch.models.abstract_model import (
 from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.parallel import pipeline as pipeline_lib
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.train import durability, infeed
 from tensor2robot_tpu_torch.train import state as state_lib
@@ -140,18 +156,20 @@ def _reject_unported(plan=None, shard_weight_update=False,
 
 
 def _check_trainer_mesh(model, mesh) -> None:
-    """The trainer's mesh regimes: data x fsdp x sequence x expert, and a
-    model built with a mesh of the same sequence and expert sizes as the
-    trainer's (1 without one; the JAX trainer's
+    """The trainer's mesh regimes: data x fsdp x sequence x pipe x expert,
+    and a model built with a mesh of the same sequence, pipe and expert
+    sizes as the trainer's (1 without one; the JAX trainer's
     _validate_model_matches_plan: a mismatch would train silently without
-    sequence or expert parallelism, or run the model's collectives with no
-    gradient reduction), and of the same data x fsdp sizes where its loss
-    spans the batch (else each shard would take its own negatives)."""
+    sequence or expert parallelism or pipelining, or run the model's
+    collectives with no gradient reduction), and of the same data x fsdp
+    sizes where its loss spans the batch (else each shard would take its
+    own negatives)."""
     shape = mesh_lib.check_ported_dims(mesh)
     candidates = [model, getattr(model, "_model", None)]
     model_mesh = next((getattr(m, "_mesh") for m in candidates
                        if getattr(m, "_mesh", None) is not None), None)
     axes = [(mesh_lib.SEQUENCE_AXIS, "attention runs sequence-parallel"),
+            (mesh_lib.PIPE_AXIS, "its stages run as one pipeline"),
             (mesh_lib.EXPERT_AXIS, "each rank runs its resident experts")]
     if any(getattr(m, "loss_spans_the_batch", False) for m in candidates if m is not None):
         axes += [(axis, "its loss gathers every shard's examples")
@@ -296,6 +314,12 @@ class Trainer:
             (0, 1) if mesh is None else mesh_lib.data_shard(mesh))
         if self.data_shards > 1:
             mesh_lib.data_group(mesh)  # made here, on every rank together
+        self.pipes = mesh_lib.axis_size(mesh, mesh_lib.PIPE_AXIS)
+        # Which state entries are this rank's stage's (pipe dim above 1).
+        self.stage_local = mesh_lib.pipe_stage_param_rule(mesh)
+        if self.pipes > 1:
+            mesh_lib.stage_group(mesh)  # made here, on every rank together
+        self._twin_network: Optional[torch.nn.Module] = None
         self.is_chief = mesh is None or dist.get_rank() == 0
         self.device = resolve_device(device) if mesh is None else rank_device(device)
         self.seed = seed
@@ -327,6 +351,12 @@ class Trainer:
         batch_norm_lib.synchronize(network, self.mesh)
         ema = init_ema(network) if self.model.use_avg_model_params else None
         optimizer = self.optimizer_factory(network.parameters())
+        clipping = getattr(optimizer, "clipping", None)
+        if self.pipes > 1 and clipping is not None and clipping[0] is not None:
+            raise NotImplementedError(
+                "clipping by a global norm over pipeline stages is not ported "
+                "yet (ROADMAP.md A9): each pipe rank holds one stage's gradients"
+            )
         return TrainState(step=0, network=network, optimizer=optimizer,
                           ema_params=ema)
 
@@ -430,21 +460,96 @@ class Trainer:
 
     def average_over_ranks(self, network, loss, metrics):
         """pmean over every rank of each gradient and each scalar float
-        metric, in one flat all_reduce; returns the averaged loss and
+        metric, in one flat all_reduce (a stage-local gradient: over its
+        stage's ranks, in a second one); returns the averaged loss and
         metrics. A parameter without a gradient joins as zeros, so every
         rank's bucket has the same layout."""
-        params = [p for p in network.parameters() if p.requires_grad]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        named = [(n, p) for n, p in network.named_parameters() if p.requires_grad]
+        staged = [p for n, p in named if self.stage_local(n)]
+        params = [p for n, p in named if not self.stage_local(n)]
+
+        def grads(ps):
+            return [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+
         scalars = [k for k, v in metrics.items()
                    if v.ndim == 0 and v.is_floating_point()]
         values = [loss] + [metrics[k] for k in scalars]
-        averaged = collectives.all_reduce_mean_flat(grads + values, self.ranks)
+        averaged = collectives.all_reduce_mean_flat(grads(params) + values, self.ranks)
+        if staged:
+            group, size = mesh_lib.stage_group(self.mesh)
+            for p, g in zip(staged, collectives.all_reduce_mean_flat(
+                    grads(staged), size, group)):
+                p.grad = g
         for p, g in zip(params, averaged):
             p.grad = g
         metrics = dict(metrics)
         metrics.update(zip(scalars, averaged[len(params) + 1:]))
         return averaged[len(params)], metrics
+
+    def _stack_stages(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: collectives.stack_over(v, self.mesh, mesh_lib.PIPE_AXIS)
+                if self.stage_local(k) else v for k, v in tensors.items()}
+
+    def checkpoint_state(self, state: TrainState, optimizer: bool = True) -> Dict[str, Any]:
+        """{step, params, ema_params, optimizer} as the checkpoint holds
+        them: the network's state dict, the EMA and the optimizer's state
+        dict (None with optimizer=False). Over a pipe dim above 1 every
+        stage-local entry is stacked over the pipe ranks ([S, ...]): a
+        collective, which every rank calls."""
+        params = {k: v.detach() for k, v in state.network.state_dict().items()}
+        ema = state.ema_params
+        opt = state.optimizer.state_dict() if optimizer else None
+        if self.pipes > 1:
+            params = self._stack_stages(params)
+            ema = None if ema is None else self._stack_stages(ema)
+            if opt is not None:
+                names = [n for n, _ in state.network.named_parameters()]
+                opt = dict(opt, state={
+                    i: ({k: collectives.stack_over(v, self.mesh, mesh_lib.PIPE_AXIS)
+                         for k, v in opt["state"][i].items()}
+                        if self.stage_local(names[i]) else opt["state"][i])
+                    for i in sorted(opt["state"])})
+        return dict(step=state.step, params=params, ema_params=ema, optimizer=opt)
+
+    def local_checkpoint(self, checkpoint: Dict[str, Any],
+                         network: torch.nn.Module) -> Dict[str, Any]:
+        """A checkpoint as this rank's `network` restores it: over a pipe
+        dim above 1 each stacked stage-local entry is this rank's stage's
+        slice."""
+        if self.pipes == 1:
+            return checkpoint
+        stage = collectives.axis_index(self.mesh, mesh_lib.PIPE_AXIS)
+
+        def pick(tensors):
+            return None if tensors is None else {
+                k: v[stage] if self.stage_local(k) else v for k, v in tensors.items()}
+
+        out = dict(checkpoint, params=pick(checkpoint["params"]),
+                   ema_params=pick(checkpoint.get("ema_params")))
+        opt = checkpoint.get("optimizer")
+        if opt is not None:
+            names = [n for n, _ in network.named_parameters()]
+            out["optimizer"] = dict(opt, state={
+                i: ({k: v[stage] for k, v in entry.items()}
+                    if self.stage_local(names[i]) else entry)
+                for i, entry in opt["state"].items()})
+        return out
+
+    def export_view(self, checkpoint: Dict[str, Any]) -> TrainState:
+        """What rank 0's exporters and hooks see of a pipelined state: a
+        TrainState of the single-device twin (single_device) holding the
+        whole chain from a checkpoint_state (stacked stages relabelled as
+        its blocks), with no optimizer. Without a pipe dim there is
+        nothing to view: the caller passes the live state."""
+        if self._twin_network is None:
+            self._twin_network = self.single_device().model.create_network().to(self.device)
+        self._twin_network.load_state_dict(checkpoint["params"])
+        ema = checkpoint.get("ema_params")
+        if ema is not None:
+            ema = {k: v.to(self.device)
+                   for k, v in pipeline_lib.unstack_stages(ema).items()}
+        return TrainState(step=checkpoint["step"], network=self._twin_network,
+                          optimizer=None, ema_params=ema)
 
     def _eval_network(self, state: TrainState, use_ema: bool):
         if not use_ema or state.ema_params is None:
@@ -488,7 +593,7 @@ def restore_or_init_state(
     state = trainer.init_state(generator)
     checkpoint = durability.load_newest_durable(model_dir, map_location=trainer.device)
     if checkpoint is not None:
-        state.restore(checkpoint)
+        state.restore(trainer.local_checkpoint(checkpoint, state.network))
     return state
 
 
@@ -687,8 +792,19 @@ def train_eval_model(
             hooks.extend(builder.create_hooks(exporting.model, trainer=exporting))
         if create_exporters_fn is not None:
             exporters = create_exporters_fn(exporting.model)
+    # Over a pipe dim rank 0's hooks see the twin holding the whole chain,
+    # gathered whenever they run (a collective: every rank takes part).
+    hooked = trainer.pipes > 1 and bool(hook_builders)
+
+    def seen(checkpoint=None) -> TrainState:
+        if trainer.pipes == 1:
+            return state
+        if checkpoint is None:
+            checkpoint = trainer.checkpoint_state(state, optimizer=False)
+        return trainer.export_view(checkpoint) if chief else state
+
     ctx = HookContext(model=exporting.model, model_dir=model_dir, step=start_step,
-                      state=state)
+                      state=seen() if hooked else state)
     final_eval: Dict[str, float] = {}
     step = last_saved_step = last_log_step = start_step
     t_last = time.time()
@@ -704,21 +820,24 @@ def train_eval_model(
         return host
 
     def after_steps(metrics, logged: bool) -> None:
-        ctx.step, ctx.state, ctx.device_metrics = step, state, metrics
+        ctx.step, ctx.device_metrics = step, metrics
+        ctx.state = seen() if hooked else state
         ctx.metrics = log_metrics(metrics) if logged else None
         for hook in hooks:
             hook.after_step(ctx)
 
     def checkpoint_and_eval() -> Dict[str, float]:
         nonlocal last_saved_step
+        saved = trainer.checkpoint_state(state)
         if chief:
             state_lib.save_checkpoint(
-                model_dir, step, state.network.state_dict(), state.ema_params,
-                state.optimizer.state_dict(), keep_checkpoint_max,
+                model_dir, step, saved["params"], saved["ema_params"],
+                saved["optimizer"], keep_checkpoint_max,
             )
             durability.publish_durable(model_dir, step)
         _barrier(trainer)
         last_saved_step = step
+        ctx.state = seen(saved)
         ctx.checkpoint_path = state_lib.checkpoint_path(model_dir, step)
         for hook in hooks:
             hook.after_checkpoint_saved(ctx)
@@ -728,7 +847,7 @@ def train_eval_model(
         )
         for exporter in exporters:
             exporter.maybe_export(
-                step=step, state=state, eval_metrics=eval_metrics,
+                step=step, state=ctx.state, eval_metrics=eval_metrics,
                 compiled=exporting, model_dir=model_dir,
             )
         ctx.eval_metrics = eval_metrics

@@ -21,15 +21,27 @@ tree maps under `base.` by the rules above, the base's batch_stats under
 `base.` too, and each learned inner rate (a scalar at the flax path of the
 base parameter it steps) onto `inner_lrs.<that path>` of the port's
 MAMLNetwork. An optax Adam state over that tree maps the same way.
+
+A pipelined encoder's flax `pipe_stages` subtree holds every stage's
+blocks as [S, ...] leaves. `flax_params_to_state_dict` maps it three
+ways (`pipe_stage`): stacked, each stage's slice converted and stacked
+again (the trainer's checkpoint layout: `encoder.pipe_stages.block_<b>.*`
+[S, ...]); one rank's stage s (`pipe_stages.block_<b>.*` of stage s,
+what that pipe rank's network holds); or the chain (stage s's block b as
+`block_<s * L/S + b>`, the single-device twin's layout). And
+`state_dict_to_flax_params` maps a state dict back into the flax tree,
+stacked stages included.
 """
 
 from __future__ import annotations
 
 from collections import abc as cabc
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
+
+from tensor2robot_tpu_torch.parallel.mesh import PIPE_STAGES_KEY
 
 
 def _is_maml_tree(params: cabc.Mapping) -> bool:
@@ -46,10 +58,40 @@ def _flax_paths(node: cabc.Mapping, prefix: str = ""):
             yield path, value
 
 
-def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
+def _stage_slice(node: cabc.Mapping, stage: int):
+    return {k: _stage_slice(v, stage) if isinstance(v, cabc.Mapping)
+            else np.asarray(v)[stage] for k, v in node.items()}
+
+
+def _pipe_stages_entries(stages: cabc.Mapping, prefix: str,
+                         pipe_stage: Union[None, int, str]) -> Dict[str, torch.Tensor]:
+    """The state entries of a flax `pipe_stages` subtree under `prefix`
+    (module docstring's three layouts)."""
+    count = np.asarray(next(leaf for _, leaf in _flax_paths(stages))).shape[0]
+    per_stage = [flax_params_to_state_dict(_stage_slice(stages, s)) for s in range(count)]
+    head = f"{prefix}.{PIPE_STAGES_KEY}" if prefix else PIPE_STAGES_KEY
+    if pipe_stage is None:
+        return {f"{head}.{k}": torch.stack([p[k] for p in per_stage])
+                for k in per_stage[0]}
+    if pipe_stage != "chain":
+        return {f"{head}.{k}": v for k, v in per_stage[int(pipe_stage)].items()}
+    out = {}
+    for s, entries in enumerate(per_stage):
+        for key, value in entries.items():
+            block, rest = key.split(".", 1)
+            name = f"block_{s * len(stages) + int(block[len('block_'):])}.{rest}"
+            out[f"{prefix}.{name}" if prefix else name] = value
+    return out
+
+
+def flax_params_to_state_dict(
+    params: cabc.Mapping, pipe_stage: Union[None, int, str] = None,
+) -> Dict[str, torch.Tensor]:
     """`params` is the flax 'params' collection (not the variables dict
     around it), as nested mappings of numpy arrays; a MAML tree's
-    `inner_lrs` map by their flax paths."""
+    `inner_lrs` map by their flax paths; a `pipe_stages` subtree maps as
+    `pipe_stage` says (None: stacked, s: stage s, "chain": the chain of
+    blocks; module docstring)."""
     if _is_maml_tree(params):
         state = {f"base.{k}": v
                  for k, v in flax_params_to_state_dict(params["base"]).items()}
@@ -61,6 +103,9 @@ def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
     def walk(node: cabc.Mapping, prefix: str) -> None:
         for key, value in node.items():
             path = f"{prefix}.{key}" if prefix else key
+            if key == PIPE_STAGES_KEY and isinstance(value, cabc.Mapping):
+                state.update(_pipe_stages_entries(value, prefix, pipe_stage))
+                continue
             if isinstance(value, cabc.Mapping):
                 walk(value, path)
                 continue
@@ -86,6 +131,45 @@ def flax_params_to_state_dict(params: cabc.Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+def _to_flax_leaf(name: str, array: np.ndarray):
+    """(flax leaf name, array) of one state entry (the inverse of
+    flax_params_to_state_dict's rules)."""
+    if name != "weight":
+        return name, array
+    if array.ndim == 1:
+        return "scale", array
+    if array.ndim == 2:
+        return "kernel", array.T
+    if array.ndim == 3:
+        return "kernel", array.transpose(2, 1, 0)
+    if array.ndim == 4:
+        return "kernel", array.transpose(2, 3, 1, 0)
+    raise ValueError(f"weight of rank {array.ndim} has no flax layout rule")
+
+
+def state_dict_to_flax_params(state: cabc.Mapping) -> Dict:
+    """A state dict of parameters as the flax 'params' tree of numpy
+    arrays: Linear and Conv `weight` -> `kernel` (transposed), LayerNorm
+    `weight` -> `scale`, every other entry as is. Entries under
+    `pipe_stages` are taken as stacked ([S, ...], the trainer's checkpoint
+    layout) and become the flax tree's stacked leaves."""
+    tree: Dict = {}
+    for key, value in state.items():
+        array = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+                 else np.asarray(value))
+        *path, name = key.split(".")
+        if PIPE_STAGES_KEY in path:
+            pairs = [_to_flax_leaf(name, part) for part in array]
+            name, array = pairs[0][0], np.stack([a for _, a in pairs])
+        else:
+            name, array = _to_flax_leaf(name, array)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = array
+    return tree
 
 
 def flax_variables_to_state_dict(

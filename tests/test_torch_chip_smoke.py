@@ -421,8 +421,11 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     width (T = 16, 4 frames a rank; 4 heads of 8 so Ulysses splits them;
     a window of 6 truncates the ring to 3 of its 4 hops), then its
     sub-phases: the critic at 96x96 (num_convs (2, 2, 1), batch 8) on 2
-    data x 2 fsdp ranks, its train_eval_model run from 16 + 8 records, and
-    MoE BC at the same rehearsal width on 2 data x 2 expert ranks. The
+    data x 2 fsdp ranks, its train_eval_model run from 16 + 8 records,
+    MoE BC at the same rehearsal width on 2 data x 2 expert ranks, and BC
+    pipelined over 2 data x 2 pipe ranks (1 block a stage, 1 microbatch),
+    its ring-in-pipe step on 2 sequence x 2 pipe, its trainer run with a
+    stacked checkpoint and a resume. The
     ranks import chip_smoke afresh and take their sizes and device from
     the phase's spec, and count the plain versions' calls as launches
     themselves."""
@@ -441,27 +444,38 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "PARALLEL_MOE", dict(experts=4, mesh=(2, 2), timed=2))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
-    # 2 more steps; the 2 x 2 run's 10 steps and 2 evals of 2 hops x 2
-    # layers; the served batch's B2 in this process; and MoE's checked
-    # step and 2 + 2 timed steps, 2 layers each.
+    # 2 more steps; the 2 x 2 run's 4 steps and 2 evals of 2 hops x 2
+    # layers; the served batch's B2 in this process; MoE's checked step
+    # and 2 + 2 timed steps, 2 layers each; and the pipe's checked step,
+    # its eval (B2), 2 + 2 timed steps and 2 more, then two trainer runs
+    # of 2 steps and an eval each, 1 block x 1 microbatch a rank each
+    # time, and its served batch's B2 (2 layers) in this process.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
+    pipe = 4 * (1 + 4 + 2 + 2 * 2)
     assert launches == {
-        "flash_fwd": 4 * 2 + 2,
-        "flash_fwd_tile": 4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 12) + moe,
-        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 10) + moe,
-        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 10) + moe,
+        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2,
+        "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
+                           + moe + pipe),
+        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe,
+        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe,
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
                  "[parallel] ulysses (sequence 4", "[parallel] ring_window6 (sequence 4",
                  "worst gradient", "gloo host-staged 0.000 MB a step",
                  "[parallel] train_eval_model on a 2 x 2 data x sequence mesh",
-                 "10.pt served on one card by CheckpointPredictor",
+                 "4.pt served on one card by CheckpointPredictor",
                  "[parallel_critic] full-width f32 critic (96, 96), batch 8 on a 2 data x 2",
                  "control with per-shard moments", "(fails, as it must)",
                  "[parallel_critic] train_eval_model on the mesh",
                  "StepTimingHook on rank 0 only (1 rows",
                  "[parallel_moe] MoE BC (4 experts, k = 2, 2 resident a rank)",
-                 "B1/B3/B4 2 each a rank a step", "[parallel_moe] sub-phase"):
+                 "B1/B3/B4 2 each a rank a step", "[parallel_moe] sub-phase",
+                 "[parallel_pipe] BC pipelined over 2 stages (1 blocks a stage, 1 "
+                 "microbatches", "B1/B3/B4 1 each a rank a step (B2 1 in its eval)",
+                 "[parallel_pipe] ring in pipe: one step on a 2 sequence x 2 pipe mesh",
+                 "no kernel launch", "[parallel_pipe] train_eval_model on the 2 x 2",
+                 "2.pt holds the stages stacked ((2, ", "4.pt served on one card by "
+                 "CheckpointPredictor", "[parallel_pipe] sub-phase"):
         assert line in out, out

@@ -158,10 +158,15 @@ def test_make_mesh_errors_and_the_world_of_one():
 def test_mesh_type_and_unported_rules():
     with pytest.raises(TypeError, match="DeviceMesh"):
         mesh_lib.check_mesh(object())
-    for rule in (mesh_lib.param_sharding, mesh_lib.weight_update_sharding,
-                 mesh_lib.pipe_stage_param_rule):
+    for rule in (mesh_lib.param_sharding, mesh_lib.weight_update_sharding):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
             rule(None)
+    # pipe_stage_param_rule is ported: without a pipe dim above 1 nothing
+    # is stage-local (tests/test_torch_pipelined_bc.py holds it on a mesh).
+    rule = mesh_lib.pipe_stage_param_rule(None)
+    assert rule("encoder.pipe_stages.block_0.attention.qkv.weight") is None
+    assert mesh_lib.is_stage_entry("encoder/pipe_stages/block_0/attention/qkv/kernel")
+    assert not mesh_lib.is_stage_entry("encoder.block_0.attention.qkv.weight")
     for codec in (collectives.GradientCollective, collectives.FlatShardLayout,
                   collectives.available_collectives, collectives.get_collective,
                   collectives.register_collective, collectives.wire_summary):

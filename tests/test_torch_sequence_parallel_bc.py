@@ -158,13 +158,26 @@ def pins(world):
     return world.run(ranks.unported_pins)
 
 
-@pytest.mark.parametrize("case", ["pipeline_stages", "decode_over_a_mesh", "trainer_plan"])
+@pytest.mark.parametrize("case", ["model_dim", "decode_over_a_mesh", "trainer_plan",
+                                  "trainer_shard_weight_update"])
 def test_what_a_real_mesh_still_refuses_names_a9(pins, case):
-    """Part 2 of A9 still open (pipelining, the plan) and decoding over a
-    mesh raise on every rank of a real mesh, naming ROADMAP.md A9.
-    Experts under a sequence dim: tests/test_torch_expert_parallel.py."""
+    """What A9 still holds open (the model dim; the plan and
+    shard_weight_update, here on a pipe mesh) and decoding over a mesh
+    raise on every rank of a real mesh, naming ROADMAP.md A9. Experts
+    under a sequence dim: tests/test_torch_expert_parallel.py."""
     for rank_pins in pins:
+        assert rank_pins[case].startswith("NotImplementedError: ")
         assert "ROADMAP.md A9" in rank_pins[case]
+
+
+def test_pipelining_builds_on_a_real_mesh_and_refuses_moe(pins):
+    """Pipelining left the refusals (tests/test_torch_pipelined_bc.py
+    trains it): the encoder builds on a sequence x pipe mesh, and MoE
+    inside the pipeline raises JAX's ValueError."""
+    for rank_pins in pins:
+        assert rank_pins["pipeline_stages"] == ""
+        assert rank_pins["moe_in_a_pipeline"].startswith("ValueError: ")
+        assert "does not compose with MoE" in rank_pins["moe_in_a_pipeline"]
 
 
 def test_a_stateless_step_trains_over_data_shards(world):

@@ -137,7 +137,11 @@ class TestBlocks:
             # A mesh is ported (A9 part 1): an object that is not the
             # port's DeviceMesh raises TypeError naming the type it wants.
             (dict(mesh=object()), TypeError, r"torch\.distributed\.device_mesh\.DeviceMesh"),
-            (dict(pipeline_stages=2), NotImplementedError, "ROADMAP.md A9"),
+            # Pipelining is ported: a stack the stages do not divide
+            # raises JAX's ValueError (tests/test_torch_pipelined_bc.py
+            # pins the rest of its rules).
+            (dict(pipeline_stages=2), ValueError,
+             "num_layers=1 not divisible by pipeline_stages=2"),
             (dict(sequence_parallel_mode="rign"), ValueError, "'ring' or 'ulysses'"),
         ],
         ids=["mesh", "pipeline", "mode_typo"],

@@ -191,32 +191,45 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
 
 
 def unported_pins() -> dict:
-    """What a real mesh still refuses (ROADMAP.md A9: pipelining, the
-    plan, decoding over a mesh): each case's NotImplementedError message
-    ("" when nothing was raised)."""
+    """What a real mesh still refuses, each case's error as "<type>:
+    <message>" ("" when nothing was raised): a model dim, the plan and
+    shard_weight_update on a pipe mesh and decoding over a mesh
+    (NotImplementedError naming ROADMAP.md A9), MoE inside a pipeline
+    (JAX's ValueError). The pipelined encoder itself now builds
+    ("pipeline_stages")."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
     from tensor2robot_tpu_torch.train.train_eval import Trainer
 
     pipe = mesh_lib.make_mesh(sequence=2, pipe=2)
+    model_dim = mesh_lib.make_mesh(model=2, pipe=2)
     seq = mesh(1, 4)
     small = dict(episode_length=16, image_size=(16, 16), d_model=32, num_layers=2,
                  num_heads=4, head_dim=8, device_type="cpu")
+
+    def piped():
+        return TransformerBCModel(mesh=pipe, pipeline_stages=2, **small)
+
     cases = {
         "pipeline_stages": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
                                                       pipeline_stages=2),
+        "model_dim": lambda: TransformerEncoder(32, 2, 4, 8, mesh=model_dim,
+                                                pipeline_stages=2),
         "decode_over_a_mesh": lambda: TransformerEncoder(32, 2, 4, 8, mesh=seq,
                                                          decode=True),
-        "trainer_plan": lambda: Trainer(TransformerBCModel(mesh=seq, **small),
-                                        device="cpu", mesh=seq, plan=object()),
+        "trainer_plan": lambda: Trainer(piped(), device="cpu", mesh=pipe, plan=object()),
+        "trainer_shard_weight_update": lambda: Trainer(
+            piped(), device="cpu", mesh=pipe, shard_weight_update=True),
+        "moe_in_a_pipeline": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
+                                                        pipeline_stages=2, num_experts=4),
     }
     out = {}
     for name, fn in cases.items():
         try:
             fn()
             out[name] = ""
-        except NotImplementedError as err:
-            out[name] = str(err)
+        except (NotImplementedError, ValueError) as err:
+            out[name] = f"{type(err).__name__}: {err}"
     return out
 
 
@@ -491,3 +504,255 @@ def grasp2vec_step(model_kwargs: dict, state: dict, features: dict):
         network, loss.detach(), {k: v.detach() for k, v in metrics.items()})
     return (float(loss), {n: p.grad.numpy() for n, p in network.named_parameters()},
             {n: b.numpy() for n, b in network.named_buffers()})
+
+
+# -- GPipe pipelining over the pipe dim ----------------------------------------------
+
+
+def _dense_tanh(params, x):
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def pipeline_case(data: int, pipe: int, micro: int, stacked: dict, x, g):
+    """pipeline_apply of the dense + tanh stage on a data x pipe mesh:
+    this rank's data shard of x through its stage of `stacked`, then the
+    backward of <out, g's shard>. Returns (data shard, pipe index, out,
+    dx, {name: this rank's stage gradient}, the point-to-point calls)."""
+    from tensor2robot_tpu_torch.parallel import pipeline
+
+    m = mesh_lib.make_mesh(data=data, pipe=pipe)
+    calls = _count_pipeline_transfers()
+    stages = [{k: torch.from_numpy(v[s]) for k, v in stacked.items()} for s in range(pipe)]
+    local = pipeline.stage_sharding(m, pipeline.stack_stage_params(stages))
+    for leaf in local.values():
+        leaf.requires_grad_(True)
+    shard = collectives.axis_index(m, mesh_lib.DATA_AXIS)
+    xs = torch.tensor(_chunk(x, shard, data), requires_grad=True)
+    out = pipeline.pipeline_apply(_dense_tanh, local, xs, mesh=m, num_microbatches=micro,
+                                  batch_axis=mesh_lib.DATA_AXIS if data > 1 else None)
+    out.backward(torch.from_numpy(_chunk(g, shard, data)))
+    return (shard, collectives.axis_index(m, mesh_lib.PIPE_AXIS), out.detach().numpy(),
+            xs.grad.numpy(), {k: v.grad.numpy() for k, v in local.items()}, calls[0])
+
+
+def _count_pipeline_transfers():
+    """Counts, in this rank, the ppermutes and broadcasts the pipeline
+    issues from now on (a list of one count)."""
+    from tensor2robot_tpu_torch.parallel import pipeline
+
+    calls = [0]
+    for name in ("ppermute", "broadcast"):
+        fn = getattr(collectives, name)
+        if hasattr(fn, "counted"):
+            fn = fn.counted
+
+        def counted(*args, _fn=fn, **kwargs):
+            calls[0] += 1
+            return _fn(*args, **kwargs)
+
+        counted.counted = fn
+        setattr(pipeline.collectives, name, counted)
+    return calls
+
+
+def pipeline_not_divisible() -> str:
+    """A batch of 10 in 3 microbatches on a pipe dim of 4: the ValueError."""
+    from tensor2robot_tpu_torch.parallel import pipeline
+
+    m = mesh_lib.make_mesh(pipe=4)
+    local = {"w": torch.zeros(4, 4), "b": torch.zeros(4)}
+    try:
+        pipeline.pipeline_apply(_dense_tanh, local, torch.ones(10, 4), mesh=m,
+                                num_microbatches=3)
+    except ValueError as err:
+        return str(err)
+    return ""
+
+
+_PLAIN_COUNTED = []
+
+
+def _count_plain_versions() -> None:
+    """The kernels' plain versions count their launches as the kernels
+    would on the card (chip_smoke.py's `_rank_setup` does the same), once
+    a rank process."""
+    from tensor2robot_tpu_torch.ops import flash_attention as fa
+
+    if _PLAIN_COUNTED:
+        return
+
+    def counted(fn, *kernels):
+        def run(*args, **kwargs):
+            for kernel in kernels:
+                fa.KERNELS[kernel].launches += 1
+            return fn(*args, **kwargs)
+        return run
+
+    fa.flash_attention_plain = counted(fa.flash_attention_plain, "flash_fwd")
+    fa.flash_attention_tile_plain = counted(fa.flash_attention_tile_plain, "flash_fwd_tile")
+    fa.flash_attention_bwd_plain = counted(fa.flash_attention_bwd_plain,
+                                           "flash_bwd_dq", "flash_bwd_dkv")
+    _PLAIN_COUNTED.append(True)
+
+
+def _launches() -> dict:
+    from tensor2robot_tpu_torch.ops import flash_attention as fa
+
+    return {name: kernel.launches for name, kernel in fa.KERNELS.items()}
+
+
+def _reset_launches() -> None:
+    from tensor2robot_tpu_torch.ops import flash_attention as fa
+
+    for kernel in fa.KERNELS.values():
+        kernel.launches = 0
+
+
+def _pipe_mesh(shape):
+    data, sequence, pipe = shape
+    key = ("pipe",) + tuple(shape)
+    if key not in _MESHES:
+        _MESHES[key] = mesh_lib.make_mesh(data=data, sequence=sequence, pipe=pipe)
+    return _MESHES[key]
+
+
+def pipelined_bc_step(shape, model_kwargs: dict, state: dict, batch: dict,
+                      trainer_kwargs: dict):
+    """One pipelined BC backward on a data x sequence x pipe mesh: this
+    rank's share of the batch (in the regime's global microbatches)
+    through its stage, the gradients averaged by the trainer's bucket.
+    Returns (loss, this rank's pipe index, {name: gradient}, the
+    launches of the step)."""
+    from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    _count_plain_versions()
+    m = _pipe_mesh(shape)
+    model = TransformerBCModel(mesh=m, pipeline_stages=shape[2], device_type="cpu",
+                               **model_kwargs)
+    trainer = Trainer(model, device="cpu", mesh=m, **trainer_kwargs)
+    network = trainer.init_state(
+        params={k: torch.from_numpy(v) for k, v in state.items()}).network
+    local = to_device(mesh_lib.shard_batch(batch, m, trainer.grad_accum_steps), "cpu")
+    features, labels = trainer.preprocess_train(local)
+    network.train()
+    _reset_launches()
+    loss, metrics = trainer.backward(network, features, labels)
+    loss, _ = trainer.average_over_ranks(network, loss, metrics)
+    return (float(loss), collectives.axis_index(m, mesh_lib.PIPE_AXIS),
+            {n: p.grad.numpy() for n, p in network.named_parameters()}, _launches())
+
+
+def pipelined_bc_checkpoint(model_kwargs: dict, state: dict, batch: dict, model_dir: str):
+    """One train step of pipelined BC on 2 data x 2 pipe from `state`,
+    then the checkpoint as the trainer writes it (rank 0; stacked stages)
+    with its durability manifest. Returns the step's loss and the names
+    of this rank's network."""
+    from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.train import durability
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    m = _pipe_mesh((2, 1, 2))
+    model = TransformerBCModel(mesh=m, pipeline_stages=2, device_type="cpu", **model_kwargs)
+    trainer = Trainer(model, device="cpu", mesh=m)
+    train_state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in state.items()})
+    metrics = trainer.train_step(train_state,
+                                 to_device(mesh_lib.shard_batch(batch, m), "cpu"))
+    saved = trainer.checkpoint_state(train_state)
+    if torch.distributed.get_rank() == 0:
+        state_lib.save_checkpoint(model_dir, saved["step"], saved["params"],
+                                  saved["ema_params"], saved["optimizer"])
+        durability.publish_durable(model_dir, saved["step"])
+    torch.distributed.barrier()
+    return float(metrics["loss"]), sorted(train_state.network.state_dict())
+
+
+def pipeline_config_errors(features: int) -> dict:
+    """JAX's ValueErrors of the pipelined encoder's composition rules, as
+    each rank raises them: {case: message} ("" when nothing raised)."""
+    from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
+
+    pipe = _pipe_mesh((2, 1, 2))
+    seq_pipe = _pipe_mesh((1, 2, 2))
+    cases = {
+        "layers_not_divisible": lambda: TransformerEncoder(
+            features, 3, 2, 8, mesh=pipe, pipeline_stages=2),
+        "moe": lambda: TransformerEncoder(features, 4, 2, 8, mesh=pipe, pipeline_stages=2,
+                                          num_experts=4),
+        "no_mesh": lambda: TransformerEncoder(features, 4, 2, 8, pipeline_stages=2),
+        "pipe_size": lambda: TransformerEncoder(features, 4, 2, 8, mesh=pipe,
+                                                pipeline_stages=4),
+        "mode": lambda: TransformerEncoder(features, 4, 2, 8, mesh=seq_pipe,
+                                           pipeline_stages=2,
+                                           sequence_parallel_mode="bogus"),
+        "ulysses_heads": lambda: TransformerEncoder(features, 4, 3, 8, mesh=seq_pipe,
+                                                    pipeline_stages=2,
+                                                    sequence_parallel_mode="ulysses"),
+        "sequence": lambda: TransformerEncoder(features, 4, 2, 8, mesh=seq_pipe,
+                                               pipeline_stages=2)(
+            torch.zeros(2, 7, features)),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = ""
+        except ValueError as err:
+            out[name] = str(err)
+    return out
+
+
+def pipelined_bc_train_eval(model_kwargs: dict, model_dir: str, steps: int):
+    """train_eval_model of pipelined BC on 2 data x 2 pipe with a
+    LatestExporter (no program) and StepTimingHook on rank 0, then
+    continuous_eval over the same mesh with an exporter. Returns this
+    rank's final eval, continuous eval and the hook's timing rows."""
+    from tensor2robot_tpu_torch.data.input_generators import DefaultRandomInputGenerator
+    from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
+    from tensor2robot_tpu_torch.export.exporters import LatestExporter
+    from tensor2robot_tpu_torch.hooks.profiling_hook_builder import StepTimingHookBuilder
+    from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.train.continuous_eval import continuous_eval
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    m = _pipe_mesh((2, 1, 2))
+
+    def model():
+        return TransformerBCModel(mesh=m, pipeline_stages=2, device_type="cpu",
+                                  use_avg_model_params=True, **model_kwargs)
+
+    def exporters(name):
+        return lambda exporting: [LatestExporter(
+            name=name, export_generator=DefaultExportGenerator(), export_program=False)]
+
+    timing = StepTimingHookBuilder(sync_every=1)
+    final = train_eval_model(
+        model(), DefaultRandomInputGenerator(batch_size=4, seed=0),
+        DefaultRandomInputGenerator(batch_size=4, seed=1000), model_dir=model_dir,
+        max_train_steps=steps, save_checkpoints_steps=steps, eval_steps=1,
+        log_every_steps=1, device="cpu", mesh=m, hook_builders=[timing],
+        create_exporters_fn=exporters("latest"))
+    evaluated = continuous_eval(
+        model(), model_dir, DefaultRandomInputGenerator(batch_size=4, seed=1000),
+        eval_steps=1, max_train_steps=steps, timeout=5.0, poll_interval=0.1, mesh=m,
+        device="cpu", create_exporters_fn=exporters("continuous"))
+    timed = getattr(timing, "hook", None)
+    return dict(final=final, evaluated=evaluated,
+                timed_rows=None if timed is None else len(timed.rows))
+
+
+def pipe_groups(shape) -> dict:
+    """This rank's pipe chain (mesh.pipe_group) and stage replicas
+    (mesh.stage_group) on a data x sequence x pipe mesh, as global ranks,
+    with its coordinates."""
+    import torch.distributed as dist
+
+    m = _pipe_mesh(shape)
+    group, size = mesh_lib.stage_group(m)
+    return dict(rank=dist.get_rank(),
+                pipe=collectives.axis_index(m, mesh_lib.PIPE_AXIS),
+                chain=dist.get_process_group_ranks(mesh_lib.pipe_group(m)),
+                replicas=dist.get_process_group_ranks(group), size=size)
