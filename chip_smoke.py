@@ -278,8 +278,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                 train_eval_model on 2 data x 2 pipe (2 steps, a checkpoint
                 with the stages stacked, a resume to 4) and the 4.pt
                 served on one card by CheckpointPredictor through B2
-                within 1e-4 of the einsum path. The four processes share
-                one card: no time here is a multi-card speed.
+                within 1e-4 of the einsum path. And parallel_zero2: the
+                BC width on a 4-rank data mesh (global batch 8, block
+                512): a replicated step, then each ZeRO-2 codec (none,
+                fp16, int8, fp8_e4m3, fp8_e5m2) for 5 synced steps from
+                the same weights; none's first step against the
+                replicated one (loss 1e-5 rel, the gradients under the
+                BC gate, every parameter within 1e-6 abs + 1e-4 of its
+                leaf's largest update + what Adam's first step makes of
+                the two gradients' difference), each quantized run's
+                fifth against none's fifth (the loss within the JAX
+                package's tolerance, int8's widened to its step times
+                the loss; the parameters' change within a relative L2
+                limit of the exact change), and a control of each codec
+                with every step's update halved that must fail that
+                gate; B1, B3 and B4 exactly 4 times a
+                rank a step; wire bytes, optimizer-state bytes a rank,
+                staged MB, step ms and peak GiB; then train_eval_model
+                in int8 (2 steps, a checkpoint with the residuals, a
+                resume to 4), its 4.pt served on one card within 1e-4
+                of the einsum path; and on one card a
+                flatten_optimizer_update step against the per-leaf one.
+                The four processes share one card: no time here is a
+                multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -3060,10 +3081,15 @@ def cli_regime_parity(model_dir: str) -> dict:
 
 
 def start_pose_collect(model_dir: str) -> "_Child":
+    """The random collect, its env and policy seeded (0): the shipped
+    config leaves them unseeded, and the bf16 step below is held on what
+    it collects, so every run holds it on the same episodes."""
     return _Child("collect_pose", "run_collect_eval", [
         f"--root_dir={os.path.join(model_dir, 'pose', 'collect')}",
         f"--gin_configs={os.path.join(POSE_CONFIGS, 'run_random_collect.gin')}",
         f"--gin_bindings=collect_eval_loop.num_collect = {CLI_POSE['collect']}",
+        "--gin_bindings=PoseToyEnv.seed = 0",
+        "--gin_bindings=PoseEnvRandomPolicy.seed = 0",
     ], model_dir)
 
 
@@ -4832,7 +4858,7 @@ def _parallel_spec() -> dict:
                 batch=SLICE["batch"], layers=NUM_LAYERS, timed=PARALLEL_TIMED_STEPS,
                 regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN,
                 critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE),
-                pipe=dict(PARALLEL_PIPE))
+                pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2))
 
 
 def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
@@ -5139,8 +5165,11 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 # export, and continuous_eval; MoE's step, its single-device reference
 # and 7 steps; the pipelined step, its reference and 12 steps, the ring-
 # in-pipe step and its reference, 4 trainer steps with 2 evals, a
-# resume and a served checkpoint.
-PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60}
+# resume and a served checkpoint; ZeRO-2's replicated step, 5 x 5 codec
+# steps, 4 trainer steps with 2 evals, a resume, a served checkpoint and
+# two one-card steps.
+PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60,
+                       "parallel_zero2": 45}
 
 
 @contextlib.contextmanager
@@ -5917,14 +5946,440 @@ def parallel_pipe(world, spec: dict, model_dir: str) -> dict:
     return launches
 
 
+# -- parallel_zero2: ZeRO-2 weight-update sharding and its codecs on the same ranks --
+
+# Full-width BC on a 4-rank data mesh (global batch 8, 2 episodes a rank),
+# block 512: one replicated step, then `steps` steps of each codec from
+# the same seed-0 weights ("none" is zero2's exact exchange; its first
+# step is the gate against the replicated one, and every quantized run's
+# last step is held against its last). All of a codec's steps are synced
+# and timed. Then train_eval_model in int8: `train` steps with a
+# checkpoint holding the residuals, a resume to twice as many, served on
+# one card; and on one card the flat optimizer update against the
+# per-leaf one.
+PARALLEL_ZERO2 = dict(regimes=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
+                      block=512, batch=8, steps=5,
+                      train=dict(steps=2, save_every=2, eval_steps=1))
+# A quantized run against the exact one after `steps` steps from the same
+# weights, error feedback included. The loss within the JAX package's own
+# absolute tolerance (tests/test_collectives.py:266-296); int8's is the
+# larger of it and int8's quantization step (1/127) times the exact run's
+# loss, since JAX's tolerances are absolute at its mock's loss of ~0.5 and
+# int8's BC loss after 5 steps read 3.70e-3 at an exact loss of 1.045
+# (PERF.md §6). The parameters' change from the start, as one vector,
+# within ZERO2_REL_L2 of the exact run's change in L2 norm. Each limit lies
+# between the codec's sound reading and its control's (ZERO2_CONTROLS): a
+# run of the same codec with a fault put in from outside the trainer, which
+# must fail the gate. A fault scales what every step changes of the
+# parameters (ZERO2_FAULTS): "half_update" by 1/2, as a decode with half
+# the scale would. An update never applied reads a relative L2 of exactly
+# 1, further out still.
+ZERO2_LOSS_TOLS = {"fp16": 2e-4, "int8": 2e-3, "fp8_e4m3": 2e-3, "fp8_e5m2": 5e-3}
+ZERO2_INT8_STEP = 1 / 127.0
+ZERO2_REL_L2 = {"fp16": 0.05, "int8": 0.4, "fp8_e4m3": 0.2, "fp8_e5m2": 0.2}
+ZERO2_FAULTS = {"half_update": 0.5}
+ZERO2_CONTROLS = {name: ("half_update",) for name in ZERO2_REL_L2}
+# One Adam step against another from the same weights (zero2's against the
+# replicated step; the flat update's against the per-leaf one): the loss
+# LOSS_TOL rel; the gradient each stepped with (Adam's first moment over
+# 1 - beta1, gathered from the shards) under the BC gate (GRAD_TOL of its
+# leaf's max + 1e-7); every parameter within 1e-6 abs + 1e-4 of its leaf's
+# largest update + the difference between what Adam's first step,
+# lr g / (|g| + eps), makes of the two runs' own gradients, element by
+# element. That last term is rounding-sized wherever |g| >> eps, and up to
+# lr where g is within rounding of 0 and its sign is rounding's.
+ZERO2_PARAM_TOL = (1e-6, 1e-4)
+
+
+def _first_moments(trainer, state) -> dict:
+    """{parameter name: Adam's first moment} of a state after its first
+    step, gathered from the shards (checkpoint_state; a collective in the
+    ZeRO-2 regimes) and cut from a flat vector."""
+    from tensor2robot_tpu_torch.train import state as state_lib
+
+    saved = trainer.checkpoint_state(state)["optimizer"]["state"]
+    names = [n for n, _ in state.network.named_parameters()]
+    if len(saved) == 1 and len(names) > 1:  # one flat vector
+        return state_lib.ema_as_tree(saved[0]["exp_avg"].clone(), state.network)
+    # Copies: the later steps move the live moments in place.
+    return {names[i]: entry["exp_avg"].clone() for i, entry in saved.items()}
+
+
+def _adam_step_gate(got: dict, want: dict, start: dict, got_m: dict, want_m: dict,
+                    optimizer) -> tuple:
+    """(the worst gradient error over its allowance and its leaf, the
+    worst parameter error over its allowance and its leaf) of one Adam
+    step `got` against `want` from `start` (module constants above)."""
+    group = optimizer.param_groups[0]
+    beta1, (lr, eps) = group["betas"][0], (group["lr"], group["eps"])
+    worst_g, worst_p = (0.0, ""), (0.0, "")
+    for name, m in want_m.items():
+        g_want, g_got = m / (1 - beta1), got_m[name] / (1 - beta1)
+        dg = (g_got - g_want).abs()
+        ratio = dg.max().item() / (GRAD_TOL * g_want.abs().max().item() + 1e-7)
+        worst_g = max(worst_g, (ratio, name))
+        first_step = lambda g: lr * g / (g.abs() + eps)
+        allowed = (ZERO2_PARAM_TOL[0]
+                   + (first_step(g_got) - first_step(g_want)).abs().reshape(want[name].shape)
+                   + ZERO2_PARAM_TOL[1] * (want[name] - start[name]).abs().max())
+        ratio = ((got[name] - want[name]).abs() / allowed).max().item()
+        worst_p = max(worst_p, (ratio, name))
+    return worst_g, worst_p
+
+
+def parallel_rank_zero2(spec: dict) -> dict:
+    """On every rank of the 4-rank data mesh: the replicated step, then
+    each codec's zero2 run from the same weights and batch, each step
+    synced and timed with its staged bytes and launches; the gates (the
+    exact step against the replicated one, each quantized run against
+    the exact run) on every rank. Returns the rank's numbers and the
+    launches of its main-path calls."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import collectives
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device, layers = spec["zero2"], spec["device"], spec["layers"]
+    mesh = _rank_setup(spec, PARALLEL_RANKS, 1)
+    model = TransformerBCModel(mesh=mesh, **spec["model"])
+    host = _bc_batch(model, cfg["batch"], seed=0)
+    batch = to_device(mesh_lib.shard_batch(host, mesh), device)
+    want = {"flash_fwd": 0, "flash_fwd_tile": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+    rank = dist.get_rank()
+    out = {"rank": rank, "launches": {k: 0 for k in read_launches()}, "regimes": {}}
+
+    def run(steps: int, fault=None, **kwargs):
+        """`steps` synced steps of a fresh trainer, cuDNN's convs
+        deterministic (a rerun rounds as this one did), with the control's
+        `fault` put in after every step (ZERO2_CONTROLS); (the state dicts
+        before, after the first and after the last step, the numbers). A
+        control's launches are checked and not counted."""
+        if device.startswith("cuda"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(model, device=device, mesh=mesh, **kwargs)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        snapshot = lambda: {k: v.detach().clone() for k, v in state.network.state_dict().items()}
+        start, first, moments, losses, times, staged = snapshot(), None, None, [], [], []
+        for i in range(steps):
+            before = ({k: v.detach().clone() for k, v in state.network.named_parameters()}
+                      if fault else None)
+            collectives.reset_staged_bytes()
+            reset_launches()
+            _sync(device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            with _deterministic_convs():
+                losses.append(float(trainer.train_step(state, batch)["loss"]))
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            staged.append(collectives.staged_bytes())
+            launches = read_launches()
+            if fault is None:
+                for name, count in launches.items():
+                    out["launches"][name] += count
+            if launches != want:
+                raise AssertionError(f"rank {rank} {kwargs} step launched {launches} != {want}")
+            if fault:
+                with torch.no_grad():
+                    for name, param in state.network.named_parameters():
+                        param.copy_(before[name] + ZERO2_FAULTS[fault]
+                                    * (param - before[name]))
+                del before
+            if i == 0:
+                first = snapshot()
+                moments = _first_moments(trainer, state) if trainer.collective is None else None
+        optimizer = state.optimizer
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for entry in state.optimizer.state_dict()["state"].values()
+                        for t in entry.values() if t.ndim)
+        numbers = dict(losses=losses, step_ms=sorted(times)[len(times) // 2],
+                       step_min=min(times), step_max=max(times),
+                       staged_mb=sorted(staged)[len(staged) // 2] / 1e6,
+                       peak_gib=_peak_gib(device), opt_mb=opt_bytes / 1e6)
+        n_params = sum(p.numel() for p in state.network.parameters())
+        layout = collectives.FlatShardLayout(n_params, PARALLEL_RANKS, cfg["block"])
+        coll = trainer.collective or collectives.get_collective("none", cfg["block"])
+        pre, post = collectives.wire_summary(coll, layout.padded)
+        numbers.update(n_params=n_params, wire_pre_mb=pre / 1e6, wire_post_mb=post / 1e6,
+                       regime=trainer.regime)
+        if trainer.collective is not None and fault is None:
+            numbers["exchange_ms"] = trainer.measure_collective_ms()
+        last = snapshot()
+        del trainer, state
+        return start, (first, moments, optimizer), last, numbers
+
+    def against_exact(numbers: dict, last: dict, name: str) -> dict:
+        """A quantized run's fifth step against the exact run's: the loss
+        error and its tolerance, and the parameters' change against the
+        exact change (relative L2, module constants)."""
+        loss_tol = ZERO2_LOSS_TOLS[name]
+        if name == "int8":
+            loss_tol = max(loss_tol, ZERO2_INT8_STEP * abs(exact_loss))
+        diff = sum(float(torch.sum((last[k].double() - v.double()) ** 2))
+                   for k, v in exact_last.items())
+        moved = sum(float(torch.sum((v.double() - start[k].double()) ** 2))
+                    for k, v in exact_last.items())
+        return dict(loss_err=abs(numbers["losses"][-1] - exact_loss), loss_tol=loss_tol,
+                    rel_l2=math.sqrt(diff / moved), rel_l2_tol=ZERO2_REL_L2[name],
+                    param_err=max((last[k] - v).abs().max().item() for k, v in exact_last.items()))
+
+    start, replicated, _, numbers = run(1)
+    out["regimes"]["replicated"] = numbers
+    out["controls"] = {}
+    for name in cfg["regimes"]:
+        kwargs = dict(shard_weight_update=True, collective_quant=name,
+                      collective_block=cfg["block"])
+        _, first, last, numbers = run(cfg["steps"], **kwargs)
+        if name == "none":
+            exact_loss, exact_last = numbers["losses"][-1], last
+            loss_err = abs(numbers["losses"][0] - out["regimes"]["replicated"]["losses"][0])
+            loss_err /= abs(out["regimes"]["replicated"]["losses"][0])
+            (grad, grad_name), (worst, worst_name) = _adam_step_gate(
+                first[0], replicated[0], start, first[1], replicated[1], replicated[2])
+            numbers.update(loss_err=loss_err, grad=grad, grad_name=grad_name, worst=worst,
+                           worst_name=worst_name)
+        else:
+            numbers.update(against_exact(numbers, last, name))
+            for fault in ZERO2_CONTROLS[name]:
+                _, _, control_last, control = run(cfg["steps"], fault=fault, **kwargs)
+                out["controls"][f"{name} {fault}"] = against_exact(control, control_last, name)
+                del control_last
+        out["regimes"][name] = numbers
+        del first, last
+    del exact_last
+    return out
+
+
+def _zero2_failures(ranks: list) -> list:
+    """What every rank's parallel_rank_zero2 numbers break of the gates
+    (module constants): a sound run over a limit, or a control within
+    both of its codec's limits."""
+    failures = []
+    for r in ranks:
+        for name, n in r["regimes"].items():
+            if name == "replicated":
+                continue
+            if name == "none":
+                if not (n["loss_err"] <= LOSS_TOL and n["grad"] <= 1.0 and n["worst"] <= 1.0):
+                    failures.append(
+                        f"rank {r['rank']} zero2 step off the replicated one: loss "
+                        f"{n['loss_err']} rel, gradient {n['grad_name']} at {n['grad']} and "
+                        f"parameter {n['worst_name']} at {n['worst']} of their allowances")
+            elif not (n["loss_err"] < n["loss_tol"] and n["rel_l2"] <= n["rel_l2_tol"]):
+                failures.append(
+                    f"rank {r['rank']} {name} off the exact run: loss {n['loss_err']} (< "
+                    f"{n['loss_tol']}), parameter change rel L2 {n['rel_l2']} (<= "
+                    f"{n['rel_l2_tol']})")
+        for control, n in r["controls"].items():
+            if n["loss_err"] < n["loss_tol"] and n["rel_l2"] <= n["rel_l2_tol"]:
+                failures.append(
+                    f"rank {r['rank']} control {control} passed the gate: loss "
+                    f"{n['loss_err']} (< {n['loss_tol']}), rel L2 {n['rel_l2']} (<= "
+                    f"{n['rel_l2_tol']})")
+    return failures
+
+
+def parallel_rank_zero2_train(spec: dict, model_dir: str, steps: int) -> dict:
+    """On every rank: train_eval_model of BC on the 4-rank data mesh in the
+    int8 ZeRO-2 regime up to `steps` (resuming from model_dir's newest
+    checkpoint); returns the final eval, the rank's launches and peak GiB."""
+    import torch
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+    cfg = spec["zero2"]
+    mesh = _rank_setup(spec, PARALLEL_RANKS, 1)
+    model = TransformerBCModel(mesh=mesh, **spec["model"])
+    train = cfg["train"]
+    if spec["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final_eval = train_eval_model(
+        model,
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=0),
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=1000),
+        model_dir=model_dir, max_train_steps=steps,
+        save_checkpoints_steps=train["save_every"], eval_steps=train["eval_steps"],
+        log_every_steps=train["save_every"], device=spec["device"], mesh=mesh,
+        shard_weight_update=True, collective_quant="int8", collective_block=cfg["block"],
+    )
+    _sync(spec["device"])
+    return {"final_eval": final_eval, "launches": read_launches(),
+            "peak_gib": _peak_gib(spec["device"])}
+
+
+def _flat_update_check(spec: dict) -> tuple:
+    """On one card: a flatten_optimizer_update BC step against the
+    per-leaf step from the same seed-0 weights and the full batch, under
+    _adam_step_gate. Returns (what it found, the launches of both
+    steps)."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = TransformerBCModel(**spec["model"])
+    batch = to_device(_bc_batch(model, spec["zero2"]["batch"], seed=0), DEVICE)
+    launches = {k: 0 for k in read_launches()}
+    results = []
+    for flat in (False, True):
+        trainer = Trainer(model, device=DEVICE, flatten_optimizer_update=flat)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        start = {k: v.detach().clone() for k, v in state.network.state_dict().items()}
+        reset_launches()
+        with _deterministic_convs():
+            loss = float(trainer.train_step(state, batch)["loss"])
+        for name, count in read_launches().items():
+            launches[name] += count
+        results.append((loss, {k: v.detach().clone()
+                               for k, v in state.network.state_dict().items()},
+                        _first_moments(trainer, state), state.optimizer))
+        del trainer, state
+    (loss, leaf, leaf_m, optimizer), (flat_loss, flat, flat_m, _) = results
+    loss_err = abs(flat_loss - loss) / abs(loss)
+    (grad, grad_name), (worst, worst_name) = _adam_step_gate(
+        flat, leaf, start, flat_m, leaf_m, optimizer)
+    if not (loss_err <= LOSS_TOL and grad <= 1.0 and worst <= 1.0):
+        raise AssertionError(f"flat update off the per-leaf step: loss {loss_err} rel, "
+                             f"gradient {grad_name} at {grad} and parameter {worst_name} "
+                             f"at {worst} of their allowances")
+    return (f"loss {loss_err:.2e} rel, worst gradient {grad_name} at {grad:.2e} and worst "
+            f"parameter {worst_name} at {worst:.2e} of their allowances"), launches
+
+
+def parallel_zero2(world, spec: dict, model_dir: str) -> dict:
+    """ZeRO-2 on the ranks: each codec's steps against the replicated and
+    the exact steps, train_eval_model in int8 with a checkpoint of the
+    residuals and a resume, served on one card; the flat update on one
+    card. Returns the launches of every main-path call."""
+    from tensor2robot_tpu_torch.train import state as state_lib
+    from tensor2robot_tpu_torch.train.metrics import read_metrics
+
+    t0 = time.monotonic()
+    cfg = spec["zero2"]
+    launches = {name: 0 for name in read_launches()}
+
+    def add(counts) -> None:
+        for name, count in counts.items():
+            launches[name] += count
+
+    ranks = world.run(parallel_rank_zero2, spec, timeout_s=PARALLEL_TIMEOUT)
+    for r in ranks:
+        add(r["launches"])
+    head = ranks[0]["regimes"]
+    rep = head["replicated"]
+    log(f"[parallel_zero2] BC ({head['none']['n_params']} parameters) on a "
+        f"{PARALLEL_RANKS}-rank data mesh, global batch {cfg['batch']}, block "
+        f"{cfg['block']}, on {card_line()}: replicated step optimizer state "
+        f"{rep['opt_mb']:.3f} MB a rank, gloo host-staged {rep['staged_mb']:.3f} MB")
+    for name in cfg["regimes"]:
+        r = head[name]
+        if name == "none":
+            gate = (f"step 1 vs the replicated step: loss {r['loss_err']:.2e} rel, worst "
+                    f"gradient {r['grad_name']} at {r['grad']:.2e} and worst parameter "
+                    f"{r['worst_name']} at {r['worst']:.2e} of their allowances")
+        else:
+            gate = (f"after {cfg['steps']} steps vs the exact run: loss {r['loss_err']:.2e} "
+                    f"abs (allowed {r['loss_tol']:.2e}), parameter change rel L2 "
+                    f"{r['rel_l2']:.3e} (allowed {r['rel_l2_tol']}), worst parameter "
+                    f"{r['param_err']:.2e} abs; the losses "
+                    f"{[round(x, 6) for x in r['losses']]}, the exact run's "
+                    f"{[round(x, 6) for x in head['none']['losses']]}")
+        exchange = (f"; one exchange {r['exchange_ms']:.3f} ms (median of 5)"
+                    if "exchange_ms" in r else "")
+        log(f"[parallel_zero2] {name} ({r['regime']}) on {card_line()}: {gate}; wire "
+            f"{r['wire_pre_mb']:.3f} MB f32 -> {r['wire_post_mb']:.3f} MB a rank a step "
+            f"({r['wire_pre_mb'] / r['wire_post_mb']:.2f}x){exchange}; optimizer state "
+            f"{r['opt_mb']:.3f} MB a rank (replicated {rep['opt_mb']:.3f}); B1/B3/B4 "
+            f"{spec['layers']} each a rank a step; synced step median {r['step_ms']:.3f} ms "
+            f"(min {r['step_min']:.3f}, max {r['step_max']:.3f}) over {cfg['steps']} on rank "
+            f"0, medians by rank {[round(x['regimes'][name]['step_ms'], 3) for x in ranks]}; "
+            f"gloo host-staged {r['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
+            f"{[round(x['regimes'][name]['peak_gib'], 3) for x in ranks]}")
+    for control, c in ranks[0]["controls"].items():
+        log(f"[parallel_zero2] control {control} (must fail) on {card_line()}: after "
+            f"{cfg['steps']} steps vs the exact run: loss {c['loss_err']:.2e} abs (allowed "
+            f"{c['loss_tol']:.2e}), parameter change rel L2 {c['rel_l2']:.3e} (allowed "
+            f"{c['rel_l2_tol']}), worst parameter {c['param_err']:.2e} abs")
+    failures = _zero2_failures(ranks)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    train = cfg["train"]
+    steps, layers = train["steps"], spec["layers"]
+    evals = steps // train["save_every"]
+    want = {"flash_fwd": layers * evals * train["eval_steps"],
+            "flash_fwd_tile": layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    with tempfile.TemporaryDirectory(dir=model_dir) as run_dir:
+        t_train = time.monotonic()
+        runs = []
+        for last in (steps, 2 * steps):  # the second resumes from the first's checkpoint
+            runs.append(world.run(parallel_rank_zero2_train, spec, run_dir, last,
+                                  timeout_s=PARALLEL_TIMEOUT))
+            for r in runs[-1]:
+                if r["launches"] != want:
+                    raise AssertionError(f"int8 train_eval_model to {last} launched "
+                                         f"{r['launches']} != {want}")
+                add(r["launches"])
+            finals = {round(r["final_eval"]["eval/mse"], 9) for r in runs[-1]}
+            if len(finals) != 1 or not all(math.isfinite(e) for e in finals):
+                raise AssertionError(f"ranks' final evals {finals}")
+            if last == steps:
+                saved = state_lib.load_checkpoint(run_dir, steps)
+                grad = saved["collective_residual"]["grad"]
+                if grad.shape[0] != PARALLEL_RANKS or not grad.abs().max() > 0:
+                    raise AssertionError(f"checkpoint residual {tuple(grad.shape)}")
+        lines = read_metrics(os.path.join(run_dir, "train"))
+        if not lines or not all(line["collective/compression"] > 3.5 for line in lines):
+            raise AssertionError(f"metrics lines {lines}")
+        served, served_launches = _serve_mesh_checkpoint(
+            run_dir, list(range(train["save_every"], 2 * steps + 1, train["save_every"])))
+        add(served_launches)
+        log(f"[parallel_zero2] train_eval_model in int8 on the {PARALLEL_RANKS}-rank data "
+            f"mesh on {card_line()}: {steps} steps, then a resume to {2 * steps} (each run "
+            f"B1/B3/B4 {layers * steps} a rank, B2 {want['flash_fwd']} in its eval); "
+            f"{steps}.pt holds the residuals ({tuple(grad.shape)} gradient); metrics lines "
+            f"carry collective/compression {lines[-1]['collective/compression']:.3f} and "
+            f"wall {lines[-1]['collective/wall_ms']:.3f} ms; final eval "
+            f"{runs[-1][0]['final_eval']} on every rank; {served}; peak GiB by rank "
+            f"{[round(r['peak_gib'], 3) for r in runs[-1]]}; "
+            f"{time.monotonic() - t_train:.1f}s")
+    found, flat_launches = _flat_update_check(spec)
+    add(flat_launches)
+    log(f"[parallel_zero2] flatten_optimizer_update on one card ({card_line()}): one step "
+        f"against the per-leaf step, {found}; B1/B3/B4 {layers} each a step")
+    log(f"[parallel_zero2] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_zero2']} s)")
+    return launches
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
     single-device step, then train_eval_model on a 2 x 2 mesh served from
     one card; then on the same ranks the critic over data x fsdp, MoE BC
-    over data x expert and BC pipelined over data x pipe
-    (parallel_critic, parallel_moe, parallel_pipe). Returns the launches
-    of every rank's main-path calls."""
+    over data x expert, BC pipelined over data x pipe and BC's ZeRO-2
+    regimes over data (parallel_critic, parallel_moe, parallel_pipe,
+    parallel_zero2). Returns the launches of every rank's main-path
+    calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -5988,6 +6443,8 @@ def phase_parallel(model_dir: str) -> dict:
         for name, count in parallel_moe(world, spec).items():
             launches[name] += count
         for name, count in parallel_pipe(world, spec, model_dir).items():
+            launches[name] += count
+        for name, count in parallel_zero2(world, spec, model_dir).items():
             launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
         f"{launches}")

@@ -6,7 +6,8 @@ way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
 (the policy server, the trainer's infeed, the data stack, the max pool's
-backward and the Grasping44 stem) are declared here.
+backward, the Grasping44 stem and the ZeRO-2 gradient codecs) are
+declared here.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class FlagSpec:
 _REGISTRY: Dict[str, FlagSpec] = {}
 _SERVER = "tensor2robot_tpu_torch/serving/server.py"
 _DATASET = "tensor2robot_tpu_torch/data/dataset.py"
+_COLLECTIVES = "tensor2robot_tpu_torch/parallel/collectives.py"
 
 
 def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
@@ -68,6 +70,26 @@ def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
     _REGISTRY[name] = FlagSpec(name, kind, default, doc, owner, choices, minimum)
 
 
+_declare(
+    "T2R_COLLECTIVE_BLOCK",
+    _INT,
+    512,
+    "Quantization block size (elements per scale) for quantized gradient "
+    "collectives.",
+    _COLLECTIVES,
+    minimum=1,
+)
+_declare(
+    "T2R_COLLECTIVE_QUANT",
+    _ENUM,
+    "none",
+    "Gradient-collective wire format of the ZeRO-2 data-parallel step; "
+    "none keeps the exact reduce-scatter and all-gather. fp16, int8 and "
+    "the fp8 formats send block-scaled values with an error-feedback "
+    "residual.",
+    _COLLECTIVES,
+    choices=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
+)
 _declare(
     "T2R_DECODE_CACHE_MB",
     _INT,

@@ -67,7 +67,7 @@ def load_checkpoint_variables(
             raise ValueError(
                 f"use_ema=True but checkpoint {checkpoint_path!r} holds no "
                 "ema_params (trained without use_avg_model_params).")
-        variables.update(checkpoint["ema_params"])
+        variables.update(state_lib.checkpoint_ema(checkpoint))
     return variables
 
 

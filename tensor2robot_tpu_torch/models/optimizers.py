@@ -18,6 +18,12 @@ updates are optax's:
 
 Moving-average ("swapping saver") parameters are the trainer's EMA
 (train/state.py).
+
+`FlatParameters` is optax.flatten's counterpart (the trainer's
+flatten_optimizer_update): a network's parameters become views of one
+flat vector, and the optimizer steps that vector, one elementwise update
+of the whole model in place of one a parameter. For elementwise
+optimizers (all of the above) the arithmetic is the per-leaf step's.
 """
 
 from __future__ import annotations
@@ -228,3 +234,32 @@ def with_gradient_clipping(
         return bound
 
     return factory
+
+
+class FlatParameters:
+    """A network's parameters (named_parameters order) as views of one
+    flat vector, `flat`, the one parameter its optimizer is bound to.
+    Writes into the network's parameters (load_state_dict) land in `flat`
+    and an optimizer step of `flat` moves every parameter. Make it once
+    the network is on its device: moving the network again would give
+    its parameters storage of their own."""
+
+    def __init__(self, network: torch.nn.Module):
+        self.names = [name for name, _ in network.named_parameters()]
+        self.params = [p for _, p in network.named_parameters()]
+        dtypes = {p.dtype for p in self.params}
+        if len(dtypes) != 1:
+            raise ValueError(f"one flat vector holds one dtype, not {sorted(map(str, dtypes))}")
+        self.flat = torch.nn.Parameter(
+            torch.cat([p.detach().reshape(-1) for p in self.params]))
+        offset = 0
+        for p in self.params:
+            p.data = self.flat.data[offset:offset + p.numel()].view(p.shape)
+            offset += p.numel()
+
+    def gather_grad(self) -> None:
+        """flat.grad: every parameter's gradient raveled in order (zeros
+        for one without a gradient)."""
+        self.flat.grad = torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+            for p in self.params])

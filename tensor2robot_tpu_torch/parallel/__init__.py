@@ -10,10 +10,12 @@ x sequence x pipe x expert regime: global-batch steps over data x fsdp
 shards (synchronized batch-norm moments, per-shard draws, shard_by_host
 input, exporters, hooks and continuous eval on rank 0's single-device
 model), experts computed by their resident expert rank, and a pipelined
-encoder's stages held by their pipe ranks (stacked in the checkpoint).
-Still raising, naming ROADMAP.md A9: tensor parallelism (the model dim),
-experts under a sequence dim, sharded weights with the ZeRO-2 codecs, and
-the planner.
+encoder's stages held by their pipe ranks (stacked in the checkpoint),
+and ZeRO-2 over the data dim: the weight-update rule, the block-scaled
+gradient codecs and the trainer's exact and quantized regimes. Still
+raising, naming ROADMAP.md A9: tensor parallelism (the model dim),
+parameter sharding and ZeRO-2 over other dims (A9.4b), experts under a
+sequence dim, and the planner (A9.5).
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (
@@ -24,11 +26,13 @@ from tensor2robot_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     PIPE_AXIS,
     PIPE_STAGES_KEY,
+    MIN_WEIGHT_SIZE,
     SEQUENCE_AXIS,
     initialize_distributed,
     make_mesh,
     param_sharding,
     shard_batch,
+    weight_update_sharding,
 )
 
 # NOTE: ring_attention is NOT re-exported as a function here — the package

@@ -39,19 +39,31 @@ gloo, and copied back to its device. `staged_bytes()` counts the bytes
 those copies move (both ways); nothing is computed on the host, and a
 failed collective raises.
 
-The block-scaled ZeRO-2 codecs of the JAX module (GradientCollective,
-FlatShardLayout and the registry around them) are not ported: each of
-their names raises naming ROADMAP.md A9.
+The block-scaled codecs of the ZeRO-2 gradient exchange are here too, as
+in the JAX module: a registry of `GradientCollective`s (`none`, exact f32
+over psum_scatter and all_gather; `fp16`, `int8`, `fp8_e4m3` and
+`fp8_e5m2`, each value scaled by its block's max-abs) selected by
+T2R_COLLECTIVE_QUANT and T2R_COLLECTIVE_BLOCK, `FlatShardLayout` (the
+padding of the raveled parameter vector into equal per-rank shards) and
+`wire_summary`. Their `{"q", "s"}` payloads are JAX's bit for bit on the
+same vector. They run in plain torch on the tensors' device, as JAX
+computes them in jnp outside any kernel; on the wire a payload travels as
+its bytes (a uint8 view, since gloo moves no fp8 dtype) and the scales as
+f32, staged for gloo like every other CUDA tensor here. Both quantized
+collectives also return the dequantized copy of what was sent, so the
+caller can carry `sent - intended` as the error-feedback residual.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from tensor2robot_tpu_torch import flags
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 
 __all__ = [
@@ -69,7 +81,7 @@ __all__ = [
     "reset_staged_bytes",
     "stack_over",
     "staged_bytes",
-    # not ported (ROADMAP.md A9): each raises
+    # the ZeRO-2 gradient codecs
     "FlatShardLayout",
     "GradientCollective",
     "available_collectives",
@@ -418,19 +430,264 @@ def all_reduce_mean_flat(tensors: Sequence[torch.Tensor], group_size: int,
     return out
 
 
-def _unported(name: str):
-    def codec(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the block-scaled ZeRO-2 gradient collectives are not "
-            "ported yet (ROADMAP.md A9)"
+# -- the ZeRO-2 gradient codecs -------------------------------------------------
+
+
+def _block_view(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., L] -> [..., L // block, block]; L must divide by block (the
+    FlatShardLayout guarantees it for the trainer's payloads)."""
+    if x.shape[-1] % block != 0:
+        raise ValueError(f"last dim {x.shape[-1]} not divisible by block {block}")
+    return x.reshape(tuple(x.shape[:-1]) + (x.shape[-1] // block, block))
+
+
+def _block_scales(blocks: torch.Tensor) -> torch.Tensor:
+    """Each block's max-abs, a zero block's 1 (its payload is zeros either
+    way; 1 keeps the decode free of NaN)."""
+    scale = blocks.abs().amax(dim=-1)
+    return torch.where(scale > 0, scale, torch.ones_like(scale))
+
+
+def _exchanged(payload: Dict[str, torch.Tensor], move) -> Dict[str, torch.Tensor]:
+    """`move` (an all_to_all or all_gather along dim 0) applied to each
+    tensor of a payload as the wire carries it: f32 scales as they are,
+    values as their bytes (uint8: gloo moves no fp8 dtype), viewed back in
+    their dtype on arrival."""
+    out = {}
+    for key, t in payload.items():
+        if t.dtype == torch.float32:
+            out[key] = move(t)
+        else:
+            out[key] = move(t.contiguous().view(torch.uint8)).view(t.dtype)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientCollective:
+    """One wire format of the ZeRO-2 gradient exchange over a mesh dim.
+
+    `decode(encode(x))` is what the receivers reconstruct, so
+    `x - decode(encode(x))` is the error-feedback residual. Subclasses
+    give encode, decode and wire_bytes; the exact one also its own
+    collectives (psum_scatter and all_gather instead of an all_to_all of
+    payloads)."""
+
+    name: str
+    block: int
+
+    def encode(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def decode(self, payload: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def wire_bytes(self, n_elements: int) -> int:
+        """Payload bytes for n f32 elements (values and per-block scales)."""
+        raise NotImplementedError
+
+    def reduce_scatter(self, rows: torch.Tensor, mesh: DeviceMesh,
+                       axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reduce-scatter over the dim `axis` of `mesh`. `rows` [N, L] is
+        this rank's gradient in one chunk a peer (N the dim's size): chunk
+        j is encoded and sent to peer j (an all_to_all), and each rank
+        decodes the N chunks it receives and sums them in f32. Returns
+        (reduced [L]: this rank's shard of the sum of every peer's
+        dequantized chunks, sent [N, L]: the dequantized copy of what this
+        rank sent)."""
+        dim = _Dim.of(mesh, axis)
+        payload = self.encode(rows)
+        received = payload if dim.size == 1 else _exchanged(
+            payload, lambda t: _all_to_all(t, dim, 0, 0))
+        reduced = self.decode(received).float().sum(dim=0)
+        return reduced, self.decode(payload).float()
+
+    def all_gather_shard(self, shard: torch.Tensor, mesh: DeviceMesh,
+                         axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All-gather of this rank's [L] shard. Returns (full [N * L]:
+        every peer's dequantized shard in the dim's order, the same on
+        every rank, sent [L]: the dequantized copy of this rank's own)."""
+        dim = _Dim.of(mesh, axis)
+        payload = self.encode(shard)
+        gathered = payload if dim.size == 1 else _exchanged(
+            payload, lambda t: _all_gather(t, dim, 0))
+        return self.decode(gathered).float(), self.decode(payload).float()
+
+
+class ExactCollective(GradientCollective):
+    """f32 as it is: psum_scatter and all_gather, and no error channel."""
+
+    def encode(self, x):
+        return {"v": x}
+
+    def decode(self, payload):
+        return payload["v"]
+
+    def wire_bytes(self, n_elements: int) -> int:
+        return 4 * n_elements
+
+    def reduce_scatter(self, rows, mesh, axis):
+        dim = _Dim.of(mesh, axis)
+        reduced = rows[0] if dim.size == 1 else _psum_scatter(rows, dim, 0)[0]
+        return reduced, rows
+
+    def all_gather_shard(self, shard, mesh, axis):
+        dim = _Dim.of(mesh, axis)
+        return (shard if dim.size == 1 else _all_gather(shard, dim, 0)), shard
+
+
+class BlockScaledCollective(GradientCollective):
+    """The decode of the `{"q": values, "s": per-block scales}` format
+    that every quantized collective shares: each block cast to f32 and
+    multiplied by its scale."""
+
+    def decode(self, payload):
+        q, scales = payload["q"], payload["s"]
+        blocks = _block_view(q.float(), self.block)
+        return (blocks * scales[..., None]).reshape(q.shape)
+
+
+class Fp16Collective(BlockScaledCollective):
+    """Each block divided by its max-abs into [-1, 1], then cast to fp16:
+    no block can overflow, small blocks keep their relative precision.
+    2 bytes an element and 4 a block."""
+
+    def encode(self, x):
+        blocks = _block_view(x, self.block)
+        scales = _block_scales(blocks)
+        values = (blocks / scales[..., None]).to(torch.float16)
+        return {"q": values.reshape(x.shape), "s": scales}
+
+    def wire_bytes(self, n_elements: int) -> int:
+        return 2 * n_elements + 4 * (n_elements // self.block)
+
+
+class Int8Collective(BlockScaledCollective):
+    """Symmetric int8 a block: scale = max-abs / 127, rounded half to even,
+    clipped to +-127. 1 byte an element and 4 a block."""
+
+    def encode(self, x):
+        blocks = _block_view(x, self.block)
+        scales = _block_scales(blocks) / 127.0
+        values = torch.clamp(torch.round(blocks / scales[..., None]), -127, 127)
+        return {"q": values.to(torch.int8).reshape(x.shape), "s": scales}
+
+    def wire_bytes(self, n_elements: int) -> int:
+        return n_elements + 4 * (n_elements // self.block)
+
+
+class Fp8Collective(BlockScaledCollective):
+    """Each block scaled so its max-abs maps to the format's largest
+    finite value, clipped to +-that value, then cast. The clip comes
+    before the cast: a value past the format's range must not reach it.
+    Same wire cost as int8; the rounding is relative to each element."""
+
+    _DTYPE: torch.dtype = None  # subclass: the fp8 storage dtype
+    _MAX = 0.0  # subclass: the format's largest finite value
+
+    def encode(self, x):
+        blocks = _block_view(x, self.block)
+        scales = _block_scales(blocks) / self._MAX
+        values = torch.clamp(blocks / scales[..., None], -self._MAX, self._MAX)
+        return {"q": values.to(self._DTYPE).reshape(x.shape), "s": scales}
+
+    def wire_bytes(self, n_elements: int) -> int:
+        return n_elements + 4 * (n_elements // self.block)
+
+
+class Fp8E4M3Collective(Fp8Collective):
+    """fp8 e4m3 (3 mantissa bits, max 448)."""
+
+    _DTYPE = torch.float8_e4m3fn
+    _MAX = 448.0
+
+
+class Fp8E5M2Collective(Fp8Collective):
+    """fp8 e5m2 (2 mantissa bits, max 57344)."""
+
+    _DTYPE = torch.float8_e5m2
+    _MAX = 57344.0
+
+
+_REGISTRY: Dict[str, Callable[[int], GradientCollective]] = {}
+
+
+def register_collective(name: str):
+    """Registers a factory(block) -> GradientCollective under `name`."""
+
+    def deco(factory):
+        if name in _REGISTRY:
+            raise ValueError(f"collective {name!r} registered twice")
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+register_collective("none")(lambda block: ExactCollective("none", block))
+register_collective("fp16")(lambda block: Fp16Collective("fp16", block))
+register_collective("int8")(lambda block: Int8Collective("int8", block))
+register_collective("fp8_e4m3")(lambda block: Fp8E4M3Collective("fp8_e4m3", block))
+register_collective("fp8_e5m2")(lambda block: Fp8E5M2Collective("fp8_e5m2", block))
+
+
+def available_collectives() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def get_collective(name: Optional[str] = None,
+                   block: Optional[int] = None) -> GradientCollective:
+    """The collective `name` with blocks of `block`; None reads
+    T2R_COLLECTIVE_QUANT and T2R_COLLECTIVE_BLOCK."""
+    if name is None:
+        name = flags.get_enum("T2R_COLLECTIVE_QUANT")
+    if block is None:
+        block = flags.get_int("T2R_COLLECTIVE_BLOCK")
+    factory = _REGISTRY.get(name)
+    if factory is None:
+        raise KeyError(
+            f"unknown collective {name!r}; available regimes: "
+            f"{', '.join(available_collectives())} "
+            "(selected by T2R_COLLECTIVE_QUANT, block size by "
+            "T2R_COLLECTIVE_BLOCK)"
         )
-    codec.__name__ = name
-    return codec
+    return factory(block)
 
 
-GradientCollective = _unported("GradientCollective")
-FlatShardLayout = _unported("FlatShardLayout")
-available_collectives = _unported("available_collectives")
-get_collective = _unported("get_collective")
-register_collective = _unported("register_collective")
-wire_summary = _unported("wire_summary")
+class FlatShardLayout:
+    """The raveled parameter vector as equal per-rank shards: num_params
+    elements padded with zeros to padded = num_shards * shard_len, where
+    shard_len divides by the block. The padded tail has a zero gradient
+    forever, so an elementwise optimizer keeps it at zero."""
+
+    def __init__(self, num_params: int, num_shards: int, block: int):
+        if num_params < 1:
+            raise ValueError("empty parameter vector")
+        if num_shards < 1 or block < 1:
+            raise ValueError(f"bad layout: shards={num_shards} block={block}")
+        shard_len = -(-num_params // num_shards)
+        shard_len = -(-shard_len // block) * block
+        self.num_params = num_params
+        self.num_shards = num_shards
+        self.block = block
+        self.shard_len = shard_len
+        self.padded = shard_len * num_shards
+
+    def pad(self, flat: torch.Tensor) -> torch.Tensor:
+        if tuple(flat.shape) != (self.num_params,):
+            raise ValueError(
+                f"expected [{self.num_params}] vector, got {tuple(flat.shape)}")
+        return torch.nn.functional.pad(flat, (0, self.padded - self.num_params))
+
+    def rows(self, flat_padded: torch.Tensor) -> torch.Tensor:
+        return flat_padded.reshape(self.num_shards, self.shard_len)
+
+    def unpad(self, flat_padded: torch.Tensor) -> torch.Tensor:
+        return flat_padded[: self.num_params]
+
+
+def wire_summary(collective: GradientCollective, n_elements: int) -> Tuple[int, int]:
+    """(f32 bytes, wire bytes) a rank a step of the ZeRO-2 exchange: one
+    reduce-scatter of the gradient and one all-gather of the update, each
+    of n_elements in the collective's format (train.metrics.
+    collective_record names them)."""
+    return 2 * 4 * n_elements, 2 * collective.wire_bytes(n_elements)

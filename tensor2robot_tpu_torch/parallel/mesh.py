@@ -19,9 +19,11 @@ replicated, so fsdp is data parallelism here), the sequence dim's ring or
 Ulysses attention, the pipe dim's GPipe stages (parallel/pipeline.py:
 each pipe rank holds one stage's blocks, the entries that
 `pipe_stage_param_rule` names) and the expert dim's resident experts
-(ops/moe.py). The model dim (tensor parallelism) and the sharding rules
-param_sharding and weight_update_sharding are not ported: they raise
-naming ROADMAP.md A9.
+(ops/moe.py). `weight_update_sharding` is the ZeRO-2 rule of the trainer's
+shard_weight_update regime: which dim of a leaf's optimizer moments (and
+EMA) a data rank keeps its slice of. The model dim (tensor parallelism)
+and the parameter sharding rule param_sharding are not ported: they raise
+naming ROADMAP.md A9 (item A9.4b).
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS, SEQUENCE_AXIS, PIPE_AXIS, EXPERT_AXIS)
 #: stacked [S, ...] stage parameters: a state entry with this name among
 #: its components is stage-local (pipe_stage_param_rule).
 PIPE_STAGES_KEY = "pipe_stages"
+
+#: Leaves with fewer elements stay replicated under the sharding rules:
+#: sharding a bias buys nothing and costs a collective.
+MIN_WEIGHT_SIZE = 2 ** 14
 
 #: Seconds a collective may wait for its peers before it raises: a hung or
 #: dead rank fails the run instead of blocking it.
@@ -152,12 +158,12 @@ def mesh_shape(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
 def check_ported_dims(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
     """mesh_shape(mesh), after refusing the dim not ported yet: a model dim
     above 1 (tensor parallelism) raises NotImplementedError naming
-    ROADMAP.md A9."""
+    ROADMAP.md A9.4b."""
     shape = mesh_shape(mesh)
     if shape[MODEL_AXIS] > 1:
         raise NotImplementedError(
             f"a mesh with ['{MODEL_AXIS}'] above 1 (tensor parallelism) is "
-            "not ported yet (ROADMAP.md A9)"
+            "not ported yet (ROADMAP.md A9.4b)"
         )
     return shape
 
@@ -299,15 +305,42 @@ def _concatenate(parts):
     return np.concatenate(parts)
 
 
+def weight_update_sharding(
+    mesh: Optional[DeviceMesh],
+    min_weight_size: int = MIN_WEIGHT_SIZE,
+    axes: Tuple[str, ...] = (DATA_AXIS,),
+):
+    """The ZeRO-2 rule (cross-replica weight-update sharding, arXiv:
+    2004.13336): parameters stay whole on every rank for the forward and
+    backward, and each rank of the replica group (the product of `axes`)
+    keeps the optimizer moments and the EMA of its slice of every leaf
+    the rule shards. rule(tensor) is the dim that shards over the group:
+    the largest one the group's size divides (the first of equal ones),
+    or None for a leaf under `min_weight_size` elements, a leaf no dim of
+    which divides (nothing is padded), and a group of 1."""
+    shape = mesh_shape(mesh)
+    group_size = int(np.prod([shape[axis] for axis in axes]))
+
+    def rule(tensor) -> Optional[int]:
+        dims = tuple(tensor.shape)
+        if group_size == 1 or not dims or int(np.prod(dims)) < min_weight_size:
+            return None
+        for dim in sorted(range(len(dims)), key=lambda i: dims[i], reverse=True):
+            if dims[dim] % group_size == 0:
+                return dim
+        return None
+
+    return rule
+
+
 def _unported(name: str):
     def rule(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} (parameter and optimizer-state sharding) is not ported "
-            "yet (ROADMAP.md A9)"
+            f"{name} (parameter sharding over fsdp and the model dim) is not "
+            "ported yet (ROADMAP.md A9.4b)"
         )
     rule.__name__ = name
     return rule
 
 
 param_sharding = _unported("param_sharding")
-weight_update_sharding = _unported("weight_update_sharding")

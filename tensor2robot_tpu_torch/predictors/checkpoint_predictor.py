@@ -124,7 +124,7 @@ class CheckpointPredictor(AbstractPredictor):
                 )
                 continue
             if self._use_ema and checkpoint["ema_params"] is not None:
-                params = {**params, **checkpoint["ema_params"]}
+                params = {**params, **state_lib.checkpoint_ema(checkpoint)}
             self.load_state_dict(params, version=step)
             return True
         return False

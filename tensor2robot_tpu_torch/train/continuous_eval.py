@@ -107,10 +107,12 @@ def backup_checkpoint_for_eval(
 
 def restore_state_from_backup(backup_root: str, step: int, trainer: Trainer) -> TrainState:
     """A TrainState restored from a backed-up checkpoint root (this rank's
-    stage of it over a pipe dim)."""
+    stage of it over a pipe dim) for eval: the optimizer's state is left
+    out, so a checkpoint of any weight-update regime (a flat or a ZeRO-2
+    one) restores (a flat EMA as a tree, through its ema_names)."""
     state = trainer.init_state()
     checkpoint = durability.load_durable(backup_root, step, map_location=trainer.device)
-    state.restore(trainer.local_checkpoint(checkpoint, state.network))
+    state.restore(trainer.local_checkpoint(dict(checkpoint, optimizer=None), state.network))
     return state
 
 

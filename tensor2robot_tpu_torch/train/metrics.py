@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 #: Train metrics under these prefixes carry a leading batch dimension:
 #: `golden/` tags tensors for golden capture (add_golden_tensor), and
@@ -18,6 +18,24 @@ from typing import Dict, List
 GOLDEN_PREFIX = "golden/"
 PER_EXAMPLE_PREFIX = "per_example/"
 BATCH_CARRYING_METRIC_PREFIXES = (GOLDEN_PREFIX, PER_EXAMPLE_PREFIX)
+
+
+def collective_record(
+    bytes_pre: float,
+    bytes_post: float,
+    wall_ms: Optional[float] = None,
+) -> Dict[str, float]:
+    """The gradient exchange's metric keys: f32 and wire bytes a rank a
+    step and their ratio, and (when measured) the exchange's wall time.
+    The trainer merges them into every train log record."""
+    record = {
+        "collective/bytes_pre": float(bytes_pre),
+        "collective/bytes_post": float(bytes_post),
+        "collective/compression": float(bytes_pre) / float(bytes_post),
+    }
+    if wall_ms is not None:
+        record["collective/wall_ms"] = float(wall_ms)
+    return record
 
 
 class MetricsWriter:

@@ -17,8 +17,15 @@ the newest `keep_checkpoint_max` (each with its durability manifest,
 `<step>.durable.json`, train/durability.py). Readers take durable steps
 only: a copy or a disk can tear a file after it was written.
 
-The flat (one concatenated vector) EMA layout of the JAX package's
-flatten_optimizer_update regime is not ported (ROADMAP.md A9).
+Two trainer regimes keep the EMA flat, as the JAX package does: one
+vector of the parameters raveled in `named_parameters` order
+(flatten_optimizer_update; one fused update a step), or that vector
+padded to the quantized ZeRO-2 step's block layout (the padded tail never
+moves). Such a checkpoint stores the flat vector with `ema_names`, the
+parameters it ravels; `ema_as_tree` and `checkpoint_ema` give every
+reader (eval, export, predictors, warm starts) the tree back. The
+quantized ZeRO-2 regime's checkpoints also hold its error-feedback
+residuals (`collective_residual`).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -43,14 +50,48 @@ def init_ema(network: nn.Module) -> Dict[str, torch.Tensor]:
     }
 
 
-def update_ema(
-    ema_params: Mapping[str, torch.Tensor],
-    new_params: Mapping[str, torch.Tensor],
-    decay: float,
-) -> Dict[str, torch.Tensor]:
-    """One EMA step, leaf by leaf: e * decay + p * (1 - decay), the JAX
-    package's formula. Returns new tensors; the inputs are not changed."""
+EMA = Union[Dict[str, torch.Tensor], torch.Tensor]
+
+
+def ema_as_tree(ema: Optional[EMA], template) -> Optional[Dict[str, torch.Tensor]]:
+    """The EMA as {parameter name: tensor}, whatever its stored layout. A
+    flat EMA (a 1-D tensor) is cut in the order and the shapes of
+    `template` (a network's parameters, or a mapping of them); a tail past
+    their total is the block layout's padding and is dropped. A tree EMA
+    passes as it is."""
+    if not isinstance(ema, torch.Tensor):
+        return ema
+    if isinstance(template, nn.Module):
+        template = dict(template.named_parameters())
+    out, offset = {}, 0
+    for name, leaf in template.items():
+        out[name] = ema[offset:offset + leaf.numel()].view(leaf.shape)
+        offset += leaf.numel()
+    if offset > ema.numel():
+        raise ValueError(f"flat EMA of {ema.numel()} elements cannot hold "
+                         f"the {offset} of its parameters")
+    return out
+
+
+def checkpoint_ema(checkpoint: Mapping[str, Any]) -> Optional[Dict[str, torch.Tensor]]:
+    """A checkpoint's EMA as a tree: a flat one is cut by its `ema_names`
+    in the shapes of those entries of `params`."""
+    ema = checkpoint.get("ema_params")
+    if not isinstance(ema, torch.Tensor):
+        return ema
+    params = checkpoint["params"]
+    return ema_as_tree(ema, {name: params[name] for name in checkpoint["ema_names"]})
+
+
+def update_ema(ema_params: EMA, new_params: Union[Mapping[str, torch.Tensor], torch.Tensor],
+               decay: float) -> EMA:
+    """One EMA step: e * decay + p * (1 - decay), the JAX package's
+    formula, leaf by leaf, or as one fused update of a flat EMA (then
+    `new_params` is the flat parameter vector). Returns new tensors; the
+    inputs are not changed."""
     with torch.no_grad():
+        if isinstance(ema_params, torch.Tensor):
+            return ema_params * decay + new_params.detach().to(ema_params.dtype) * (1.0 - decay)
         return {
             name: e * decay + new_params[name].detach().to(e.dtype) * (1.0 - decay)
             for name, e in ema_params.items()
@@ -62,22 +103,36 @@ class TrainState:
     step: int
     network: nn.Module
     optimizer: torch.optim.Optimizer
-    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    #: {name: tensor}, or one flat vector (module docstring).
+    ema_params: Optional[EMA] = None
+    #: The quantized ZeRO-2 step's error-feedback residuals: {"grad":
+    #: [1, padded] (this rank's untransmitted gradient remainder), "update":
+    #: [shard_len] (its shard's untransmitted update remainder)}; None in
+    #: every other regime.
+    collective_residual: Optional[Dict[str, torch.Tensor]] = None
+    #: How the optimizer's parameters map onto the network's in the flat
+    #: and ZeRO-2 regimes (train/train_eval.py); None: they are the same.
+    weight_update: Any = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.network.named_parameters())
 
     def export_state_dict(self, use_ema: bool = False) -> Dict[str, torch.Tensor]:
         """The network's state dict to serve or evaluate: EMA parameters
-        when present and requested, the raw ones otherwise."""
+        when present and requested (a flat EMA cut into the tree), the raw
+        ones otherwise."""
         state = {k: v.detach() for k, v in self.network.state_dict().items()}
         if use_ema and self.ema_params is not None:
-            state.update(self.ema_params)
+            state.update(ema_as_tree(self.ema_params, self.network))
         return state
 
     def restore(self, checkpoint: Mapping[str, Any]) -> None:
         """Loads a checkpoint written by save_checkpoint in place (one
-        saved without an optimizer state leaves the optimizer's as is)."""
+        saved without an optimizer state leaves the optimizer's as is). A
+        flat EMA on disk restores into a tree EMA (ema_names); a flat live
+        EMA takes a flat one only, and a state with residuals takes a
+        checkpoint that has them only: those layouts do not interchange
+        with the tree's."""
         self.network.load_state_dict(checkpoint["params"])
         if checkpoint.get("optimizer") is not None:
             self.optimizer.load_state_dict(checkpoint["optimizer"])
@@ -86,9 +141,23 @@ class TrainState:
             raise ValueError(
                 "checkpoint and model disagree on use_avg_model_params"
             )
-        if ema is not None:
+        if isinstance(self.ema_params, torch.Tensor):
+            if not isinstance(ema, torch.Tensor):
+                raise ValueError("a flat EMA cannot restore from a checkpoint "
+                                 "whose EMA is a tree")
+            self.ema_params = ema.to(self.ema_params.device)
+        elif ema is not None:
             device = next(iter(self.ema_params.values())).device
-            self.ema_params = {k: v.to(device) for k, v in ema.items()}
+            self.ema_params = {k: v.to(device)
+                               for k, v in checkpoint_ema(checkpoint).items()}
+        if self.collective_residual is not None:
+            residual = checkpoint.get("collective_residual")
+            if residual is None:
+                raise ValueError(
+                    "the quantized ZeRO-2 state restores from a checkpoint of "
+                    "the same regime only (it holds no collective_residual)")
+            self.collective_residual = {
+                k: v.to(self.collective_residual[k].device) for k, v in residual.items()}
         self.step = int(checkpoint["step"])
 
 
@@ -140,24 +209,33 @@ def save_checkpoint(
     ema_params: Optional[Mapping[str, torch.Tensor]] = None,
     optimizer: Optional[Mapping[str, Any]] = None,
     keep_checkpoint_max: Optional[int] = None,
+    ema_names: Optional[Sequence[str]] = None,
+    collective_residual: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> str:
     """Writes `<model_dir>/checkpoints/<step>.pt` through a temporary name,
     fsynced before an atomic rename and the directory fsynced after it,
     then removes all but the newest `keep_checkpoint_max` checkpoints
-    (None keeps all). Returns the path."""
+    (None keeps all). A flat `ema_params` (a tensor) needs `ema_names`,
+    the parameters it ravels; `collective_residual` is the quantized
+    ZeRO-2 step's. Returns the path."""
     os.makedirs(checkpoint_dir(model_dir), exist_ok=True)
     path = checkpoint_path(model_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
+    flat = isinstance(ema_params, torch.Tensor)
+    if flat and ema_names is None:
+        raise ValueError("a flat EMA is saved with ema_names")
+    record = {
+        "step": int(step),
+        "params": dict(params),
+        "ema_params": ema_params if ema_params is None or flat else dict(ema_params),
+        "optimizer": optimizer,
+    }
+    if flat:
+        record["ema_names"] = list(ema_names)
+    if collective_residual is not None:
+        record["collective_residual"] = dict(collective_residual)
     with open(tmp, "wb") as f:
-        torch.save(
-            {
-                "step": int(step),
-                "params": dict(params),
-                "ema_params": None if ema_params is None else dict(ema_params),
-                "optimizer": optimizer,
-            },
-            f,
-        )
+        torch.save(record, f)
         f.flush()
         os.fsync(f.fileno())
     # A manifest left by an earlier file of this step would not describe

@@ -100,9 +100,48 @@ single-device twin holding the whole chain (`Trainer.export_view`). Eval
 runs over the pipe mesh. Clipping by a global norm, which would span the
 stages, is refused over a pipe dim.
 
-plan, shard_weight_update and flatten_optimizer_update, a mesh with a
-model dim above 1, and clipping by a global norm over a pipe dim above 1
-raise NotImplementedError naming ROADMAP.md item A9.
+The weight-update regimes, resolved as the JAX package's
+ShardingPlan.regime() resolves them:
+  * flatten_optimizer_update (optax.flatten): the optimizer steps one
+    flat vector of the parameters, which are views of it
+    (models/optimizers.FlatParameters), and the EMA is stored flat
+    (train/state.py unravels it for eval, export and readers). The batch
+    norms' running statistics update in place, as in every other regime:
+    JAX's fuse_batch_stats_update computes the same numbers in one pass
+    to save small device copies on a TPU, and is not ported. Refused
+    with an fsdp or model dim above 1 and with shard_weight_update
+    (ValueError, JAX's), and over a pipe dim above 1.
+  * zero2 (shard_weight_update over a data dim above 1, the codec
+    "none"): each data rank keeps the optimizer moments and the EMA of
+    its slice of every leaf mesh.weight_update_sharding shards, and the
+    step reduce-scatters those leaves' gradients, steps the optimizer on
+    the slices, all-gathers them, and all-reduces the rest as the
+    replicated step does: the replicated step's arithmetic. Rank 0 writes
+    the replicated trainer's checkpoint (moments and EMA gathered), and a
+    resume cuts it again, so the two layouts interchange.
+  * quant_zero2 (shard_weight_update on a pure data mesh, data above 1,
+    and collective_quant, or T2R_COLLECTIVE_QUANT, other than "none"):
+    JAX's quant_train_step, the flat block-padded parameter vector
+    sharded over the data ranks and the gradient and update exchanged
+    through a block-scaled codec (parallel/collectives.py) with
+    error-feedback residuals carried in the state. As in JAX the batch
+    norms are local in this regime: each rank's train-mode moments are its
+    shard's (the norms are not synchronized) and their running statistics
+    are averaged over the data ranks after the step, the local-BN caveat.
+    The checkpoint holds the flat optimizer state, the flat EMA and both
+    residuals gathered in data-rank order; like JAX's, it does not
+    interchange with the tree layout. The flag is inert outside a pure
+    data mesh with shard_weight_update, as in JAX. The port ravels in
+    named_parameters order and torch layouts where JAX ravels flax's tree,
+    so block boundaries differ and a quantized step agrees with JAX's
+    within the quantization's tolerance, not bit for bit.
+Clipping by a global norm, which would span the shards, is refused in
+both ZeRO-2 regimes. shard_weight_update over an fsdp, sequence, pipe or
+expert dim above 1, and train_eval_model's weight_update_axes other than
+("data",) (its only legal value until A9.4b), raise
+NotImplementedError naming ROADMAP.md A9.4b, as do a model dim above 1
+and clipping by a global norm over a pipe dim above 1; `plan` (the
+planner) names A9.5.
 """
 
 from __future__ import annotations
@@ -112,12 +151,14 @@ import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from tensor2robot_tpu_torch import config as config_lib
+from tensor2robot_tpu_torch import flags
 from tensor2robot_tpu_torch.export.saved_model import TRACE_LOCK
 from tensor2robot_tpu_torch.layers import batch_norm as batch_norm_lib
 from tensor2robot_tpu_torch.layers import remat as remat_lib
@@ -127,6 +168,7 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     MODE_PREDICT,
     MODE_TRAIN,
 )
+from tensor2robot_tpu_torch.models.optimizers import FlatParameters
 from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
@@ -137,6 +179,7 @@ from tensor2robot_tpu_torch.train import state as state_lib
 from tensor2robot_tpu_torch.train.metrics import (
     BATCH_CARRYING_METRIC_PREFIXES,
     MetricsWriter,
+    collective_record,
 )
 from tensor2robot_tpu_torch.train.state import TrainState, init_ema, update_ema
 from tensor2robot_tpu_torch.utils.device import (
@@ -146,13 +189,39 @@ from tensor2robot_tpu_torch.utils.device import (
 )
 
 
-def _reject_unported(plan=None, shard_weight_update=False,
-                     flatten_optimizer_update=False) -> None:
-    if plan is not None or shard_weight_update or flatten_optimizer_update:
+def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: bool,
+                    collective_quant: Optional[str],
+                    collective_block: Optional[int]) -> tuple:
+    """(regime, the quantized collective or None), as the JAX trainer
+    resolves them (module docstring), after its refusals and the port's."""
+    shape = mesh_lib.mesh_shape(mesh)
+    others = [axis for axis in (mesh_lib.FSDP_AXIS, mesh_lib.SEQUENCE_AXIS,
+                                mesh_lib.PIPE_AXIS, mesh_lib.EXPERT_AXIS) if shape[axis] > 1]
+    if shard_weight_update and others:
         raise NotImplementedError(
-            "plan, shard_weight_update and flatten_optimizer_update are not "
-            "ported yet (ROADMAP.md A9)"
-        )
+            f"shard_weight_update over a mesh with {others} above 1 is not ported "
+            "yet (ROADMAP.md A9.4b)")
+    if flatten_optimizer_update:
+        if (shape[mesh_lib.FSDP_AXIS] > 1 or shape[mesh_lib.MODEL_AXIS] > 1
+                or shard_weight_update):
+            raise ValueError(
+                "flatten_optimizer_update concatenates all parameters into one "
+                "replicated vector, which defeats fsdp/tensor-parallel parameter "
+                "sharding and ZeRO-2 weight-update sharding; use it only in "
+                "replicated-parameter regimes.")
+        if shape[mesh_lib.PIPE_AXIS] > 1:
+            raise NotImplementedError(
+                "flatten_optimizer_update over a pipe dim above 1 is not ported "
+                "yet (ROADMAP.md A9.4b)")
+    name = collective_quant if collective_quant is not None else flags.get_enum(
+        "T2R_COLLECTIVE_QUANT")
+    block = collective_block if collective_block is not None else flags.get_int(
+        "T2R_COLLECTIVE_BLOCK")
+    if shard_weight_update and shape[mesh_lib.DATA_AXIS] > 1:
+        if name != "none":
+            return "quant_zero2", collectives.get_collective(name, block)
+        return "zero2", None
+    return "replicated", None
 
 
 def _check_trainer_mesh(model, mesh) -> None:
@@ -285,7 +354,11 @@ class Trainer:
     """The model's hooks as steps over a TrainState on one device, or on
     this rank's device of a mesh (module docstring). Train steps
     preprocess with `step_generator(seed, step)`; `remat` and
-    `grad_accum_steps` are the memory regimes."""
+    `grad_accum_steps` are the memory regimes; shard_weight_update,
+    flatten_optimizer_update, collective_quant and collective_block are
+    the JAX CompiledModel's weight-update regimes (module docstring). The
+    zero2 regime shards the leaves mesh.weight_update_sharding shards,
+    those of mesh.MIN_WEIGHT_SIZE elements or more."""
 
     def __init__(
         self,
@@ -298,14 +371,22 @@ class Trainer:
         grad_accum_steps: int = 1,
         shard_weight_update: bool = False,
         flatten_optimizer_update: bool = False,
+        collective_quant: Optional[str] = None,
+        collective_block: Optional[int] = None,
     ):
-        _reject_unported(
-            plan=plan, shard_weight_update=shard_weight_update,
-            flatten_optimizer_update=flatten_optimizer_update,
-        )
+        if plan is not None:
+            raise NotImplementedError(
+                "plan (the sharding planner) is not ported yet (ROADMAP.md A9.5)")
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         _check_trainer_mesh(model, mesh)
+        self.regime, self.collective = _resolve_regime(
+            mesh, shard_weight_update, flatten_optimizer_update, collective_quant,
+            collective_block)
+        self.flatten_optimizer_update = bool(flatten_optimizer_update)
+        self.weight_update_rule = mesh_lib.weight_update_sharding(mesh)
+        # The quantized regime's layout, set by init_state.
+        self._flat_layout: Optional[collectives.FlatShardLayout] = None
         self.model = model
         self.mesh = mesh
         # Ranks of the mesh, all of the world (make_mesh covers it).
@@ -348,17 +429,90 @@ class Trainer:
             network = self.model.create_network()
             network.load_state_dict(params)
             network = network.to(self.device)
-        batch_norm_lib.synchronize(network, self.mesh)
-        ema = init_ema(network) if self.model.use_avg_model_params else None
-        optimizer = self.optimizer_factory(network.parameters())
+        # The quantized regime's batch norms are local (module docstring).
+        batch_norm_lib.synchronize(
+            network, None if self.regime == "quant_zero2" else self.mesh)
+        update = None
+        if self.regime == "quant_zero2":
+            update = _QuantizedUpdate(network, self.collective, self.mesh)
+            self._flat_layout = update.layout
+        elif self.regime == "zero2":
+            update = _ShardedUpdate(network, self._shard_dims(network), self.mesh)
+        elif self.flatten_optimizer_update:
+            update = _FlatUpdate(network)
+        optimizer = self.optimizer_factory(
+            network.parameters() if update is None else update.optimizer_params())
         clipping = getattr(optimizer, "clipping", None)
-        if self.pipes > 1 and clipping is not None and clipping[0] is not None:
-            raise NotImplementedError(
-                "clipping by a global norm over pipeline stages is not ported "
-                "yet (ROADMAP.md A9): each pipe rank holds one stage's gradients"
-            )
-        return TrainState(step=0, network=network, optimizer=optimizer,
-                          ema_params=ema)
+        if clipping is not None and clipping[0] is not None:
+            if self.pipes > 1:
+                raise NotImplementedError(
+                    "clipping by a global norm over pipeline stages is not ported "
+                    "yet (ROADMAP.md A9.4b): each pipe rank holds one stage's gradients"
+                )
+            if self.regime in _SHARDED_REGIMES:
+                raise NotImplementedError(
+                    f"clipping by a global norm in the {self.regime} regime is not "
+                    "ported yet (ROADMAP.md A9.4b): each data rank's optimizer "
+                    "holds a shard of the gradients")
+        ema = None
+        if self.model.use_avg_model_params:
+            ema = init_ema(network) if update is None else update.init_ema()
+        return TrainState(
+            step=0, network=network, optimizer=optimizer, ema_params=ema,
+            collective_residual=(update.init_residual()
+                                 if self.regime == "quant_zero2" else None),
+            weight_update=update)
+
+    def _shard_dims(self, network: nn.Module) -> Dict[str, int]:
+        """{parameter name: the dim a data rank keeps a slice of} of the
+        zero2 regime (mesh.weight_update_sharding)."""
+        dims = {}
+        for name, p in network.named_parameters():
+            dim = self.weight_update_rule(p)
+            if dim is not None:
+                dims[name] = dim
+        return dims
+
+    @property
+    def views_state(self) -> bool:
+        """Whether a rank's live state is not the whole model's (a pipe
+        stage, or a ZeRO-2 rank's EMA shard): rank 0's exporters and
+        hooks then see export_view of a gathered checkpoint."""
+        return self.pipes > 1 or (self.regime in _SHARDED_REGIMES
+                                  and self.model.use_avg_model_params)
+
+    def collective_log_record(self, measure: bool = True) -> Dict[str, float]:
+        """The gradient exchange's bytes a rank a step before and after
+        the codec (train.metrics.collective_record) and, with `measure`,
+        the median wall time of one exchange (a collective: every rank
+        calls it). {} outside the quantized regime, and before its
+        init_state."""
+        if self.collective is None or self._flat_layout is None:
+            return {}
+        pre, post = collectives.wire_summary(self.collective, self._flat_layout.padded)
+        wall_ms = self.measure_collective_ms() if measure else None
+        return collective_record(pre, post, wall_ms)
+
+    def measure_collective_ms(self, repeats: int = 5) -> float:
+        """Median wall time in ms of one gradient exchange (the codec's
+        reduce-scatter and update all-gather) on a zero payload of the real
+        layout, after one untimed exchange; every rank calls it."""
+        coll, layout, axis = self.collective, self._flat_layout, mesh_lib.DATA_AXIS
+        payload = torch.zeros(layout.padded, device=self.device)
+
+        def exchange():
+            reduced, _ = coll.reduce_scatter(layout.rows(payload), self.mesh, axis)
+            coll.all_gather_shard(reduced / layout.num_shards, self.mesh, axis)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        exchange()
+        times = []
+        for _ in range(repeats):
+            start = time.perf_counter()
+            exchange()
+            times.append((time.perf_counter() - start) * 1000.0)
+        return sorted(times)[len(times) // 2]
 
     def preprocess_train(self, batch, generator=None):
         """(features, labels) of a device batch in train mode; random crops
@@ -433,18 +587,22 @@ class Trainer:
         state.network.train()
         features, labels = self.preprocess_train(
             batch, self.step_generator(state.step))
+        state.network.zero_grad(set_to_none=True)
         state.optimizer.zero_grad(set_to_none=True)
         loss, train_metrics = self.backward(state.network, features, labels,
                                             step=state.step)
-        if self.ranks > 1:
-            loss, train_metrics = self.average_over_ranks(
-                state.network, loss, train_metrics)
-        state.optimizer.step()
-        if state.ema_params is not None:
-            state.ema_params = update_ema(
-                state.ema_params, state.params(),
-                self.model.avg_model_params_decay,
-            )
+        if state.weight_update is not None:
+            loss, train_metrics = state.weight_update.step(self, state, loss, train_metrics)
+        else:
+            if self.ranks > 1:
+                loss, train_metrics = self.average_over_ranks(
+                    state.network, loss, train_metrics)
+            state.optimizer.step()
+            if state.ema_params is not None:
+                state.ema_params = update_ema(
+                    state.ema_params, state.params(),
+                    self.model.avg_model_params_decay,
+                )
         state.step += 1
         metrics = {"loss": loss}
         metrics.update(train_metrics)
@@ -458,13 +616,15 @@ class Trainer:
             return self
         return Trainer(self.model.without_mesh(), device=self.device, seed=self.seed)
 
-    def average_over_ranks(self, network, loss, metrics):
+    def average_over_ranks(self, network, loss, metrics, skip=()):
         """pmean over every rank of each gradient and each scalar float
         metric, in one flat all_reduce (a stage-local gradient: over its
         stage's ranks, in a second one); returns the averaged loss and
         metrics. A parameter without a gradient joins as zeros, so every
-        rank's bucket has the same layout."""
-        named = [(n, p) for n, p in network.named_parameters() if p.requires_grad]
+        rank's bucket has the same layout; the parameters named in `skip`
+        (zero2's sharded leaves) stay out."""
+        named = [(n, p) for n, p in network.named_parameters()
+                 if p.requires_grad and n not in skip]
         staged = [p for n, p in named if self.stage_local(n)]
         params = [p for n, p in named if not self.stage_local(n)]
 
@@ -493,29 +653,49 @@ class Trainer:
     def checkpoint_state(self, state: TrainState, optimizer: bool = True) -> Dict[str, Any]:
         """{step, params, ema_params, optimizer} as the checkpoint holds
         them: the network's state dict, the EMA and the optimizer's state
-        dict (None with optimizer=False). Over a pipe dim above 1 every
-        stage-local entry is stacked over the pipe ranks ([S, ...]): a
-        collective, which every rank calls."""
+        dict (None with optimizer=False), with `ema_names` for a flat EMA
+        and the quantized regime's `collective_residual`. Over a pipe dim
+        above 1 every stage-local entry is stacked over the pipe ranks
+        ([S, ...]), and in the ZeRO-2 regimes every shard is gathered over
+        the data ranks: a collective, which every rank calls."""
         params = {k: v.detach() for k, v in state.network.state_dict().items()}
-        ema = state.ema_params
-        opt = state.optimizer.state_dict() if optimizer else None
-        if self.pipes > 1:
-            params = self._stack_stages(params)
-            ema = None if ema is None else self._stack_stages(ema)
-            if opt is not None:
-                names = [n for n, _ in state.network.named_parameters()]
-                opt = dict(opt, state={
-                    i: ({k: collectives.stack_over(v, self.mesh, mesh_lib.PIPE_AXIS)
-                         for k, v in opt["state"][i].items()}
-                        if self.stage_local(names[i]) else opt["state"][i])
-                    for i in sorted(opt["state"])})
+        saved = dict(step=state.step, params=params, ema_params=state.ema_params,
+                     optimizer=state.optimizer.state_dict() if optimizer else None)
+        if state.collective_residual is not None:
+            saved["collective_residual"] = state.collective_residual
+        if state.weight_update is not None:
+            state.weight_update.gather(saved)
+        if self.pipes == 1:
+            return saved
+        ema, opt = saved["ema_params"], saved["optimizer"]
+        params = self._stack_stages(params)
+        ema = None if ema is None else self._stack_stages(ema)
+        if opt is not None:
+            names = [n for n, _ in state.network.named_parameters()]
+            opt = dict(opt, state={
+                i: ({k: collectives.stack_over(v, self.mesh, mesh_lib.PIPE_AXIS)
+                     for k, v in opt["state"][i].items()}
+                    if self.stage_local(names[i]) else opt["state"][i])
+                for i in sorted(opt["state"])})
         return dict(step=state.step, params=params, ema_params=ema, optimizer=opt)
 
     def local_checkpoint(self, checkpoint: Dict[str, Any],
                          network: torch.nn.Module) -> Dict[str, Any]:
         """A checkpoint as this rank's `network` restores it: over a pipe
         dim above 1 each stacked stage-local entry is this rank's stage's
-        slice."""
+        slice; in the ZeRO-2 regimes each gathered moment, EMA and
+        residual is this data rank's shard of it."""
+        if self.regime == "zero2":
+            return _ShardedUpdate.local(
+                checkpoint, network, self._shard_dims(network),
+                collectives.axis_index(self.mesh, mesh_lib.DATA_AXIS),
+                mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS))
+        if self.regime == "quant_zero2":
+            layout = collectives.FlatShardLayout(
+                sum(p.numel() for p in network.parameters()),
+                mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS), self.collective.block)
+            return _QuantizedUpdate.local(
+                checkpoint, layout, collectives.axis_index(self.mesh, mesh_lib.DATA_AXIS))
         if self.pipes == 1:
             return checkpoint
         stage = collectives.axis_index(self.mesh, mesh_lib.PIPE_AXIS)
@@ -536,15 +716,16 @@ class Trainer:
         return out
 
     def export_view(self, checkpoint: Dict[str, Any]) -> TrainState:
-        """What rank 0's exporters and hooks see of a pipelined state: a
-        TrainState of the single-device twin (single_device) holding the
-        whole chain from a checkpoint_state (stacked stages relabelled as
-        its blocks), with no optimizer. Without a pipe dim there is
-        nothing to view: the caller passes the live state."""
+        """What rank 0's exporters and hooks see of a state that
+        `views_state`: a TrainState of the single-device twin
+        (single_device) holding the whole model from a checkpoint_state
+        (stacked stages relabelled as its blocks, the EMA gathered and as
+        a tree), with no optimizer. Otherwise there is nothing to view:
+        the caller passes the live state."""
         if self._twin_network is None:
             self._twin_network = self.single_device().model.create_network().to(self.device)
         self._twin_network.load_state_dict(checkpoint["params"])
-        ema = checkpoint.get("ema_params")
+        ema = state_lib.checkpoint_ema(checkpoint)
         if ema is not None:
             ema = {k: v.to(self.device)
                    for k, v in pipeline_lib.unstack_stages(ema).items()}
@@ -556,7 +737,12 @@ class Trainer:
             return state.network
         if self._ema_network is None:
             self._ema_network = self.model.create_network().to(self.device)
-        self._ema_network.load_state_dict(state.export_state_dict(use_ema=True))
+        if self.regime in _SHARDED_REGIMES:  # the EMA is sharded: gather it
+            saved = self.checkpoint_state(state, optimizer=False)
+            self._ema_network.load_state_dict(
+                {**saved["params"], **state_lib.checkpoint_ema(saved)})
+        else:
+            self._ema_network.load_state_dict(state.export_state_dict(use_ema=True))
         return self._ema_network
 
     def eval_step(self, state: TrainState, batch, use_ema: bool = False):
@@ -582,6 +768,302 @@ class Trainer:
                 network, features, MODE_PREDICT
             )
             return self.model.create_export_outputs_fn(f, outputs)
+
+
+# -- the weight-update regimes -------------------------------------------------------
+
+_SHARDED_REGIMES = ("zero2", "quant_zero2")
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def _slice(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
+    """Slice `index` of `count` of t's dim `dim` (a view)."""
+    size = t.shape[dim] // count
+    return t.narrow(dim, index * size, size)
+
+
+def _unrow(row: torch.Tensor, shape, dim: int) -> torch.Tensor:
+    """A tensor of `shape` from its elements in the order
+    t.movedim(dim, 0).reshape(-1) gives them."""
+    rest = tuple(s for i, s in enumerate(shape) if i != dim)
+    return row.reshape((shape[dim],) + rest).movedim(0, dim)
+
+
+class _FlatUpdate:
+    """flatten_optimizer_update: the optimizer steps one flat vector of
+    the parameters (models/optimizers.FlatParameters), and the EMA is one
+    flat vector updated in one pass."""
+
+    def __init__(self, network: nn.Module):
+        self.flat = FlatParameters(network)
+
+    def optimizer_params(self):
+        return [self.flat.flat]
+
+    def init_ema(self) -> torch.Tensor:
+        return self.flat.flat.detach().clone()
+
+    def step(self, trainer: "Trainer", state: TrainState, loss, metrics):
+        if trainer.ranks > 1:
+            loss, metrics = trainer.average_over_ranks(state.network, loss, metrics)
+        self.flat.gather_grad()
+        state.optimizer.step()
+        if state.ema_params is not None:
+            state.ema_params = update_ema(state.ema_params, self.flat.flat,
+                                          trainer.model.avg_model_params_decay)
+        return loss, metrics
+
+    def gather(self, saved: Dict[str, Any]) -> None:
+        if saved["ema_params"] is not None:
+            saved["ema_names"] = list(self.flat.names)
+
+
+class _ShardedUpdate:
+    """zero2: every leaf that mesh.weight_update_sharding shards (`dims`,
+    name -> dim) is stepped by the optimizer as this data rank's slice of
+    it, a view of the parameter; the moments and the EMA exist for that
+    slice only. A step reduce-scatters those leaves' gradients (one
+    bucket, divided by the data size), all-reduces the others with the
+    metrics as the replicated step does, steps the optimizer, and
+    all-gathers the updated slices into the parameters (one bucket)."""
+
+    def __init__(self, network: nn.Module, dims: Dict[str, int], mesh):
+        self.mesh, self.dims = mesh, dims
+        self.size = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+        self.index = collectives.axis_index(mesh, mesh_lib.DATA_AXIS)
+        self.full: Dict[str, nn.Parameter] = {}
+        self.views: Dict[str, torch.Tensor] = {}
+        for name, p in network.named_parameters():
+            if name in dims:
+                self.full[name] = p
+                self.views[name] = nn.Parameter(
+                    _slice(p.data, dims[name], self.index, self.size))
+            else:
+                self.views[name] = p
+
+    def optimizer_params(self):
+        return list(self.views.values())
+
+    def init_ema(self) -> Dict[str, torch.Tensor]:
+        return {name: v.detach().clone() for name, v in self.views.items()}
+
+    def step(self, trainer: "Trainer", state: TrainState, loss, metrics):
+        with torch.no_grad():
+            if self.full:
+                rows = torch.cat([_grad(p).movedim(self.dims[n], 0).reshape(self.size, -1)
+                                  for n, p in self.full.items()], dim=1)
+                mine = collectives.psum_scatter(rows, self.mesh, mesh_lib.DATA_AXIS)[0]
+                mine = mine / self.size
+                offset = 0
+                for name, p in self.full.items():
+                    view = self.views[name]
+                    view.grad = _unrow(mine[offset:offset + view.numel()], view.shape,
+                                       self.dims[name])
+                    p.grad = None
+                    offset += view.numel()
+        loss, metrics = trainer.average_over_ranks(state.network, loss, metrics,
+                                                   skip=self.full)
+        state.optimizer.step()
+        with torch.no_grad():
+            if self.full:
+                mine = torch.cat([self.views[n].detach().movedim(self.dims[n], 0).reshape(-1)
+                                  for n in self.full])
+                rows = collectives.all_gather(mine, self.mesh, mesh_lib.DATA_AXIS)
+                rows = rows.view(self.size, -1)
+                offset = 0
+                for name, p in self.full.items():
+                    width = self.views[name].numel()
+                    p.copy_(_unrow(rows[:, offset:offset + width], p.shape, self.dims[name]))
+                    offset += width
+        if state.ema_params is not None:
+            state.ema_params = update_ema(state.ema_params, self.views,
+                                          trainer.model.avg_model_params_decay)
+        return loss, metrics
+
+    def gather(self, saved: Dict[str, Any]) -> None:
+        """The saved state as the replicated trainer's: each sharded
+        leaf's moments and EMA gathered over the data ranks."""
+
+        def whole(name, t):
+            if name not in self.dims or t.shape != self.views[name].shape:
+                return t
+            return collectives.all_gather(t.detach(), self.mesh, mesh_lib.DATA_AXIS,
+                                          axis=self.dims[name])
+
+        if saved["ema_params"] is not None:
+            saved["ema_params"] = {n: whole(n, t) for n, t in saved["ema_params"].items()}
+        opt = saved["optimizer"]
+        if opt is not None:
+            names = list(self.views)
+            saved["optimizer"] = dict(opt, state={
+                i: {k: whole(names[i], v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+
+    @staticmethod
+    def local(checkpoint: Dict[str, Any], network: nn.Module, dims: Dict[str, int],
+              index: int, size: int) -> Dict[str, Any]:
+        """A replicated-layout checkpoint as this data rank restores it:
+        each sharded leaf's moments and EMA cut to its slice."""
+        shapes = {n: p.shape for n, p in network.named_parameters()}
+
+        def mine(name, t):
+            if name not in dims or t.shape != shapes[name]:
+                return t
+            return _slice(t, dims[name], index, size).clone()
+
+        out = dict(checkpoint)
+        if checkpoint.get("ema_params") is not None:
+            out["ema_params"] = {n: mine(n, t)
+                                 for n, t in state_lib.checkpoint_ema(checkpoint).items()}
+        opt = checkpoint.get("optimizer")
+        if opt is not None:
+            names = list(shapes)
+            out["optimizer"] = dict(opt, state={
+                i: {k: mine(names[i], v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+        return out
+
+
+class _QuantizedUpdate:
+    """quant_zero2, JAX's quant_train_step: the parameters raveled
+    (named_parameters order) into FlatShardLayout rows, one contiguous
+    shard a data rank. A step adds the gradient residual to this rank's
+    raveled gradient, reduce-scatters it through the codec, steps the
+    optimizer on its shard (the one parameter it is bound to), adds the
+    update residual and all-gathers the update through the codec; every
+    rank adds the same dequantized update to its parameters, and both
+    residuals (what was not sent) carry to the next step. The EMA is this
+    rank's flat shard, advanced by the parameters it sent. The batch
+    norms' running statistics are averaged over the data ranks after the
+    step, and the metrics recombine over them (batch-carrying ones
+    gathered, floats averaged, integers summed)."""
+
+    def __init__(self, network: nn.Module, collective, mesh):
+        self.collective, self.mesh = collective, mesh
+        self.size = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+        self.index = collectives.axis_index(mesh, mesh_lib.DATA_AXIS)
+        self.names = [n for n, _ in network.named_parameters()]
+        self.params = [p for _, p in network.named_parameters()]
+        self.layout = collectives.FlatShardLayout(
+            sum(p.numel() for p in self.params), self.size, collective.block)
+        self.shard = nn.Parameter(self.layout.rows(self._flat_params())[self.index].clone())
+        self.stats = [t for m in network.modules() if isinstance(m, batch_norm_lib.BatchNorm)
+                      for t in (m.mean, m.var)]
+
+    def _flat_params(self) -> torch.Tensor:
+        return self.layout.pad(torch.cat([p.detach().reshape(-1).float() for p in self.params]))
+
+    def optimizer_params(self):
+        return [self.shard]
+
+    def init_ema(self) -> torch.Tensor:
+        return self.shard.detach().clone()
+
+    def init_residual(self) -> Dict[str, torch.Tensor]:
+        return {"grad": self.shard.new_zeros((1, self.layout.padded)),
+                "update": self.shard.new_zeros((self.layout.shard_len,))}
+
+    def step(self, trainer: "Trainer", state: TrainState, loss, metrics):
+        coll, layout, axis = self.collective, self.layout, mesh_lib.DATA_AXIS
+        residual = state.collective_residual
+        with torch.no_grad():
+            flat_grads = torch.cat([_grad(p).reshape(-1).float() for p in self.params])
+            rows = layout.rows(layout.pad(flat_grads) + residual["grad"][0])
+            reduced, sent = coll.reduce_scatter(rows, self.mesh, axis)
+            grad_residual = (rows - sent).reshape(1, layout.padded)
+            flat_params = self._flat_params()
+            param_shard = layout.rows(flat_params)[self.index]
+            self.shard.copy_(param_shard)
+            self.shard.grad = reduced / self.size
+            for p in self.params:
+                p.grad = None
+        state.optimizer.step()
+        with torch.no_grad():
+            update = self.shard.detach() - param_shard + residual["update"]
+            full_update, sent_update = coll.all_gather_shard(update, self.mesh, axis)
+            flat = layout.unpad(flat_params + full_update)
+            offset = 0
+            for p in self.params:
+                p.copy_(flat[offset:offset + p.numel()].view(p.shape))
+                offset += p.numel()
+            for t, mean in zip(self.stats, collectives.all_reduce_mean_flat(
+                    self.stats, self.size)):
+                t.copy_(mean)
+            if state.ema_params is not None:
+                decay = trainer.model.avg_model_params_decay
+                state.ema_params = (state.ema_params * decay
+                                    + (param_shard + sent_update) * (1.0 - decay))
+            state.collective_residual = {"grad": grad_residual,
+                                         "update": update - sent_update}
+        return self._combine(loss, metrics)
+
+    def _combine(self, loss, metrics):
+        """(loss, metrics) over the data ranks: metrics under the
+        batch-carrying prefixes (with a batch dim) gathered, floats
+        averaged in one all_reduce, integers summed."""
+        axis = mesh_lib.DATA_AXIS
+        out = {"loss": loss, **metrics}
+        carried = [k for k, v in out.items()
+                   if k.startswith(BATCH_CARRYING_METRIC_PREFIXES) and v.ndim >= 1]
+        floats = [k for k, v in out.items() if k not in carried and v.is_floating_point()]
+        for key in carried:
+            out[key] = collectives.all_gather(out[key], self.mesh, axis)
+        out.update(zip(floats, collectives.all_reduce_mean_flat(
+            [out[k] for k in floats], self.size)))
+        for key in out:
+            if key not in carried and key not in floats:
+                out[key] = collectives.psum(out[key], self.mesh, axis)
+        loss = out.pop("loss")
+        return loss, out
+
+    def gather(self, saved: Dict[str, Any]) -> None:
+        """The saved state's flat shards gathered in data-rank order: the
+        EMA [padded] (with its ema_names), the optimizer's moments
+        [padded] and the residuals ({"grad": [N, padded], "update":
+        [padded]})."""
+
+        def whole(t):
+            if t.ndim == 0:
+                return t
+            return collectives.all_gather(t.detach(), self.mesh, mesh_lib.DATA_AXIS)
+
+        if saved["ema_params"] is not None:
+            saved["ema_params"] = whole(saved["ema_params"])
+            saved["ema_names"] = list(self.names)
+        opt = saved["optimizer"]
+        if opt is not None:
+            saved["optimizer"] = dict(opt, state={
+                i: {k: whole(v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+        saved["collective_residual"] = {
+            k: whole(v) for k, v in saved["collective_residual"].items()}
+
+    @staticmethod
+    def local(checkpoint: Dict[str, Any], layout, index: int) -> Dict[str, Any]:
+        """This data rank's rows of a quantized-regime checkpoint."""
+
+        def mine(t):
+            if t.ndim == 1 and t.numel() == layout.padded:
+                return layout.rows(t)[index].clone()
+            return t
+
+        out = dict(checkpoint)
+        if isinstance(checkpoint.get("ema_params"), torch.Tensor):
+            out["ema_params"] = mine(checkpoint["ema_params"])
+        opt = checkpoint.get("optimizer")
+        if opt is not None:
+            out["optimizer"] = dict(opt, state={
+                i: {k: mine(v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+        residual = checkpoint.get("collective_residual")
+        if residual is not None:
+            out["collective_residual"] = {
+                "grad": residual["grad"][index:index + 1].clone(),
+                "update": mine(residual["update"])}
+        return out
 
 
 def restore_or_init_state(
@@ -724,15 +1206,27 @@ def train_eval_model(
     flatten_optimizer_update: bool = False,
     plan=None,
     device: Union[str, torch.device] = DEFAULT_DEVICE,
+    collective_quant: Optional[str] = None,
+    collective_block: Optional[int] = None,
+    weight_update_axes: Optional[Sequence[str]] = None,
 ) -> Dict[str, float]:
     """Trains, periodically checkpoints and evaluates the model; returns
     the final eval metrics ({} without an eval generator). Resumes from
     the newest durable checkpoint in model_dir if there is one.
 
     iterations_per_loop > 1 runs K steps per loop, and hooks then observe
-    loop granularity. remat and grad_accum_steps are the memory levers
-    (Trainer). With a mesh every rank of the world calls this with the
-    same arguments (module docstring)."""
+    loop granularity. remat, grad_accum_steps and shard_weight_update are
+    the memory levers, and flatten_optimizer_update, collective_quant,
+    collective_block the other weight-update regimes (Trainer).
+    weight_update_axes is JAX's, and only its default, None or
+    ("data",), is legal until ROADMAP.md A9.4b. In the quantized ZeRO-2
+    regime every metrics line carries the exchange's
+    collective_log_record. With a mesh every rank of the world calls this
+    with the same arguments (module docstring)."""
+    if weight_update_axes is not None and tuple(weight_update_axes) != (mesh_lib.DATA_AXIS,):
+        raise NotImplementedError(
+            f"weight_update_axes={tuple(weight_update_axes)}: ZeRO-2 over replica "
+            "axes other than ('data',) is not ported yet (ROADMAP.md A9.4b)")
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     eval_generators = normalize_eval_generators(input_generator_eval)
@@ -742,6 +1236,7 @@ def train_eval_model(
         remat=remat, grad_accum_steps=grad_accum_steps,
         shard_weight_update=shard_weight_update,
         flatten_optimizer_update=flatten_optimizer_update,
+        collective_quant=collective_quant, collective_block=collective_block,
     )
     chief = trainer.is_chief
     if chief:
@@ -779,6 +1274,9 @@ def train_eval_model(
         host_batches, trainer.mesh, trainer.grad_accum_steps,
         presharded=_reads_its_shard(input_generator_train, mesh))
 
+    # The quantized exchange's bytes and measured wall time ride in every
+    # metrics line ({} in the other regimes; a collective when measured).
+    collective_info = trainer.collective_log_record()
     writer = MetricsWriter(os.path.join(model_dir, "train")) if chief else None
     eval_writers = {
         name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
@@ -792,12 +1290,13 @@ def train_eval_model(
             hooks.extend(builder.create_hooks(exporting.model, trainer=exporting))
         if create_exporters_fn is not None:
             exporters = create_exporters_fn(exporting.model)
-    # Over a pipe dim rank 0's hooks see the twin holding the whole chain,
-    # gathered whenever they run (a collective: every rank takes part).
-    hooked = trainer.pipes > 1 and bool(hook_builders)
+    # Where a rank's state is not the whole model's (a pipe stage, a
+    # ZeRO-2 EMA shard) rank 0's hooks see the twin holding the whole
+    # model, gathered whenever they run (a collective: every rank takes part).
+    hooked = trainer.views_state and bool(hook_builders)
 
     def seen(checkpoint=None) -> TrainState:
-        if trainer.pipes == 1:
+        if not trainer.views_state:
             return state
         if checkpoint is None:
             checkpoint = trainer.checkpoint_state(state, optimizer=False)
@@ -814,6 +1313,7 @@ def train_eval_model(
         host = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
         now = time.time()
         host["steps_per_sec"] = (step - last_log_step) / max(now - t_last, 1e-9)
+        host.update(collective_info)
         t_last, last_log_step = now, step
         if writer is not None:
             writer.write(step, host)
@@ -833,6 +1333,8 @@ def train_eval_model(
             state_lib.save_checkpoint(
                 model_dir, step, saved["params"], saved["ema_params"],
                 saved["optimizer"], keep_checkpoint_max,
+                ema_names=saved.get("ema_names"),
+                collective_residual=saved.get("collective_residual"),
             )
             durability.publish_durable(model_dir, step)
         _barrier(trainer)
@@ -949,7 +1451,7 @@ def predict_from_model(
     input_generator.set_specification_from_model(model, MODE_PREDICT)
     params = checkpoint["params"]
     if model.use_avg_model_params and checkpoint["ema_params"] is not None:
-        params = {**params, **checkpoint["ema_params"]}
+        params = {**params, **state_lib.checkpoint_ema(checkpoint)}
     network = model.create_network()
     network.load_state_dict(params)
     network = network.to(trainer.device)

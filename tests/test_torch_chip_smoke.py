@@ -425,7 +425,10 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     MoE BC at the same rehearsal width on 2 data x 2 expert ranks, and BC
     pipelined over 2 data x 2 pipe ranks (1 block a stage, 1 microbatch),
     its ring-in-pipe step on 2 sequence x 2 pipe, its trainer run with a
-    stacked checkpoint and a resume. The
+    stacked checkpoint and a resume, and BC's ZeRO-2 regimes on a 4-rank
+    data mesh (global batch 8, 2 steps of each codec after a replicated
+    step, the int8 trainer run with its residuals in the checkpoint and a
+    resume, and the flat update on one device). The
     ranks import chip_smoke afresh and take their sizes and device from
     the phase's spec, and count the plain versions' calls as launches
     themselves."""
@@ -442,6 +445,7 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
         model=dict(image_size=(96, 96), num_convs=(2, 2, 1)), batch=8, mesh=(2, 2),
         timed=2, steps=2, records=(16, 4, 8)))
     monkeypatch.setattr(chip_smoke, "PARALLEL_MOE", dict(experts=4, mesh=(2, 2), timed=2))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_ZERO2", dict(chip_smoke.PARALLEL_ZERO2, steps=2))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
     # 2 more steps; the 2 x 2 run's 4 steps and 2 evals of 2 hops x 2
@@ -450,15 +454,20 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     # its eval (B2), 2 + 2 timed steps and 2 more, then two trainer runs
     # of 2 steps and an eval each, 1 block x 1 microbatch a rank each
     # time, and its served batch's B2 (2 layers) in this process.
+    # ZeRO-2: per rank the replicated step and 5 codecs x 2 steps, two
+    # trainer runs of 2 steps and an eval each, 2 layers each time; the
+    # served batch's B2 and the two one-device flat-check steps in this
+    # process.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
     pipe = 4 * (1 + 4 + 2 + 2 * 2)
+    zero2 = 4 * (1 + 5 * 2 + 2 * 2) * 2 + 2 * 2
     assert launches == {
-        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2,
+        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2,
         "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
-                           + moe + pipe),
-        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe,
-        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe,
+                           + moe + pipe + zero2),
+        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2,
+        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2,
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
@@ -477,5 +486,12 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "[parallel_pipe] ring in pipe: one step on a 2 sequence x 2 pipe mesh",
                  "no kernel launch", "[parallel_pipe] train_eval_model on the 2 x 2",
                  "2.pt holds the stages stacked ((2, ", "4.pt served on one card by "
-                 "CheckpointPredictor", "[parallel_pipe] sub-phase"):
+                 "CheckpointPredictor", "[parallel_pipe] sub-phase",
+                 "[parallel_zero2] BC (", "on a 4-rank data mesh, global batch 8, block 512",
+                 "[parallel_zero2] none (zero2)", "step 1 vs the replicated step",
+                 "[parallel_zero2] int8 (quant_zero2)", "(3.97x)",
+                 "[parallel_zero2] fp8_e5m2 (quant_zero2)", "after 2 steps vs the exact run",
+                 "[parallel_zero2] train_eval_model in int8", "2.pt holds the residuals ((4, ",
+                 "[parallel_zero2] flatten_optimizer_update on one card",
+                 "[parallel_zero2] sub-phase"):
         assert line in out, out

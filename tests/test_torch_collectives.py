@@ -13,6 +13,7 @@ order, so the tolerance is 1e-6.
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from tensor2robot_tpu.parallel import collectives as jax_collectives
@@ -158,17 +159,21 @@ def test_make_mesh_errors_and_the_world_of_one():
 def test_mesh_type_and_unported_rules():
     with pytest.raises(TypeError, match="DeviceMesh"):
         mesh_lib.check_mesh(object())
-    for rule in (mesh_lib.param_sharding, mesh_lib.weight_update_sharding):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            rule(None)
+    # Parameter sharding is A9.4b; the ZeRO-2 rule is ported (A9.4a), and
+    # without a mesh (a replica group of 1) it shards nothing.
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A9\.4b"):
+        mesh_lib.param_sharding(None)
+    assert mesh_lib.weight_update_sharding(None)(torch.zeros(256, 256)) is None
     # pipe_stage_param_rule is ported: without a pipe dim above 1 nothing
     # is stage-local (tests/test_torch_pipelined_bc.py holds it on a mesh).
     rule = mesh_lib.pipe_stage_param_rule(None)
     assert rule("encoder.pipe_stages.block_0.attention.qkv.weight") is None
     assert mesh_lib.is_stage_entry("encoder/pipe_stages/block_0/attention/qkv/kernel")
     assert not mesh_lib.is_stage_entry("encoder.block_0.attention.qkv.weight")
-    for codec in (collectives.GradientCollective, collectives.FlatShardLayout,
-                  collectives.available_collectives, collectives.get_collective,
-                  collectives.register_collective, collectives.wire_summary):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            codec("int8")
+    # The codecs are ported (A9.4a): the registry resolves, and a name
+    # outside it raises KeyError naming both flags and the menu.
+    assert collectives.available_collectives() == (
+        "fp16", "fp8_e4m3", "fp8_e5m2", "int8", "none")
+    assert collectives.get_collective("int8", 512).wire_bytes(1024) == 1024 + 8
+    with pytest.raises(KeyError, match="T2R_COLLECTIVE_QUANT"):
+        collectives.get_collective("int4", 512)
