@@ -246,7 +246,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 card by CheckpointPredictor within 1e-4 of the einsum
                 path. Then on the same ranks, parallel_critic: the
                 full-width f32 critic (batch 64) on a 2 data x 2 fsdp
-                mesh, its batch norms' moments over every shard, held
+                mesh (the sharded_params regime: its large kernels split
+                over fsdp and gathered on use; regime and bytes a rank
+                logged), its batch norms' moments over every shard, held
                 against the single-device batch-64 step on the same
                 weights and preprocessed batch with every relu and pool
                 pinned to the single-device choices (loss 1e-5 rel,
@@ -299,8 +301,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                 resume to 4), its 4.pt served on one card within 1e-4
                 of the einsum path; and on one card a
                 flatten_optimizer_update step against the per-leaf one.
-                The four processes share one card: no time here is a
-                multi-card speed.
+                And parallel_sharded: the BC width on a 1 data x 2 fsdp
+                x 2 model mesh (the sharded_params regime: 19 leaves,
+                3 462 656 parameters, split four ways; each Linear and
+                Conv kernel's output channels over model, gathered after
+                the rank's columns, its inputs over fsdp), global batch
+                8: one step's loss and every gradient (gathered) and an
+                eval forward against the single-device flash step under
+                the BC gate, a control with the column split's output
+                gather summing the model ranks' cotangents (as
+                all_gather's backward would) that must fail it, every
+                rank's parameter and Adam-moment bytes exactly the
+                reckoning from the whole leaves (each of 2^14 elements
+                or more split four ways), B1, B3 and B4 exactly 4 times
+                a rank a step (B2 4 in its eval); the synced step
+                (median of 5), staged MB and peak GiB, and the same
+                steps with every sharded leaf gathered on use (the
+                column split off; checked, not counted); then train_eval_model clipped to a global
+                norm the BC gradient exceeds (4 steps, checkpoints at 2
+                and 4, every rank's clip factor below 1 and the same),
+                its newest checkpoint resumed on the mesh and on one
+                card equal bit for bit, and served on one card within
+                1e-4 of the einsum path. The four processes share one
+                card: no time here is a multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -4858,11 +4881,12 @@ def _parallel_spec() -> dict:
                 batch=SLICE["batch"], layers=NUM_LAYERS, timed=PARALLEL_TIMED_STEPS,
                 regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN,
                 critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE),
-                pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2))
+                pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2),
+                sharded=dict(PARALLEL_SHARDED))
 
 
 def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
-                pipe: int = 1):
+                pipe: int = 1, model: int = 1):
     """A rank's f32 settings (as main() sets them) and its mesh. On the
     CPU (a rehearsal) the kernels' plain versions count as their kernels
     would, so the launch checks run as on the card."""
@@ -4886,10 +4910,10 @@ def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int
                                                 "flash_fwd_tile")
         fa.flash_attention_bwd_plain = counted(fa.flash_attention_bwd_plain,
                                                "flash_bwd_dq", "flash_bwd_dkv")
-    key = (data, sequence, fsdp, expert, pipe)
+    key = (data, sequence, fsdp, expert, pipe, model)
     if key not in _RANK_MESHES:
-        _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, fsdp=fsdp, sequence=sequence,
-                                               expert=expert, pipe=pipe)
+        _RANK_MESHES[key] = mesh_lib.make_mesh(data=data, fsdp=fsdp, model=model,
+                                               sequence=sequence, expert=expert, pipe=pipe)
     return _RANK_MESHES[key]
 
 
@@ -5139,10 +5163,11 @@ def _serve_mesh_checkpoint(model_dir: str, want: list) -> tuple:
 
 # -- parallel_critic and parallel_moe: global batches and experts on the same ranks --
 
-# The full-width f32 critic on a 2 data x 2 fsdp mesh (fsdp is data
-# parallelism over replicated parameters here, so data_shard's fsdp index
-# is exercised): global batch 64, 16 a rank, its batch norms' train-mode
-# moments over the 4 shards. `records` = (train records in as many files
+# The full-width f32 critic on a 2 data x 2 fsdp mesh: the sharded_params
+# regime, as the JAX trainer resolves it (every leaf of mesh.MIN_WEIGHT_SIZE
+# elements or more split over fsdp, gathered on use), and data_shard's fsdp
+# index: global batch 64, 16 a rank, its batch norms' train-mode moments
+# over the 4 shards. `records` = (train records in as many files
 # as shards, files, eval records) of shard_by_host JPEG input for the
 # train_eval_model run of `steps` steps.
 PARALLEL_CRITIC = dict(model=CRITIC, batch=CRITIC_BATCH, mesh=(2, 2), timed=5,
@@ -5167,9 +5192,14 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 # in-pipe step and its reference, 4 trainer steps with 2 evals, a
 # resume and a served checkpoint; ZeRO-2's replicated step, 5 x 5 codec
 # steps, 4 trainer steps with 2 evals, a resume, a served checkpoint and
-# two one-card steps.
+# two one-card steps; sharded parameters' checked step, its control, its
+# single-device reference, 7 timed steps of ~2.5 s (~2 GB staged a rank a
+# step, most of it the column-split conv's input cotangent and output),
+# 7 more with every sharded leaf gathered on use (~0.5 s each, tens of MB
+# staged), 4 trainer steps with 2 evals, a resume on the mesh and on one
+# card, a served checkpoint.
 PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60,
-                       "parallel_zero2": 45}
+                       "parallel_zero2": 45, "parallel_sharded": 62}
 
 
 @contextlib.contextmanager
@@ -5239,6 +5269,7 @@ def parallel_rank_critic(spec: dict, routing_dir: str, synchronized: bool) -> di
 
     from tensor2robot_tpu_torch.layers import batch_norm
     from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.parallel import sharded_params
     from tensor2robot_tpu_torch.research.qtopt.routing import Routing, pinned_routing
     from tensor2robot_tpu_torch.train.train_eval import Trainer
 
@@ -5248,7 +5279,8 @@ def parallel_rank_critic(spec: dict, routing_dir: str, synchronized: bool) -> di
         torch.cuda.empty_cache()
     model = _parallel_critic_model(spec)
     trainer = Trainer(model, device=device, mesh=mesh)
-    network = trainer.init_state(torch.Generator().manual_seed(0)).network
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    network = state.network
     _zero_statistics(network)
     if not synchronized:
         batch_norm.synchronize(network, None)
@@ -5259,10 +5291,10 @@ def parallel_rank_critic(spec: dict, routing_dir: str, synchronized: bool) -> di
     network.train()
     with _deterministic_convs(), pinned_routing(routing):
         loss, metrics = trainer.backward(network, features, labels)
-    loss, _ = trainer.average_over_ranks(network, loss, metrics)
+    loss, _ = trainer.reduce_gradients(state, loss, metrics)
+    grads = sharded_params.full_grads(network, trainer.param_layout, mesh)
     _sync(device)
-    return dict(loss=loss.item(),
-                grads={n: p.grad.cpu().numpy() for n, p in network.named_parameters()},
+    return dict(loss=loss.item(), grads={n: g.cpu().numpy() for n, g in grads.items()},
                 stats={n: b.cpu().numpy() for n, b in network.named_buffers()})
 
 
@@ -5311,7 +5343,28 @@ def parallel_rank_critic_time(spec: dict) -> dict:
     state = trainer.init_state(torch.Generator().manual_seed(0))
     batch = to_device(mesh_lib.shard_batch(_bc_batch(model, critic["batch"], seed=0), mesh),
                       device)
-    return _timed_mesh_steps(trainer, state, batch, device, critic["timed"])
+    timed = _timed_mesh_steps(trainer, state, batch, device, critic["timed"])
+    timed.update(regime=trainer.regime, **_state_bytes(state, trainer))
+    return timed
+
+
+def _state_bytes(state, trainer) -> dict:
+    """This rank's parameter and Adam-moment bytes, the whole model's
+    parameter bytes, and how many leaves it holds a shard of."""
+    from tensor2robot_tpu_torch.parallel import sharded_params
+
+    layout, whole = trainer.param_layout, 0
+    for name, p in state.network.named_parameters():
+        shape = (sharded_params.whole_shape(p, layout[name], trainer.mesh)
+                 if name in layout else p.shape)
+        whole += math.prod(shape) * p.element_size()
+    network = state.network
+    return dict(
+        param_bytes=sum(p.numel() * p.element_size() for p in network.parameters()),
+        opt_bytes=sum(t.numel() * t.element_size()
+                      for entry in state.optimizer.state_dict()["state"].values()
+                      for t in entry.values() if t.ndim),
+        whole_bytes=whole, sharded_leaves=len(layout))
 
 
 def parallel_rank_critic_train(spec: dict, patterns: dict, model_dir: str) -> dict:
@@ -5470,7 +5523,10 @@ def parallel_critic(world, spec: dict, model_dir: str) -> None:
         f"{timed[0]['step_max']:.3f}) over {critic['timed']} on rank 0, medians by rank "
         f"{[round(r['step_ms'], 3) for r in timed]}; peak GiB by rank "
         f"{[round(r['peak_gib'], 3) for r in timed]}; gloo host-staged "
-        f"{timed[0]['staged_mb']:.3f} MB a step on rank 0")
+        f"{timed[0]['staged_mb']:.3f} MB a step on rank 0; regime {timed[0]['regime']}: "
+        f"{timed[0]['sharded_leaves']} leaves sharded over fsdp, parameters "
+        f"{timed[0]['param_bytes'] / 1e6:.3f} MB a rank of {timed[0]['whole_bytes'] / 1e6:.3f}"
+        f" MB, optimizer state {timed[0]['opt_bytes'] / 1e6:.3f} MB a rank")
 
     t_train = time.monotonic()
     run_dir = tempfile.mkdtemp(dir=model_dir)
@@ -6371,14 +6427,417 @@ def parallel_zero2(world, spec: dict, model_dir: str) -> dict:
     return launches
 
 
+# -- parallel_sharded: parameters sharded over fsdp and model on the same ranks --
+
+# BC at the BC width on a 1 data x 2 fsdp x 2 model mesh, the sharded_params
+# regime (mesh.param_sharding: every leaf of mesh.MIN_WEIGHT_SIZE elements
+# or more split four ways, each kernel's output channels over model and its
+# inputs over fsdp, the pos_embedding's E over model and T over fsdp),
+# global batch 8 (4 episodes a data x fsdp shard; the two model ranks of a
+# shard hold the same episodes). Its train_eval_model run clips to global
+# norm `clip`, below the BC gradient's norm, so every step clips.
+PARALLEL_SHARDED = dict(mesh=(1, 2, 2), batch=8, clip=0.05,
+                        train=dict(steps=4, save_every=2, eval_steps=1))
+
+
+def _sharded_reference(kwargs: dict, device: str, weights: dict, batch) -> tuple:
+    """Rank 0: the single-device flash step on the whole batch from the
+    gathered weights: (loss, {name: gradient}, eval actions)."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    model = TransformerBCModel(**kwargs)
+    trainer = Trainer(model, device=device)
+    network = trainer.init_state(params=weights).network
+    network.train()
+    with _deterministic_convs():
+        loss, _ = trainer.forward_loss(network, batch)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in network.named_parameters()}
+    network.zero_grad(set_to_none=True)
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        action = model.packed_inference(network, features, "eval")[2]["inference_output"]
+    return loss.item(), grads, action
+
+
+def _bc_grad_gate(loss: float, grads: dict, ref_loss: float, ref_grads: dict) -> dict:
+    """A mesh step's loss and gathered gradients against the single-device
+    step's: the loss error (LOSS_TOL rel) and the worst gradient's share of
+    its allowance (GRAD_TOL of its leaf's max + 1e-7) and its leaf."""
+    worst, worst_name = 0.0, ""
+    for name, ref in ref_grads.items():
+        share = (grads[name] - ref).abs().max().item() / (
+            GRAD_TOL * ref.abs().max().item() + 1e-7)
+        if share > worst:
+            worst, worst_name = share, name
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    return dict(loss=loss, ref_loss=ref_loss, loss_err=loss_err, worst=worst,
+                worst_name=worst_name, ok=loss_err <= LOSS_TOL and worst <= 1.0)
+
+
+def parallel_rank_sharded(spec: dict) -> dict:
+    """On every rank of the 1 x 2 x 2 mesh: one step's loss and every
+    gradient (gathered whole) against the single-device flash step on
+    rank 0, the same step with the output gather's backward left as
+    all_gather's (the control, which must fail; its launches are checked,
+    not counted), an eval forward, the bytes this rank holds against the
+    reckoning, then the synced step (median of `timed`), staged MB and
+    peak GiB, and the same steps with the column split off. Returns the
+    rank's numbers and the launches of its main-path calls."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import collectives, sharded_params
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device, layers = spec["sharded"], spec["device"], spec["layers"]
+    data, fsdp, model_size = cfg["mesh"]
+    mesh = _rank_setup(spec, data, 1, fsdp=fsdp, model=model_size)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerBCModel(**spec["model"])
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    network, layout = state.network, trainer.param_layout
+    weights = trainer.checkpoint_state(state, optimizer=False)["params"]
+    host = _bc_batch(model, cfg["batch"], seed=0)
+    batch = to_device(mesh_lib.shard_batch(host, mesh), device)
+    rank = dist.get_rank()
+    want = {"flash_fwd": 0, "flash_fwd_tile": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+    out = {"rank": rank, "regime": trainer.regime, "layout": len(layout),
+           "launches": {k: 0 for k in read_launches()}}
+    # The reckoning, from the whole leaves and not from the trainer's
+    # layout: at the BC width every leaf of mesh.MIN_WEIGHT_SIZE elements
+    # or more splits fsdp x model ways (its last dim and another divide),
+    # and every other leaf stays whole.
+    ways = fsdp * model_size
+    sizes = [weights[n].numel() for n, _ in network.named_parameters()]
+    split = [n for n in sizes if n >= mesh_lib.MIN_WEIGHT_SIZE]
+    out.update(params_split=sum(split), leaves_rule=len(split),
+               params_rule=sum(n // ways if n >= mesh_lib.MIN_WEIGHT_SIZE else n
+                               for n in sizes))
+
+    def gate_step(control: bool):
+        saved = collectives._GatherFrom
+        if control:
+            collectives._GatherFrom = collectives._AllGather
+        network.train()
+        reset_launches()
+        try:
+            with _deterministic_convs():
+                features, labels = trainer.preprocess_train(batch)
+                loss, metrics = trainer.backward(network, features, labels)
+                loss, _ = trainer.reduce_gradients(state, loss, metrics)
+            _sync(device)
+        finally:
+            collectives._GatherFrom = saved
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"rank {rank} sharded step launched {launches} != {want}")
+        if not control:
+            for name, count in launches.items():
+                out["launches"][name] += count
+        grads = sharded_params.full_grads(network, layout, mesh)
+        network.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    loss, grads = gate_step(False)
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        reset_launches()
+        action = model.packed_inference(network, features, "eval")[2]["inference_output"]
+        _sync(device)
+    launches = read_launches()
+    eval_want = {"flash_fwd": layers, "flash_fwd_tile": 0, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
+    if launches != eval_want:
+        raise AssertionError(f"rank {rank} sharded eval launched {launches} != {eval_want}")
+    for name, count in launches.items():
+        out["launches"][name] += count
+    control_loss, control_grads = gate_step(True)
+    if rank == 0:
+        ref_loss, ref_grads, ref_action = _sharded_reference(
+            spec["model"], device, weights, to_device(host, device))
+        out["gate"] = _bc_grad_gate(loss, grads, ref_loss, ref_grads)
+        out["control"] = _bc_grad_gate(control_loss, control_grads, ref_loss, ref_grads)
+        out["norm"] = math.sqrt(sum(float(torch.sum(g.double() ** 2))
+                                    for g in ref_grads.values()))
+        rows = ref_action[:action.shape[0]]
+        out["eval_err"] = ((action - rows).abs() / (1 + rows.abs())).max().item()
+        del ref_grads, ref_action
+    del grads, control_grads, action, weights
+    dist.barrier()
+
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out.update(_timed_mesh_steps(trainer, state, batch, device, spec["timed"]))
+    launches = read_launches()
+    steps = 2 + spec["timed"]
+    if launches != {name: count * steps for name, count in want.items()}:
+        raise AssertionError(f"rank {rank} sharded timed steps launched {launches}")
+    for name, count in launches.items():
+        out["launches"][name] += count
+    out.update(_state_bytes(state, trainer))
+
+    # The same timed steps with every sharded leaf gathered on use, the
+    # column split off: what the column split's activation traffic costs
+    # against gathering its weights. Checked, not counted.
+    del state, network
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    column_layers = sharded_params._COLUMN_LAYERS
+    sharded_params._COLUMN_LAYERS = ()
+    try:
+        gathered = Trainer(model, device=device, mesh=mesh)
+        gathered_state = gathered.init_state(torch.Generator().manual_seed(0))
+    finally:
+        sharded_params._COLUMN_LAYERS = column_layers
+    reset_launches()
+    timed = _timed_mesh_steps(gathered, gathered_state, batch, device, spec["timed"])
+    launches = read_launches()
+    if launches != {name: count * steps for name, count in want.items()}:
+        raise AssertionError(f"rank {rank} gathered-on-use steps launched {launches}")
+    out["gathered"] = {k: timed[k] for k in ("step_ms", "step_min", "step_max", "staged_mb")}
+    return out
+
+
+def _recording_clip(clip: float, scales: list):
+    """An Adam factory clipped to global norm `clip` whose optimizer
+    appends each update's clip factor to `scales`."""
+    from tensor2robot_tpu_torch.models import optimizers
+
+    def create():
+        clipped = optimizers.with_gradient_clipping(optimizers.create_adam_optimizer(),
+                                                    max_global_norm=clip)
+
+        def bind(params):
+            optimizer = clipped(params)
+            step = optimizer.step
+
+            def recorded(closure=None):
+                result = step(closure)
+                scales.append(float(optimizer.clip_scale))
+                return result
+
+            optimizer.step = recorded
+            return optimizer
+
+        return bind
+
+    return create
+
+
+def parallel_rank_sharded_train(spec: dict, model_dir: str) -> dict:
+    """On every rank: train_eval_model of BC on the 1 x 2 x 2 mesh, clipped
+    (PARALLEL_SHARDED's clip), with checkpoints; then a trainer on the
+    mesh resumes the newest one and gathers it again. Returns the final
+    eval, each step's clip factor, the launches, peak GiB and (rank 0)
+    the resumed state gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+        train_eval_model,
+    )
+
+    cfg = spec["sharded"]
+    data, fsdp, model_size = cfg["mesh"]
+    mesh = _rank_setup(spec, data, 1, fsdp=fsdp, model=model_size)
+    train, scales = cfg["train"], []
+    model = TransformerBCModel(create_optimizer_fn=_recording_clip(cfg["clip"], scales),
+                               **spec["model"])
+    if spec["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final_eval = train_eval_model(
+        model,
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=0),
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=1000),
+        model_dir=model_dir, max_train_steps=train["steps"],
+        save_checkpoints_steps=train["save_every"], eval_steps=train["eval_steps"],
+        log_every_steps=train["save_every"], device=spec["device"], mesh=mesh,
+    )
+    _sync(spec["device"])
+    launches = read_launches()
+    trainer = Trainer(TransformerBCModel(create_optimizer_fn=_recording_clip(cfg["clip"], []),
+                                         **spec["model"]), device=spec["device"], mesh=mesh)
+    resumed = trainer.checkpoint_state(restore_or_init_state(model_dir, trainer))
+    out = {"final_eval": final_eval, "scales": scales, "launches": launches,
+           "peak_gib": _peak_gib(spec["device"]), "regime": trainer.regime}
+    if dist.get_rank() == 0:
+        out["resumed"] = dict(
+            step=resumed["step"],
+            params={k: v.cpu() for k, v in resumed["params"].items()},
+            moments={i: {k: v.cpu() for k, v in e.items()}
+                     for i, e in resumed["optimizer"]["state"].items()})
+    return out
+
+
+def _one_card_resume(spec: dict, model_dir: str, resumed: dict) -> str:
+    """The newest checkpoint restored by the one-card trainer, against the
+    mesh trainer's resume gathered whole, bit for bit: every parameter and
+    Adam moment."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    trainer = Trainer(TransformerBCModel(
+        create_optimizer_fn=_recording_clip(spec["sharded"]["clip"], []), **spec["model"]),
+        device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    if state.step != resumed["step"]:
+        raise AssertionError(f"one card resumed step {state.step} != {resumed['step']}")
+    for name, value in state.network.state_dict().items():
+        if not torch.equal(value.cpu(), resumed["params"][name]):
+            raise AssertionError(f"one-card resume {name} differs from the mesh's")
+    saved = state.optimizer.state_dict()["state"]
+    for index, entry in resumed["moments"].items():
+        for key, value in entry.items():
+            if not torch.equal(saved[index][key].cpu(), value):
+                raise AssertionError(f"one-card resume moment {index} {key} differs")
+    return (f"{resumed['step']}.pt resumed on one card equal bit for bit to the mesh's "
+            f"resume gathered whole ({len(resumed['params'])} entries, "
+            f"{len(resumed['moments'])} moment pairs)")
+
+
+def parallel_sharded(world, spec: dict, model_dir: str) -> dict:
+    """Parameter sharding on the ranks: one step against the single-device
+    step and its control, bytes a rank, the synced step; then
+    train_eval_model clipped by a global norm, resumed on one card and
+    served from one card. Returns the launches of every main-path call."""
+    t0 = time.monotonic()
+    cfg = spec["sharded"]
+    layers = spec["layers"]
+    launches = {name: 0 for name in read_launches()}
+
+    def add(counts) -> None:
+        for name, count in counts.items():
+            launches[name] += count
+
+    ranks = world.run(parallel_rank_sharded, spec, timeout_s=PARALLEL_TIMEOUT)
+    for r in ranks:
+        add(r["launches"])
+    head = ranks[0]
+    gate, control = head["gate"], head["control"]
+    failures = []
+    if not (gate["ok"] and head["eval_err"] <= SERVE_TOL):
+        failures.append(f"sharded step off the single-device one: {gate}, eval "
+                        f"{head['eval_err']}")
+    if control["ok"]:
+        failures.append(f"control (a model-dim gradient summed) passed the gate: {control}")
+    for r in ranks:
+        if r["regime"] != "sharded_params" or r["layout"] != r["leaves_rule"] or not (
+                r["param_bytes"] == 4 * r["params_rule"] < r["whole_bytes"]):
+            failures.append(f"rank {r['rank']} {r['regime']} holds {r['param_bytes']} "
+                            f"parameter bytes in {r['layout']} sharded leaves, the "
+                            f"reckoning {4 * r['params_rule']} in {r['leaves_rule']}")
+        if r["opt_bytes"] != 2 * r["param_bytes"]:
+            failures.append(f"rank {r['rank']} bytes {r['param_bytes']} / {r['opt_bytes']}")
+    data, fsdp, model_size = cfg["mesh"]
+    log(f"[parallel_sharded] BC ({head['whole_bytes'] // 4} parameters) on a {data} data x "
+        f"{fsdp} fsdp x {model_size} model mesh, global batch {cfg['batch']} "
+        f"({cfg['batch'] // (data * fsdp)} episodes a data x fsdp shard), regime "
+        f"{head['regime']}, on {card_line()}: {head['layout']} leaves sharded "
+        f"({head['params_split']} parameters split {fsdp * model_size} ways); "
+        f"{head['param_bytes'] // 4} parameters a rank ({head['param_bytes'] / 1e6:.3f} MB, the "
+        f"reckoning's {4 * head['params_rule'] / 1e6:.3f} MB), Adam moments "
+        f"{head['opt_bytes'] / 1e6:.3f} MB a rank against "
+        f"{2 * head['whole_bytes'] / 1e6:.3f} MB replicated; one step vs the single-device "
+        f"step: loss {gate['loss']:.7f} vs {gate['ref_loss']:.7f} (rel "
+        f"{gate['loss_err']:.2e}), worst gradient {gate['worst_name']} at "
+        f"{gate['worst']:.3e} of its allowance; eval forward within "
+        f"{head['eval_err']:.2e}; control with the output gather's backward summed over "
+        f"model: worst gradient {control['worst_name']} at {control['worst']:.1f} of its "
+        f"allowance (fails, as it must); the global gradient norm {head['norm']:.4f}; "
+        f"B1/B3/B4 {layers} each a rank a step (B2 {layers} in its eval); synced step "
+        f"median {head['step_ms']:.3f} ms (min {head['step_min']:.3f}, max "
+        f"{head['step_max']:.3f}) over {spec['timed']} on rank 0, medians by rank "
+        f"{[round(r['step_ms'], 3) for r in ranks]}; gloo host-staged "
+        f"{head['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
+        f"{[round(r['peak_gib'], 3) for r in ranks]}; every sharded leaf gathered on use "
+        f"(no column split), same ranks and batch: synced step median "
+        f"{head['gathered']['step_ms']:.3f} ms (min {head['gathered']['step_min']:.3f}, max "
+        f"{head['gathered']['step_max']:.3f}), medians by rank "
+        f"{[round(r['gathered']['step_ms'], 3) for r in ranks]}, gloo host-staged "
+        f"{head['gathered']['staged_mb']:.3f} MB a step on rank 0")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    train = cfg["train"]
+    steps = train["steps"]
+    evals = steps // train["save_every"]
+    want = {"flash_fwd": layers * evals * train["eval_steps"],
+            "flash_fwd_tile": layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    with tempfile.TemporaryDirectory(dir=model_dir) as run_dir:
+        t_train = time.monotonic()
+        runs = world.run(parallel_rank_sharded_train, spec, run_dir,
+                         timeout_s=PARALLEL_TIMEOUT)
+        for r in runs:
+            if r["launches"] != want:
+                raise AssertionError(f"sharded train_eval_model launched {r['launches']} "
+                                     f"!= {want}")
+            add(r["launches"])
+        finals = {round(r["final_eval"]["eval/mse"], 9) for r in runs}
+        if len(finals) != 1 or not all(math.isfinite(e) for e in finals):
+            raise AssertionError(f"ranks' final evals {finals}")
+        scales = runs[0]["scales"]
+        if (len(scales) != steps or not all(0 < x < 1 for x in scales)
+                or any(r["scales"] != scales for r in runs)):
+            raise AssertionError(f"clip factors by rank {[r['scales'] for r in runs]}")
+        resumed = _one_card_resume(spec, run_dir, runs[0]["resumed"])
+        served, served_launches = _serve_mesh_checkpoint(
+            run_dir, list(range(train["save_every"], steps + 1, train["save_every"])))
+        add(served_launches)
+        log(f"[parallel_sharded] train_eval_model on the {data} x {fsdp} x {model_size} "
+            f"mesh clipped to global norm {cfg['clip']} on {card_line()}: {steps} steps "
+            f"(B1/B3/B4 {layers * steps} a rank, B2 {want['flash_fwd']} in its evals), clip "
+            f"factor by step {[round(x, 6) for x in scales]}, the same on every rank; final "
+            f"eval {runs[0]['final_eval']} on every rank; {resumed}; {served}; peak GiB by "
+            f"rank {[round(r['peak_gib'], 3) for r in runs]}; "
+            f"{time.monotonic() - t_train:.1f}s")
+    log(f"[parallel_sharded] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_sharded']} s)")
+    return launches
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
     single-device step, then train_eval_model on a 2 x 2 mesh served from
     one card; then on the same ranks the critic over data x fsdp, MoE BC
-    over data x expert, BC pipelined over data x pipe and BC's ZeRO-2
-    regimes over data (parallel_critic, parallel_moe, parallel_pipe,
-    parallel_zero2). Returns the launches of every rank's main-path
+    over data x expert, BC pipelined over data x pipe, BC's ZeRO-2
+    regimes over data and BC's parameters sharded over fsdp x model
+    (parallel_critic, parallel_moe, parallel_pipe, parallel_zero2,
+    parallel_sharded). Returns the launches of every rank's main-path
     calls."""
     import torch
 
@@ -6445,6 +6904,8 @@ def phase_parallel(model_dir: str) -> dict:
         for name, count in parallel_pipe(world, spec, model_dir).items():
             launches[name] += count
         for name, count in parallel_zero2(world, spec, model_dir).items():
+            launches[name] += count
+        for name, count in parallel_sharded(world, spec, model_dir).items():
             launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
         f"{launches}")

@@ -58,6 +58,11 @@ class MAMLNetwork(nn.Module):
     a ParameterDict key cannot hold the '.' of a torch name; empty when
     the rates are not learned)."""
 
+    #: The inner loop takes the base's parameters functionally
+    #: (functional_call), so they cannot be shards
+    #: (parallel/sharded_params.py refuses, naming ROADMAP.md A9.4c).
+    takes_sharded_params = False
+
     def __init__(self, base: nn.Module, learn_inner_lr: bool = False,
                  learning_rate: float = 0.001):
         super().__init__()

@@ -14,7 +14,11 @@ updates are optax's:
     inside the square root and the second moment starting at 0;
   * clipping is written out as optax's `clip` then `clip_by_global_norm`
     (g * max / ||g|| when ||g|| >= max; torch's clip_grad_norm_ adds 1e-6
-    to the norm).
+    to the norm). Where an optimizer steps shards of the global
+    parameters (a pipe stage's, a ZeRO-2 slice, the sharded_params
+    regime's shards), the trainer sets its `global_norm_squared`, which
+    sums the squared norms over every shard, so the norm is the global
+    gradient's, as optax's under GSPMD.
 
 Moving-average ("swapping saver") parameters are the trainer's EMA
 (train/state.py).
@@ -79,6 +83,12 @@ class _OptaxStep:
 
     _schedule: Schedule
     clipping: Optional[Tuple[Optional[float], Optional[float]]] = None
+    #: (params, their squared gradient norms) -> the global squared norm,
+    #: set by the trainer where the params are shards; None: their sum.
+    global_norm_squared: Optional[Callable] = None
+    #: The last update's clip_by_global_norm factor (a device tensor;
+    #: 1 where the norm was under the max), or None.
+    clip_scale: Optional[torch.Tensor] = None
 
     def _start_schedule(self, learning_rate: ScalarOrSchedule) -> None:
         self._schedule = _as_schedule(learning_rate)
@@ -87,7 +97,7 @@ class _OptaxStep:
 
     def step(self, closure=None):
         if self.clipping is not None:
-            clip_gradients_(self, *self.clipping)
+            self.clip_scale = clip_gradients_(self, *self.clipping)
         for group in self.param_groups:
             group["lr"] = float(self._schedule(group["count"]))
         loss = super().step(closure)
@@ -195,25 +205,32 @@ def clip_gradients_(
     optimizer: torch.optim.Optimizer,
     max_global_norm: Optional[float] = None,
     max_abs_value: Optional[float] = None,
-) -> None:
+) -> Optional[torch.Tensor]:
     """Clips the gradients of an optimizer's parameters in place: first
     each element to [-max_abs_value, max_abs_value] (optax.clip), then the
-    whole set to global norm max_global_norm (optax.clip_by_global_norm).
-    Stays on the device: no host sync."""
-    grads = [
-        p.grad for group in optimizer.param_groups for p in group["params"]
-        if p.grad is not None
-    ]
+    whole set to global norm max_global_norm (optax.clip_by_global_norm;
+    the norm through the optimizer's global_norm_squared where it has
+    one). Returns the global-norm factor (1 under the max), or None
+    without max_global_norm. Stays on the device: no host sync."""
+    params = [p for group in optimizer.param_groups for p in group["params"]
+              if p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
-        return
+        return None
     if max_abs_value is not None:
         for g in grads:
             g.clamp_(-max_abs_value, max_abs_value)
-    if max_global_norm is not None:
+    if max_global_norm is None:
+        return None
+    reduce = getattr(optimizer, "global_norm_squared", None)
+    if reduce is None:
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = norm < max_global_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * max_global_norm))
+    else:
+        norm = torch.sqrt(reduce(params, [torch.sum(g * g) for g in grads]))
+    keep = norm < max_global_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_global_norm))
+    return torch.where(keep, torch.ones_like(norm), max_global_norm / norm)
 
 
 def with_gradient_clipping(

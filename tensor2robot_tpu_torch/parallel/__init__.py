@@ -1,5 +1,5 @@
 """Parallelism over the device mesh: dims, collectives, sequence
-parallelism, pipelining.
+parallelism, pipelining, parameter sharding.
 
 Port of tensor2robot_tpu/parallel/, one process per rank (parallel/mesh.py).
 Six named mesh dims, as in the JAX package: data and fsdp (the batch),
@@ -10,11 +10,14 @@ x sequence x pipe x expert regime: global-batch steps over data x fsdp
 shards (synchronized batch-norm moments, per-shard draws, shard_by_host
 input, exporters, hooks and continuous eval on rank 0's single-device
 model), experts computed by their resident expert rank, and a pipelined
-encoder's stages held by their pipe ranks (stacked in the checkpoint),
-and ZeRO-2 over the data dim: the weight-update rule, the block-scaled
-gradient codecs and the trainer's exact and quantized regimes. Still
-raising, naming ROADMAP.md A9: tensor parallelism (the model dim),
-parameter sharding and ZeRO-2 over other dims (A9.4b), experts under a
+encoder's stages held by their pipe ranks (stacked in the checkpoint);
+ZeRO-2 over the data dim: the weight-update rule, the block-scaled
+gradient codecs and the trainer's exact and quantized regimes; and the
+sharded_params regime over fsdp and model (parallel/sharded_params.py:
+mesh.param_sharding's ZeRO-3 and Megatron column split, with clipping by
+a global norm across shards and stages). Still raising, naming
+ROADMAP.md A9: ZeRO-2 over other replica dims and parameter sharding
+composed with the sequence, pipe or expert dims (A9.4c), experts under a
 sequence dim, and the planner (A9.5).
 """
 
@@ -30,6 +33,7 @@ from tensor2robot_tpu_torch.parallel.mesh import (
     SEQUENCE_AXIS,
     initialize_distributed,
     make_mesh,
+    param_dims,
     param_sharding,
     shard_batch,
     weight_update_sharding,

@@ -32,6 +32,21 @@ loss, so each rank's moment sums need the sum of every rank's cotangent:
 with the identity, every gradient upstream of a norm would miss the
 other shards' terms.
 
+Two more have no JAX spelling, because GSPMD inserts them where the JAX
+package column-splits a layer over the model dim (parallel/
+sharded_params.py): Megatron's pair. `copy_to` is the identity whose
+backward sums the cotangent over the dim (a column-split layer's input:
+each model rank's partial cotangent holds its own columns' terms), and
+`gather_from` is a tiled all_gather whose backward is this rank's slice
+of the cotangent (a column-split layer's output, and any leaf gathered
+over model: every model rank holds the same cotangent). all_gather's
+backward, psum_scatter, would sum those equal cotangents, a gradient
+`model` times too large. `psum_dims` sums a tensor over several named
+dims with no autograd rule (the squared norms of sharded gradients, for
+clipping by a global norm), and `gather_dims` gathers a shard over the
+named dims it is cut along, also without one (a checkpoint's whole
+leaves).
+
 A dim of size 1 needs no communication: each collective is then its
 identity. Ranks of a gloo group move CPU tensors only, so for gloo a CUDA
 tensor is staged explicitly: copied into a pinned host buffer, moved by
@@ -73,10 +88,14 @@ __all__ = [
     "all_to_all",
     "axis_index",
     "broadcast",
+    "copy_to",
+    "gather_dims",
+    "gather_from",
     "pmean",
     "ppermute",
     "psum",
     "psum_data_shards",
+    "psum_dims",
     "psum_scatter",
     "reset_staged_bytes",
     "stack_over",
@@ -305,6 +324,32 @@ class _AllGather(torch.autograd.Function):
         return _psum_scatter(g, ctx.dim, ctx.axis), None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    """The identity; the cotangent summed over the dim's ranks."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.contiguous(), ctx.dim), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """Tiled all_gather; the cotangent's chunk of this rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.dim.size, dim=ctx.axis)[ctx.dim.index].contiguous(), None, None
+
+
 class _PSumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, axis):
@@ -390,6 +435,47 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
     return x if dim.size == 1 else _PSumScatter.apply(x, dim, scatter_dimension)
 
 
+def copy_to(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+    """Megatron's f: x as it is, the cotangent summed over the dim's ranks
+    (module docstring)."""
+    dim = _Dim.of(mesh, axis_name)
+    return x if dim.size == 1 else _CopyTo.apply(x, dim)
+
+
+def gather_from(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
+                axis: int = 0) -> torch.Tensor:
+    """Megatron's g: every rank's x along `axis` (all_gather's forward),
+    the cotangent's chunk of this rank in the backward (module
+    docstring)."""
+    dim = _Dim.of(mesh, axis_name)
+    return x if dim.size == 1 else _GatherFrom.apply(x, dim, axis)
+
+
+def psum_dims(x: torch.Tensor, mesh: DeviceMesh, axis_names: Sequence[str]) -> torch.Tensor:
+    """The sum of x over the ranks that differ from this one only along
+    the dims `axis_names` (one psum a dim). No autograd rule."""
+    x = x.detach()
+    for axis_name in axis_names:
+        dim = _Dim.of(mesh, axis_name)
+        if dim.size > 1:
+            x = _psum(x, dim)
+    return x
+
+
+def gather_dims(shard: torch.Tensor, mesh: DeviceMesh,
+                cuts: Sequence[Tuple[str, int]]) -> torch.Tensor:
+    """The whole of a tensor cut along the tensor dim d over the mesh dim
+    a for each (a, d) of `cuts` (this rank holds chunk i of d, i its index
+    along a): every rank's shard gathered, the same on every rank. No
+    autograd rule."""
+    whole = shard.detach()
+    for axis_name, axis in cuts:
+        dim = _Dim.of(mesh, axis_name)
+        if dim.size > 1:
+            whole = _all_gather(whole, dim, axis)
+    return whole
+
+
 def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, root: int) -> torch.Tensor:
     """The dim's rank `root`'s x on every rank of the dim (every rank
     passes a tensor of the same shape and dtype). No autograd rule: call
@@ -412,17 +498,22 @@ def axis_index(mesh: DeviceMesh, axis_name: str) -> int:
 
 
 def all_reduce_mean_flat(tensors: Sequence[torch.Tensor], group_size: int,
-                         group=None) -> List[torch.Tensor]:
+                         group=None, count: Optional[int] = None) -> List[torch.Tensor]:
     """The mean over the `group_size` ranks of `group` (None: the world) of
     each tensor, as ONE flat all_reduce of their concatenation (the
-    trainer's gradient bucket)."""
-    if group_size == 1 or not tensors:
+    trainer's gradient bucket). With `count` the sum over the group is
+    divided by count instead (tensors that already hold a sum of
+    count // group_size terms each)."""
+    count = group_size if count is None else count
+    if (group_size == 1 and count == 1) or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    world = _Dim.world() if group is None else _Dim(group, group_size, 0)
-    wire = world.to_wire(flat)  # the bucket itself where nothing is staged
-    dist.all_reduce(wire, group=world.group)
-    flat = world.from_wire(wire, flat.device) / group_size
+    if group_size > 1:
+        world = _Dim.world() if group is None else _Dim(group, group_size, 0)
+        wire = world.to_wire(flat)  # the bucket itself where nothing is staged
+        dist.all_reduce(wire, group=world.group)
+        flat = world.from_wire(wire, flat.device)
+    flat = flat / count
     out, offset = [], 0
     for t in tensors:
         out.append(flat[offset:offset + t.numel()].view(t.shape).to(t.dtype))

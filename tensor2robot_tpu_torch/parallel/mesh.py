@@ -14,23 +14,26 @@ CPU, or several ranks sharing one card: a card holds one NCCL rank at
 most). `parallel/collectives.py` stages CUDA tensors through pinned host
 buffers for gloo.
 
-What a mesh runs: the batch split over data x fsdp (parameters stay
-replicated, so fsdp is data parallelism here), the sequence dim's ring or
-Ulysses attention, the pipe dim's GPipe stages (parallel/pipeline.py:
-each pipe rank holds one stage's blocks, the entries that
-`pipe_stage_param_rule` names) and the expert dim's resident experts
-(ops/moe.py). `weight_update_sharding` is the ZeRO-2 rule of the trainer's
-shard_weight_update regime: which dim of a leaf's optimizer moments (and
-EMA) a data rank keeps its slice of. The model dim (tensor parallelism)
-and the parameter sharding rule param_sharding are not ported: they raise
-naming ROADMAP.md A9 (item A9.4b).
+What a mesh runs: the batch split over data x fsdp, the parameters
+sharded over fsdp and model where either is above 1 (`param_sharding`,
+the rule of the trainer's sharded_params regime: ZeRO-3 over fsdp and the
+Megatron column split over model, decided on each parameter's flax layout
+as the JAX package decides it; parallel/sharded_params.py holds the
+shards), the sequence dim's ring or Ulysses attention, the pipe dim's
+GPipe stages (parallel/pipeline.py: each pipe rank holds one stage's
+blocks, the entries that `pipe_stage_param_rule` names) and the expert
+dim's resident experts (ops/moe.py). `weight_update_sharding` is the
+ZeRO-2 rule of the trainer's shard_weight_update regime: which dim of a
+leaf's optimizer moments (and EMA) a data rank keeps its slice of.
+Parameter sharding composed with a sequence, pipe or expert dim above 1
+is not ported: it raises naming ROADMAP.md A9.4c (`check_ported_dims`).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,14 +159,18 @@ def mesh_shape(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
 
 
 def check_ported_dims(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
-    """mesh_shape(mesh), after refusing the dim not ported yet: a model dim
-    above 1 (tensor parallelism) raises NotImplementedError naming
-    ROADMAP.md A9.4b."""
+    """mesh_shape(mesh), after refusing what is not ported yet: parameter
+    sharding (fsdp or model above 1) composed with a sequence, pipe or
+    expert dim above 1 raises NotImplementedError naming ROADMAP.md
+    A9.4c."""
     shape = mesh_shape(mesh)
-    if shape[MODEL_AXIS] > 1:
+    sharding = [axis for axis in (FSDP_AXIS, MODEL_AXIS) if shape[axis] > 1]
+    composed = [axis for axis in (SEQUENCE_AXIS, PIPE_AXIS, EXPERT_AXIS)
+                if shape[axis] > 1]
+    if sharding and composed:
         raise NotImplementedError(
-            f"a mesh with ['{MODEL_AXIS}'] above 1 (tensor parallelism) is "
-            "not ported yet (ROADMAP.md A9.4b)"
+            f"parameter sharding over {sharding} composed with {composed} above "
+            "1 is not ported yet (ROADMAP.md A9.4c)"
         )
     return shape
 
@@ -333,14 +340,67 @@ def weight_update_sharding(
     return rule
 
 
-def _unported(name: str):
-    def rule(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (parameter sharding over fsdp and the model dim) is not "
-            "ported yet (ROADMAP.md A9.4b)"
-        )
-    rule.__name__ = name
+def flax_param_spec(shape: Sequence[int], fsdp: int, model: int,
+                    min_weight_size: int = MIN_WEIGHT_SIZE) -> List[Optional[str]]:
+    """The JAX package's param_sharding on a leaf of the flax `shape`, as
+    its PartitionSpec entries (the dim's axis name or None), one a dim; []
+    for a leaf no dim of which is sharded. A leaf under `min_weight_size`
+    elements (JAX's default, as the trainer's rule always uses it; the
+    rule's tests pass JAX's smaller test sizes), or with fsdp and model
+    both 1, stays replicated. Otherwise the last dim
+    (a flax kernel's output dim) goes to `model` when the leaf has rank 2
+    or more and model divides it; then the largest dim still unsharded
+    that fsdp divides goes to `fsdp`, the first of equal ones (a stable
+    sort, as JAX's _assign_largest_divisible_dim)."""
+    shape = tuple(int(s) for s in shape)
+    if (model == 1 and fsdp == 1) or int(np.prod(shape)) < min_weight_size:
+        return []
+    spec: List[Optional[str]] = [None] * len(shape)
+    if model > 1 and len(shape) >= 2 and shape[-1] % model == 0:
+        spec[-1] = MODEL_AXIS
+    if fsdp > 1:
+        for dim in sorted(range(len(shape)), key=lambda i: shape[i], reverse=True):
+            if spec[dim] is None and shape[dim] % fsdp == 0:
+                spec[dim] = FSDP_AXIS
+                break
+    return spec if any(axis is not None for axis in spec) else []
+
+
+def param_dims(name: str, shape: Sequence[int], fsdp: int,
+               model: int) -> Tuple[Optional[int], Optional[int]]:
+    """(the dim sharded over model, the dim sharded over fsdp) of the
+    state-dict entry `name` of torch `shape`, each None when the leaf is
+    whole over that dim: flax_param_spec decides on the entry's flax
+    layout (utils/jax_params.flax_dims: a Linear weight [out, in] is the
+    flax kernel [in, out], a Conv's OIHW its HWIO), and the dims it picks
+    map back to the torch layout. Deciding on the torch shape would split
+    another dim: a 3x3x64x64 conv's output channels over fsdp where JAX
+    splits its input channels."""
+    # Imported here: utils/jax_params imports this module.
+    from tensor2robot_tpu_torch.utils.jax_params import flax_dims
+
+    dims = flax_dims(name, len(shape))
+    flax_shape = [0] * len(shape)
+    for i, j in enumerate(dims):
+        flax_shape[j] = int(shape[i])
+    spec = flax_param_spec(flax_shape, fsdp, model)
+    if not spec:
+        return None, None
+    owner = {spec[j]: i for i, j in enumerate(dims) if spec[j] is not None}
+    return owner.get(MODEL_AXIS), owner.get(FSDP_AXIS)
+
+
+def param_sharding(mesh: Optional[DeviceMesh]):
+    """The parameter sharding rule of the trainer's sharded_params regime
+    (the JAX package's param_sharding, per rank): rule(name, tensor) is
+    param_dims of the state-dict entry on this mesh's fsdp and model
+    sizes, (None, None) for every entry without a mesh. Parameters, their
+    gradients, the optimizer's moments and the EMA share names and
+    shapes, so one rule places them all (parallel/sharded_params.py)."""
+    shape = mesh_shape(mesh)
+    fsdp, model = shape[FSDP_AXIS], shape[MODEL_AXIS]
+
+    def rule(name: str, tensor) -> Tuple[Optional[int], Optional[int]]:
+        return param_dims(name, tuple(tensor.shape), fsdp, model)
+
     return rule
-
-
-param_sharding = _unported("param_sharding")

@@ -17,8 +17,10 @@ evaluates its shard of every eval batch and the totals are averaged over
 the ranks, as the trainer's evaluation does; rank 0 alone writes the
 metrics and runs the exporters, over the model without its mesh, while
 the others wait at a barrier. Over a pipe dim each rank restores its
-stage of the stacked checkpoint, and rank 0's exporters see the
-single-device twin holding the whole chain (Trainer.export_view).
+stage of the stacked checkpoint, and over an fsdp or model dim its shards
+of the replicated checkpoint (the sharded_params regime); wherever a
+rank's state is not the whole model's, rank 0's exporters see the
+single-device twin holding all of it (Trainer.export_view).
 """
 
 from __future__ import annotations
@@ -187,7 +189,7 @@ def continuous_eval(
                 trainer, state, eval_generators, eval_steps=eval_steps,
                 use_ema=use_ema_for_eval, step=step, writers=writers,
             )
-            if exporters and trainer.pipes > 1:
+            if exporters and trainer.views_state:
                 state = trainer.export_view(durability.load_durable(
                     restore_root, step, map_location=trainer.device))
             for exporter in exporters:

@@ -53,17 +53,18 @@ asked to export after every eval, with that eval's metrics, under
 `<model_dir>/export/<name>/`. Hooks (hooks/hook_builder.py) are called in
 the JAX package's order.
 
-The mesh (parallel/mesh.py: data x fsdp x sequence x pipe x expert; one
-process per rank, each running this trainer on its own shard): every rank feeds
-its slice of the batch (infeed.shard_batches), the network runs
-sequence-parallel and with its resident experts where the model was built
-with the same mesh, and after the backward every gradient, with the
-step's scalar metrics, is averaged over all ranks in ONE flat all_reduce
-(the pmean over the mesh that turns the ranks' gradients into the
-single-device gradient of the global batch; layers/transformer.py and
-ops/moe.py have the rule). Parameters stay replicated, so every rank's
-optimizer takes the same step and the checkpoint has the single-device
-layout. Eval totals are averaged over the ranks the same way. Rank 0
+The mesh (parallel/mesh.py: data x fsdp x model x sequence x pipe x
+expert; one process per rank, each running this trainer on its own
+shard): every rank feeds its slice of the batch (infeed.shard_batches),
+the network runs sequence-parallel and with its resident experts where
+the model was built with the same mesh, and after the backward every
+gradient, with the step's scalar metrics, is averaged over all ranks in
+ONE flat all_reduce (the pmean over the mesh that turns the ranks'
+gradients into the single-device gradient of the global batch;
+layers/transformer.py and ops/moe.py have the rule). Outside the
+sharded_params regime parameters stay replicated, so every rank's
+optimizer takes the same step; in every regime but the quantized one the
+checkpoint has the single-device layout. Eval totals are averaged over the ranks the same way. Rank 0
 alone writes checkpoints, manifests, metrics.jsonl and
 operative_config.gin, and alone builds and runs the exporters and hooks,
 over the model without its mesh (an export serves on one card); the
@@ -97,11 +98,27 @@ the JAX tree's `pipe_stages` layout; `Trainer.checkpoint_state`, a
 collective) and a resume gives each rank its stage back
 (`Trainer.local_checkpoint`). Rank 0's exporters and hooks see the
 single-device twin holding the whole chain (`Trainer.export_view`). Eval
-runs over the pipe mesh. Clipping by a global norm, which would span the
-stages, is refused over a pipe dim.
+runs over the pipe mesh. Clipping by a global norm sums the stages'
+squared norms over the pipe ranks.
 
 The weight-update regimes, resolved as the JAX package's
-ShardingPlan.regime() resolves them:
+ShardingPlan.regime() resolves them (quant_zero2 where a codec engages,
+else sharded_params over an fsdp or model dim above 1, else zero2 with
+shard_weight_update over a data dim above 1, else replicated):
+  * sharded_params (an fsdp or model dim above 1, whatever
+    shard_weight_update and the codec say, as in JAX): the network's
+    parameters become this rank's shards as mesh.param_sharding lays them
+    out (parallel/sharded_params.py: ZeRO-3 over fsdp, the Megatron
+    column split over model, gathered on use), and the optimizer, its
+    moments and the EMA hold and step the shards only. The step sums a
+    sharded gradient over the data ranks (its gather's backward already
+    summed it over fsdp) and averages the whole leaves over the data x
+    fsdp shards; nothing is averaged over model, whose ranks hold the
+    same batch. Rank 0 writes the replicated layout (every shard
+    gathered) and a resume cuts it again, on any mesh or one device.
+    Composed with a sequence, pipe or expert dim above 1 it raises
+    NotImplementedError naming ROADMAP.md A9.4c, and so does a network
+    that takes its parameters functionally (MAML).
   * flatten_optimizer_update (optax.flatten): the optimizer steps one
     flat vector of the parameters, which are views of it
     (models/optimizers.FlatParameters), and the EMA is stored flat
@@ -110,7 +127,7 @@ ShardingPlan.regime() resolves them:
     JAX's fuse_batch_stats_update computes the same numbers in one pass
     to save small device copies on a TPU, and is not ported. Refused
     with an fsdp or model dim above 1 and with shard_weight_update
-    (ValueError, JAX's), and over a pipe dim above 1.
+    (ValueError, JAX's), and over a pipe dim above 1 (A9.4c).
   * zero2 (shard_weight_update over a data dim above 1, the codec
     "none"): each data rank keeps the optimizer moments and the EMA of
     its slice of every leaf mesh.weight_update_sharding shards, and the
@@ -135,13 +152,16 @@ ShardingPlan.regime() resolves them:
     named_parameters order and torch layouts where JAX ravels flax's tree,
     so block boundaries differ and a quantized step agrees with JAX's
     within the quantization's tolerance, not bit for bit.
-Clipping by a global norm, which would span the shards, is refused in
-both ZeRO-2 regimes. shard_weight_update over an fsdp, sequence, pipe or
-expert dim above 1, and train_eval_model's weight_update_axes other than
-("data",) (its only legal value until A9.4b), raise
-NotImplementedError naming ROADMAP.md A9.4b, as do a model dim above 1
-and clipping by a global norm over a pipe dim above 1; `plan` (the
-planner) names A9.5.
+Clipping by a global norm sees the global gradient in every regime but
+the quantized one, as optax's under GSPMD: where the optimizer steps
+shards (a sharded_params shard, a zero2 slice, a pipe stage's entries)
+each squared norm is summed over the mesh dims that cut it
+(models/optimizers.py's global_norm_squared). With quantized
+collectives it is refused, as JAX refuses it there. shard_weight_update
+over a data dim composed with a sequence, pipe or expert dim above 1, and
+train_eval_model's weight_update_axes other than ("data",), raise
+NotImplementedError naming ROADMAP.md A9.4c; `plan` (the planner) names
+A9.5.
 """
 
 from __future__ import annotations
@@ -173,6 +193,7 @@ from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.parallel import pipeline as pipeline_lib
+from tensor2robot_tpu_torch.parallel import sharded_params
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.train import durability, infeed
 from tensor2robot_tpu_torch.train import state as state_lib
@@ -193,14 +214,19 @@ def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: b
                     collective_quant: Optional[str],
                     collective_block: Optional[int]) -> tuple:
     """(regime, the quantized collective or None), as the JAX trainer
-    resolves them (module docstring), after its refusals and the port's."""
+    resolves them (ShardingPlan.regime(): quant_zero2 where a codec
+    engages, else sharded_params over an fsdp or model dim above 1, else
+    zero2 with shard_weight_update over a data dim above 1, else
+    replicated), after its refusals and the port's (module docstring)."""
     shape = mesh_lib.mesh_shape(mesh)
-    others = [axis for axis in (mesh_lib.FSDP_AXIS, mesh_lib.SEQUENCE_AXIS,
-                                mesh_lib.PIPE_AXIS, mesh_lib.EXPERT_AXIS) if shape[axis] > 1]
-    if shard_weight_update and others:
+    sharding = shape[mesh_lib.FSDP_AXIS] > 1 or shape[mesh_lib.MODEL_AXIS] > 1
+    composed = [axis for axis in (mesh_lib.SEQUENCE_AXIS, mesh_lib.PIPE_AXIS,
+                                  mesh_lib.EXPERT_AXIS) if shape[axis] > 1]
+    data = shape[mesh_lib.DATA_AXIS]
+    if shard_weight_update and data > 1 and composed and not sharding:
         raise NotImplementedError(
-            f"shard_weight_update over a mesh with {others} above 1 is not ported "
-            "yet (ROADMAP.md A9.4b)")
+            f"shard_weight_update over a data dim composed with {composed} above 1 "
+            "is not ported yet (ROADMAP.md A9.4c)")
     if flatten_optimizer_update:
         if (shape[mesh_lib.FSDP_AXIS] > 1 or shape[mesh_lib.MODEL_AXIS] > 1
                 or shard_weight_update):
@@ -212,14 +238,16 @@ def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: b
         if shape[mesh_lib.PIPE_AXIS] > 1:
             raise NotImplementedError(
                 "flatten_optimizer_update over a pipe dim above 1 is not ported "
-                "yet (ROADMAP.md A9.4b)")
+                "yet (ROADMAP.md A9.4c)")
     name = collective_quant if collective_quant is not None else flags.get_enum(
         "T2R_COLLECTIVE_QUANT")
     block = collective_block if collective_block is not None else flags.get_int(
         "T2R_COLLECTIVE_BLOCK")
-    if shard_weight_update and shape[mesh_lib.DATA_AXIS] > 1:
-        if name != "none":
-            return "quant_zero2", collectives.get_collective(name, block)
+    if shard_weight_update and data > 1 and name != "none" and not (sharding or composed):
+        return "quant_zero2", collectives.get_collective(name, block)
+    if sharding:
+        return "sharded_params", None
+    if shard_weight_update and data > 1:
         return "zero2", None
     return "replicated", None
 
@@ -385,6 +413,9 @@ class Trainer:
             collective_block)
         self.flatten_optimizer_update = bool(flatten_optimizer_update)
         self.weight_update_rule = mesh_lib.weight_update_sharding(mesh)
+        # The sharded_params regime's layout ({name: (model dim, fsdp
+        # dim)}), set by init_state.
+        self.param_layout: sharded_params.Layout = {}
         # The quantized regime's layout, set by init_state.
         self._flat_layout: Optional[collectives.FlatShardLayout] = None
         self.model = model
@@ -433,7 +464,10 @@ class Trainer:
         batch_norm_lib.synchronize(
             network, None if self.regime == "quant_zero2" else self.mesh)
         update = None
-        if self.regime == "quant_zero2":
+        if self.regime == "sharded_params":
+            self.param_layout = sharded_params.shard_network(network, self.mesh)
+            update = _ShardedParams(network, self.param_layout, self.mesh)
+        elif self.regime == "quant_zero2":
             update = _QuantizedUpdate(network, self.collective, self.mesh)
             self._flat_layout = update.layout
         elif self.regime == "zero2":
@@ -444,16 +478,16 @@ class Trainer:
             network.parameters() if update is None else update.optimizer_params())
         clipping = getattr(optimizer, "clipping", None)
         if clipping is not None and clipping[0] is not None:
-            if self.pipes > 1:
+            if self.regime == "quant_zero2":
                 raise NotImplementedError(
-                    "clipping by a global norm over pipeline stages is not ported "
-                    "yet (ROADMAP.md A9.4b): each pipe rank holds one stage's gradients"
-                )
-            if self.regime in _SHARDED_REGIMES:
-                raise NotImplementedError(
-                    f"clipping by a global norm in the {self.regime} regime is not "
-                    "ported yet (ROADMAP.md A9.4b): each data rank's optimizer "
-                    "holds a shard of the gradients")
+                    "clipping by a global norm is unsupported with quantized "
+                    "collectives, as in the JAX package: the quantized ZeRO-2 step "
+                    "updates each rank's shard of the flat parameter vector, and a "
+                    "tree-structure-aware transform there sees one shard")
+            self._sum_norms_over_shards(
+                optimizer, network.named_parameters() if update is None
+                else update.named_optimizer_params(),
+                update.dims if self.regime == "zero2" else ())
         ema = None
         if self.model.use_avg_model_params:
             ema = init_ema(network) if update is None else update.init_ema()
@@ -462,6 +496,41 @@ class Trainer:
             collective_residual=(update.init_residual()
                                  if self.regime == "quant_zero2" else None),
             weight_update=update)
+
+    def _sum_norms_over_shards(self, optimizer, named, sliced) -> None:
+        """Points clip_by_global_norm at the global gradient where the
+        optimizer steps shards of it: each parameter's squared norm is
+        summed over the mesh dims its shards are cut along (a
+        sharded_params shard over fsdp and model, a zero2 slice, named
+        in `sliced`, over data, a pipe stage's entry over pipe), a whole
+        one counts once."""
+        axes_of = {}
+        for name, p in named:
+            if name in self.param_layout:
+                axes_of[id(p)] = tuple(
+                    axis for axis, d in zip((mesh_lib.MODEL_AXIS, mesh_lib.FSDP_AXIS),
+                                            self.param_layout[name]) if d is not None)
+            elif name in sliced:
+                axes_of[id(p)] = (mesh_lib.DATA_AXIS,)
+            elif self.stage_local(name):
+                axes_of[id(p)] = (mesh_lib.PIPE_AXIS,)
+        if not axes_of:
+            return
+        groups = sorted(set(axes_of.values()) | {()})
+        mesh = self.mesh
+
+        def global_norm_squared(params, squares):
+            parts = {axes: [] for axes in groups}
+            for p, square in zip(params, squares):
+                parts[axes_of.get(id(p), ())].append(square)
+            total = None
+            for axes in groups:
+                part = sum(parts[axes], torch.zeros((), device=self.device))
+                part = collectives.psum_dims(part, mesh, axes)
+                total = part if total is None else total + part
+            return total
+
+        optimizer.global_norm_squared = global_norm_squared
 
     def _shard_dims(self, network: nn.Module) -> Dict[str, int]:
         """{parameter name: the dim a data rank keeps a slice of} of the
@@ -476,10 +545,11 @@ class Trainer:
     @property
     def views_state(self) -> bool:
         """Whether a rank's live state is not the whole model's (a pipe
-        stage, or a ZeRO-2 rank's EMA shard): rank 0's exporters and
-        hooks then see export_view of a gathered checkpoint."""
-        return self.pipes > 1 or (self.regime in _SHARDED_REGIMES
-                                  and self.model.use_avg_model_params)
+        stage, a ZeRO-2 rank's EMA shard, the sharded_params regime's
+        shards): rank 0's exporters and hooks then see export_view of a
+        gathered checkpoint."""
+        return self.pipes > 1 or self.regime == "sharded_params" or (
+            self.regime in _SHARDED_REGIMES and self.model.use_avg_model_params)
 
     def collective_log_record(self, measure: bool = True) -> Dict[str, float]:
         """The gradient exchange's bytes a rank a step before and after
@@ -620,9 +690,12 @@ class Trainer:
         """pmean over every rank of each gradient and each scalar float
         metric, in one flat all_reduce (a stage-local gradient: over its
         stage's ranks, in a second one); returns the averaged loss and
-        metrics. A parameter without a gradient joins as zeros, so every
-        rank's bucket has the same layout; the parameters named in `skip`
-        (zero2's sharded leaves) stay out."""
+        metrics. In the sharded_params regime the mean is over the data x
+        fsdp shards only: ranks that differ in model alone hold the same
+        batch, and their gradients are equal. A parameter without a
+        gradient joins as zeros, so every rank's bucket has the same
+        layout; the parameters named in `skip` (zero2's sharded leaves,
+        sharded_params' leaves cut over fsdp) stay out."""
         named = [(n, p) for n, p in network.named_parameters()
                  if p.requires_grad and n not in skip]
         staged = [p for n, p in named if self.stage_local(n)]
@@ -634,7 +707,11 @@ class Trainer:
         scalars = [k for k, v in metrics.items()
                    if v.ndim == 0 and v.is_floating_point()]
         values = [loss] + [metrics[k] for k in scalars]
-        averaged = collectives.all_reduce_mean_flat(grads(params) + values, self.ranks)
+        if self.regime == "sharded_params":
+            size, group = self.data_shards, mesh_lib.data_group(self.mesh)
+        else:
+            size, group = self.ranks, None
+        averaged = collectives.all_reduce_mean_flat(grads(params) + values, size, group)
         if staged:
             group, size = mesh_lib.stage_group(self.mesh)
             for p, g in zip(staged, collectives.all_reduce_mean_flat(
@@ -646,6 +723,18 @@ class Trainer:
         metrics.update(zip(scalars, averaged[len(params) + 1:]))
         return averaged[len(params)], metrics
 
+    def reduce_gradients(self, state: TrainState, loss, metrics):
+        """A train step's gradient exchange alone, in the replicated and
+        sharded_params regimes: every rank's gradients (and the loss and
+        scalar metrics) become the global batch's, with no optimizer
+        step; returns the averaged loss and metrics. The ZeRO-2 regimes
+        exchange gradients inside their step."""
+        if self.regime == "sharded_params":
+            return state.weight_update.reduce(self, state, loss, metrics)
+        if self.regime in _ZERO2_REGIMES:
+            raise ValueError(f"the {self.regime} regime exchanges gradients in its step")
+        return self.average_over_ranks(state.network, loss, metrics)
+
     def _stack_stages(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: collectives.stack_over(v, self.mesh, mesh_lib.PIPE_AXIS)
                 if self.stage_local(k) else v for k, v in tensors.items()}
@@ -656,8 +745,11 @@ class Trainer:
         dict (None with optimizer=False), with `ema_names` for a flat EMA
         and the quantized regime's `collective_residual`. Over a pipe dim
         above 1 every stage-local entry is stacked over the pipe ranks
-        ([S, ...]), and in the ZeRO-2 regimes every shard is gathered over
-        the data ranks: a collective, which every rank calls."""
+        ([S, ...]), in the ZeRO-2 regimes every shard is gathered over the
+        data ranks, and in the sharded_params regime every sharded
+        parameter, its moments and its EMA over fsdp and model: a
+        collective, which every rank calls. Every regime but the quantized
+        one saves the replicated trainer's layout."""
         params = {k: v.detach() for k, v in state.network.state_dict().items()}
         saved = dict(step=state.step, params=params, ema_params=state.ema_params,
                      optimizer=state.optimizer.state_dict() if optimizer else None)
@@ -684,7 +776,11 @@ class Trainer:
         """A checkpoint as this rank's `network` restores it: over a pipe
         dim above 1 each stacked stage-local entry is this rank's stage's
         slice; in the ZeRO-2 regimes each gathered moment, EMA and
-        residual is this data rank's shard of it."""
+        residual is this data rank's shard of it, and in the sharded_params
+        regime each sharded parameter, its moments and its EMA this rank's
+        shard."""
+        if self.regime == "sharded_params":
+            return _ShardedParams.local(checkpoint, network, self.param_layout, self.mesh)
         if self.regime == "zero2":
             return _ShardedUpdate.local(
                 checkpoint, network, self._shard_dims(network),
@@ -737,7 +833,11 @@ class Trainer:
             return state.network
         if self._ema_network is None:
             self._ema_network = self.model.create_network().to(self.device)
-        if self.regime in _SHARDED_REGIMES:  # the EMA is sharded: gather it
+            if self.regime == "sharded_params":  # sharded as the live network
+                sharded_params.shard_network(self._ema_network, self.mesh)
+        if self.regime == "sharded_params":
+            self._ema_network.load_state_dict(state.export_state_dict(use_ema=True))
+        elif self.regime in _ZERO2_REGIMES:  # the EMA is sharded: gather it
             saved = self.checkpoint_state(state, optimizer=False)
             self._ema_network.load_state_dict(
                 {**saved["params"], **state_lib.checkpoint_ema(saved)})
@@ -772,7 +872,10 @@ class Trainer:
 
 # -- the weight-update regimes -------------------------------------------------------
 
-_SHARDED_REGIMES = ("zero2", "quant_zero2")
+#: The regimes whose ranks hold shards of the optimizer state and the EMA:
+#: ZeRO-2's (whole parameters), and sharded_params (sharded ones too).
+_ZERO2_REGIMES = ("zero2", "quant_zero2")
+_SHARDED_REGIMES = _ZERO2_REGIMES + ("sharded_params",)
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
@@ -802,6 +905,9 @@ class _FlatUpdate:
 
     def optimizer_params(self):
         return [self.flat.flat]
+
+    def named_optimizer_params(self):
+        return [("flat", self.flat.flat)]
 
     def init_ema(self) -> torch.Tensor:
         return self.flat.flat.detach().clone()
@@ -846,6 +952,9 @@ class _ShardedUpdate:
 
     def optimizer_params(self):
         return list(self.views.values())
+
+    def named_optimizer_params(self):
+        return list(self.views.items())
 
     def init_ema(self) -> Dict[str, torch.Tensor]:
         return {name: v.detach().clone() for name, v in self.views.items()}
@@ -921,6 +1030,104 @@ class _ShardedUpdate:
         opt = checkpoint.get("optimizer")
         if opt is not None:
             names = list(shapes)
+            out["optimizer"] = dict(opt, state={
+                i: {k: mine(names[i], v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+        return out
+
+
+class _ShardedParams:
+    """sharded_params: the network's parameters are this rank's shards
+    (parallel/sharded_params.py; `layout` names the sharded ones), and the
+    optimizer, its moments and the EMA step them. After the backward a
+    leaf cut over fsdp already holds the sum over the fsdp ranks of their
+    batch shards' terms (its gather's backward reduce-scatters), so a step
+    sums it over the data ranks and divides by the data x fsdp count (one
+    bucket); every other leaf (whole, or cut over model alone: a kernel
+    none of whose other dims fsdp divides) and the metrics are averaged
+    over the data x fsdp shards (average_over_ranks), whose ranks share
+    this rank's model index and so its model shard. Nothing is averaged
+    over model: a model rank's shard of a column-split kernel has its own
+    columns' gradient, and a whole leaf the same gradient on every model
+    rank."""
+
+    def __init__(self, network: nn.Module, layout: sharded_params.Layout, mesh):
+        self.layout, self.mesh = layout, mesh
+        shape = mesh_lib.mesh_shape(mesh)
+        self.data = shape[mesh_lib.DATA_AXIS]
+        self.count = self.data * shape[mesh_lib.FSDP_AXIS]
+        self.group = mesh.get_group(mesh_lib.DATA_AXIS) if self.data > 1 else None
+        self.params = dict(network.named_parameters())
+        self.fsdp_cut = {name for name, (_, fsdp_dim) in layout.items()
+                         if fsdp_dim is not None}
+
+    def optimizer_params(self):
+        return list(self.params.values())
+
+    def named_optimizer_params(self):
+        return list(self.params.items())
+
+    def init_ema(self) -> Dict[str, torch.Tensor]:
+        return {name: p.detach().clone() for name, p in self.params.items()}
+
+    def reduce(self, trainer: "Trainer", state: TrainState, loss, metrics):
+        """The step's gradient exchange (class docstring); returns the
+        averaged loss and metrics."""
+        with torch.no_grad():
+            sharded = [p for name, p in self.params.items()
+                       if name in self.fsdp_cut and p.requires_grad]
+            for p, g in zip(sharded, collectives.all_reduce_mean_flat(
+                    [_grad(p) for p in sharded], self.data, self.group, count=self.count)):
+                p.grad = g
+        return trainer.average_over_ranks(state.network, loss, metrics, skip=self.fsdp_cut)
+
+    def step(self, trainer: "Trainer", state: TrainState, loss, metrics):
+        loss, metrics = self.reduce(trainer, state, loss, metrics)
+        state.optimizer.step()
+        if state.ema_params is not None:
+            state.ema_params = update_ema(state.ema_params, self.params,
+                                          trainer.model.avg_model_params_decay)
+        return loss, metrics
+
+    def gather(self, saved: Dict[str, Any]) -> None:
+        """The saved state as the replicated trainer's: every sharded
+        parameter, its moments and its EMA gathered whole."""
+
+        def whole(name, t):
+            if name not in self.layout or t.shape != self.params[name].shape:
+                return t
+            return sharded_params.full_tensor(t, self.layout[name], self.mesh)
+
+        saved["params"] = {n: whole(n, t) for n, t in saved["params"].items()}
+        if saved["ema_params"] is not None:
+            saved["ema_params"] = {n: whole(n, t) for n, t in saved["ema_params"].items()}
+        opt = saved["optimizer"]
+        if opt is not None:
+            names = list(self.params)
+            saved["optimizer"] = dict(opt, state={
+                i: {k: whole(names[i], v) for k, v in entry.items()}
+                for i, entry in opt["state"].items()})
+
+    @staticmethod
+    def local(checkpoint: Dict[str, Any], network: nn.Module,
+              layout: sharded_params.Layout, mesh) -> Dict[str, Any]:
+        """A replicated-layout checkpoint as this rank restores it: each
+        sharded parameter, its moments and its EMA cut to its shard."""
+        names = [n for n, _ in network.named_parameters()]
+        whole = {n: sharded_params.whole_shape(p, layout[n], mesh)
+                 for n, p in network.named_parameters() if n in layout}
+
+        def mine(name, t):
+            if name not in whole or tuple(t.shape) != whole[name]:
+                return t
+            return sharded_params.local_tensor(t, layout[name], mesh).clone()
+
+        out = dict(checkpoint, params={n: mine(n, t) for n, t in checkpoint["params"].items()})
+        if checkpoint.get("ema_params") is not None:
+            out["ema_params"] = {n: mine(n, t)
+                                 for n, t in state_lib.checkpoint_ema(checkpoint).items()}
+        opt = checkpoint.get("optimizer")
+        if opt is not None:
             out["optimizer"] = dict(opt, state={
                 i: {k: mine(names[i], v) for k, v in entry.items()}
                 for i, entry in opt["state"].items()})
@@ -1219,14 +1426,14 @@ def train_eval_model(
     the memory levers, and flatten_optimizer_update, collective_quant,
     collective_block the other weight-update regimes (Trainer).
     weight_update_axes is JAX's, and only its default, None or
-    ("data",), is legal until ROADMAP.md A9.4b. In the quantized ZeRO-2
+    ("data",), is legal until ROADMAP.md A9.4c. In the quantized ZeRO-2
     regime every metrics line carries the exchange's
     collective_log_record. With a mesh every rank of the world calls this
     with the same arguments (module docstring)."""
     if weight_update_axes is not None and tuple(weight_update_axes) != (mesh_lib.DATA_AXIS,):
         raise NotImplementedError(
             f"weight_update_axes={tuple(weight_update_axes)}: ZeRO-2 over replica "
-            "axes other than ('data',) is not ported yet (ROADMAP.md A9.4b)")
+            "axes other than ('data',) is not ported yet (ROADMAP.md A9.4c)")
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     eval_generators = normalize_eval_generators(input_generator_eval)

@@ -30,18 +30,25 @@ again (the trainer's checkpoint layout: `encoder.pipe_stages.block_<b>.*`
 what that pipe rank's network holds); or the chain (stage s's block b as
 `block_<s * L/S + b>`, the single-device twin's layout). And
 `state_dict_to_flax_params` maps a state dict back into the flax tree,
-stacked stages included.
+stacked stages included. `flax_dims` is the dim map of one entry: which
+flax dim each of its dims holds (parallel/mesh.py decides a parameter's
+sharding on the flax layout, as the JAX package does, through it).
 """
 
 from __future__ import annotations
 
 from collections import abc as cabc
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from tensor2robot_tpu_torch.parallel.mesh import PIPE_STAGES_KEY
+
+
+#: rank -> the flax kernel dim that each dim of the torch weight holds:
+#: weight = kernel.transpose(dims).
+_KERNEL_DIMS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
 def _is_maml_tree(params: cabc.Mapping) -> bool:
@@ -113,17 +120,13 @@ def flax_params_to_state_dict(
             name = key
             if key == "kernel":
                 name = "weight"
-                if array.ndim == 2:
-                    array = array.T
-                elif array.ndim == 3:
-                    array = array.transpose(2, 1, 0)
-                elif array.ndim == 4:
-                    array = array.transpose(3, 2, 0, 1)
-                else:
+                dims = _KERNEL_DIMS.get(array.ndim)
+                if dims is None:
                     raise ValueError(
                         f"{path}: kernel of rank {array.ndim} has no torch "
                         "layout rule"
                     )
+                array = array.transpose(dims)
             elif key == "scale":
                 name = "weight"
             target = f"{prefix}.{name}" if prefix else name
@@ -140,13 +143,20 @@ def _to_flax_leaf(name: str, array: np.ndarray):
         return name, array
     if array.ndim == 1:
         return "scale", array
-    if array.ndim == 2:
-        return "kernel", array.T
-    if array.ndim == 3:
-        return "kernel", array.transpose(2, 1, 0)
-    if array.ndim == 4:
-        return "kernel", array.transpose(2, 3, 1, 0)
-    raise ValueError(f"weight of rank {array.ndim} has no flax layout rule")
+    if array.ndim not in _KERNEL_DIMS:
+        raise ValueError(f"weight of rank {array.ndim} has no flax layout rule")
+    return "kernel", array.transpose(np.argsort(_KERNEL_DIMS[array.ndim]))
+
+
+def flax_dims(name: str, ndim: int) -> Tuple[int, ...]:
+    """The dim map of a state-dict entry (its '.'-joined name and its
+    rank): entry i is the dim of the entry's flax leaf that the entry's
+    dim i holds. A Linear or Conv `weight` of rank 2 to 4 is a transposed
+    flax kernel ([out, in] of [in, out]; OIHW of HWIO; OIW of WIO); every
+    other entry keeps the flax layout."""
+    if name.rpartition(".")[2] == "weight" and ndim in _KERNEL_DIMS:
+        return _KERNEL_DIMS[ndim]
+    return tuple(range(ndim))
 
 
 def state_dict_to_flax_params(state: cabc.Mapping) -> Dict:

@@ -425,10 +425,15 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     MoE BC at the same rehearsal width on 2 data x 2 expert ranks, and BC
     pipelined over 2 data x 2 pipe ranks (1 block a stage, 1 microbatch),
     its ring-in-pipe step on 2 sequence x 2 pipe, its trainer run with a
-    stacked checkpoint and a resume, and BC's ZeRO-2 regimes on a 4-rank
+    stacked checkpoint and a resume, BC's ZeRO-2 regimes on a 4-rank
     data mesh (global batch 8, 2 steps of each codec after a replicated
     step, the int8 trainer run with its residuals in the checkpoint and a
-    resume, and the flat update on one device). The
+    resume, and the flat update on one device), and BC's parameters
+    sharded over 1 data x 2 fsdp x 2 model ranks (d_model 128 here, so
+    that leaves reach mesh.MIN_WEIGHT_SIZE; global batch 2: the checked
+    step, its control, bytes a rank, 2 + 2 timed steps and as many with
+    every sharded leaf gathered on use, then a clipped
+    trainer run of 2 steps resumed on one device and served). The
     ranks import chip_smoke afresh and take their sizes and device from
     the phase's spec, and count the plain versions' calls as launches
     themselves."""
@@ -446,6 +451,12 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
         timed=2, steps=2, records=(16, 4, 8)))
     monkeypatch.setattr(chip_smoke, "PARALLEL_MOE", dict(experts=4, mesh=(2, 2), timed=2))
     monkeypatch.setattr(chip_smoke, "PARALLEL_ZERO2", dict(chip_smoke.PARALLEL_ZERO2, steps=2))
+    # d_model 128: the sharded sub-phase's kernels, embed and second conv
+    # reach mesh.MIN_WEIGHT_SIZE and shard (at d_model 32 nothing would).
+    monkeypatch.setattr(chip_smoke, "BC_WIDTH", dict(image_size=(16, 16), d_model=128))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_SHARDED", dict(
+        chip_smoke.PARALLEL_SHARDED, batch=2, train=dict(steps=2, save_every=2,
+                                                         eval_steps=1)))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
     # 2 more steps; the 2 x 2 run's 4 steps and 2 evals of 2 hops x 2
@@ -457,17 +468,22 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     # ZeRO-2: per rank the replicated step and 5 codecs x 2 steps, two
     # trainer runs of 2 steps and an eval each, 2 layers each time; the
     # served batch's B2 and the two one-device flat-check steps in this
-    # process.
+    # process. Sharded params: per rank the checked step and 2 + 2 timed
+    # steps (the control's step and the 2 + 2 steps gathered on use are
+    # not counted), its eval's B2, and the
+    # trainer run of 2 steps with one eval, 2 layers each time; the served
+    # batch's B2 in this process.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
     pipe = 4 * (1 + 4 + 2 + 2 * 2)
     zero2 = 4 * (1 + 5 * 2 + 2 * 2) * 2 + 2 * 2
+    sharded = 4 * (1 + 4 + 2) * 2
     assert launches == {
-        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2,
+        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2 + 4 * (2 + 2) + 2,
         "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
-                           + moe + pipe + zero2),
-        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2,
-        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2,
+                           + moe + pipe + zero2 + sharded),
+        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded,
+        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded,
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
@@ -493,5 +509,18 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "[parallel_zero2] fp8_e5m2 (quant_zero2)", "after 2 steps vs the exact run",
                  "[parallel_zero2] train_eval_model in int8", "2.pt holds the residuals ((4, ",
                  "[parallel_zero2] flatten_optimizer_update on one card",
-                 "[parallel_zero2] sub-phase"):
+                 "[parallel_zero2] sub-phase",
+                 "[parallel_critic] full-width f32 critic", "regime sharded_params: ",
+                 "leaves sharded over fsdp, parameters",
+                 "[parallel_sharded] BC (", "on a 1 data x 2 fsdp x 2 model mesh, global "
+                 "batch 2 (1 episodes a data x fsdp shard), regime sharded_params",
+                 "parameters split 4 ways", "one step vs the single-device step",
+                 "(fails, as it must)", "B1/B3/B4 2 each a rank a step (B2 2 in its eval)",
+                 "every sharded leaf gathered on use (no column split), same ranks and "
+                 "batch: synced step median",
+                 "[parallel_sharded] train_eval_model on the 1 x 2 x 2 mesh clipped to "
+                 "global norm 0.05", "the same on every rank",
+                 "2.pt resumed on one card equal bit for bit to the mesh's resume",
+                 "2.pt served on one card by CheckpointPredictor",
+                 "[parallel_sharded] sub-phase"):
         assert line in out, out

@@ -159,10 +159,11 @@ def test_make_mesh_errors_and_the_world_of_one():
 def test_mesh_type_and_unported_rules():
     with pytest.raises(TypeError, match="DeviceMesh"):
         mesh_lib.check_mesh(object())
-    # Parameter sharding is A9.4b; the ZeRO-2 rule is ported (A9.4a), and
-    # without a mesh (a replica group of 1) it shards nothing.
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A9\.4b"):
-        mesh_lib.param_sharding(None)
+    # Parameter sharding is ported (A9.4b) and so is the ZeRO-2 rule
+    # (A9.4a): without a mesh (fsdp, model and the replica group all 1)
+    # neither shards anything (tests/test_torch_sharded_params.py holds
+    # the rule against JAX's on meshes).
+    assert mesh_lib.param_sharding(None)("w.weight", torch.zeros(256, 256)) == (None, None)
     assert mesh_lib.weight_update_sharding(None)(torch.zeros(256, 256)) is None
     # pipe_stage_param_rule is ported: without a pipe dim above 1 nothing
     # is stage-local (tests/test_torch_pipelined_bc.py holds it on a mesh).

@@ -346,7 +346,7 @@ class TestUnportedArguments:
             # A mesh is ported (A9 part 1); an object that is not the
             # port's DeviceMesh raises TypeError naming the type it wants.
             # ZeRO-2 is ported over the data dim (A9.4a): over other
-            # replica axes it still raises, naming A9.4b; the planner
+            # replica axes it still raises, naming A9.4c; the planner
             # names A9.5.
             (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
             (dict(shard_weight_update=True,
@@ -371,7 +371,7 @@ class TestUnportedArguments:
         if "plan" in kw:
             assert "ROADMAP.md A9.5" in str(raised.value)
         if "weight_update_axes" in kw:
-            assert "ROADMAP.md A9.4b" in str(raised.value)
+            assert "ROADMAP.md A9.4c" in str(raised.value)
 
     @pytest.mark.parametrize(
         "kw",

@@ -11,6 +11,7 @@ import torch
 
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.parallel import sharded_params
 from tensor2robot_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ring_attention_manual,
@@ -192,23 +193,24 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
 
 def unported_pins() -> dict:
     """What a real mesh still refuses, each case's error as "<type>:
-    <message>" ("" when nothing was raised): a model dim, the plan and
-    shard_weight_update on a pipe mesh and decoding over a mesh
-    (NotImplementedError naming ROADMAP.md A9), MoE inside a pipeline
-    (JAX's ValueError). The pipelined encoder itself now builds
-    ("pipeline_stages")."""
+    <message>" ("" when nothing was raised): a model dim composed with a
+    pipe dim, the plan, shard_weight_update over data on a pipe mesh and
+    decoding over a mesh (NotImplementedError naming ROADMAP.md A9), MoE
+    inside a pipeline (JAX's ValueError). The pipelined encoder itself
+    now builds ("pipeline_stages")."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
     from tensor2robot_tpu_torch.train.train_eval import Trainer
 
     pipe = mesh_lib.make_mesh(sequence=2, pipe=2)
     model_dim = mesh_lib.make_mesh(model=2, pipe=2)
+    data_pipe = mesh_lib.make_mesh(data=2, pipe=2)
     seq = mesh(1, 4)
     small = dict(episode_length=16, image_size=(16, 16), d_model=32, num_layers=2,
                  num_heads=4, head_dim=8, device_type="cpu")
 
-    def piped():
-        return TransformerBCModel(mesh=pipe, pipeline_stages=2, **small)
+    def piped(on=pipe):
+        return TransformerBCModel(mesh=on, pipeline_stages=2, **small)
 
     cases = {
         "pipeline_stages": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
@@ -219,7 +221,7 @@ def unported_pins() -> dict:
                                                          decode=True),
         "trainer_plan": lambda: Trainer(piped(), device="cpu", mesh=pipe, plan=object()),
         "trainer_shard_weight_update": lambda: Trainer(
-            piped(), device="cpu", mesh=pipe, shard_weight_update=True),
+            piped(data_pipe), device="cpu", mesh=data_pipe, shard_weight_update=True),
         "moe_in_a_pipeline": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
                                                         pipeline_stages=2, num_experts=4),
     }
@@ -303,8 +305,9 @@ def critic_step(model_kwargs: dict, state: dict, features: dict, labels: dict,
     trainer_kwargs, synchronized = CRITIC_REGIMES[regime]
     m = mesh(data=shape[0], sequence=1, fsdp=shape[1])
     trainer = Trainer(_critic(model_kwargs), device="cpu", mesh=m, **trainer_kwargs)
-    network = trainer.init_state(
-        params={k: torch.from_numpy(v) for k, v in state.items()}).network
+    train_state = trainer.init_state(
+        params={k: torch.from_numpy(v) for k, v in state.items()})
+    network = train_state.network
     if not synchronized:
         batch_norm.synchronize(network, None)
     micro = trainer.grad_accum_steps
@@ -312,8 +315,9 @@ def critic_step(model_kwargs: dict, state: dict, features: dict, labels: dict,
     l = _struct(mesh_lib.shard_batch(labels, m, micro))
     network.train()
     loss, metrics = trainer.backward(network, f, l)
-    loss, _ = trainer.average_over_ranks(network, loss, metrics)
-    return (float(loss), {n: p.grad.numpy() for n, p in network.named_parameters()},
+    loss, _ = trainer.reduce_gradients(train_state, loss, metrics)
+    return (float(loss), {n: g.numpy() for n, g in sharded_params.full_grads(
+                network, trainer.param_layout, m).items()},
             {n: b.numpy() for n, b in network.named_buffers()})
 
 

@@ -186,18 +186,23 @@ def train_eval_run(model_dir: str, steps: int, env: dict, kwargs: dict) -> dict:
 
 
 def refusals() -> dict:
-    """What stays refused or inert on the data mesh: the flat update with
-    shard_weight_update, clipping by a global norm in the ZeRO-2 regimes,
-    and a codec without shard_weight_update (inert)."""
+    """What stays refused, works or is inert on the data mesh: the flat
+    update with shard_weight_update, clipping by a global norm in zero2
+    (works) and in quant_zero2 (refused), and a codec without
+    shard_weight_update (inert)."""
     from tensor2robot_tpu_torch.models import optimizers
+
+    def clipped(**kwargs):
+        return train_eval.Trainer(
+            MockT2RModel(device_type="cpu", create_optimizer_fn=lambda: (
+                optimizers.with_gradient_clipping(optimizers.create_adam_optimizer(), 1.0))),
+            device="cpu", mesh=data_mesh(), shard_weight_update=True, **kwargs).init_state()
 
     cases = {
         "flat_with_zero2": lambda: _trainer(dict(
             shard_weight_update=True, flatten_optimizer_update=True), False, False),
-        "clipping_zero2": lambda: train_eval.Trainer(
-            MockT2RModel(device_type="cpu", create_optimizer_fn=lambda: (
-                optimizers.with_gradient_clipping(optimizers.create_adam_optimizer(), 1.0))),
-            device="cpu", mesh=data_mesh(), shard_weight_update=True).init_state(),
+        "clipping_zero2": clipped,
+        "clipping_quant_zero2": lambda: clipped(collective_quant="int8"),
     }
     out = {}
     for name, fn in cases.items():
