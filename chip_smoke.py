@@ -322,8 +322,37 @@ Phases, each fatal on failure (exit code 1, no result line):
                 and 4, every rank's clip factor below 1 and the same),
                 its newest checkpoint resumed on the mesh and on one
                 card equal bit for bit, and served on one card within
-                1e-4 of the einsum path. The four processes share one
-                card: no time here is a multi-card speed.
+                1e-4 of the einsum path. And parallel_composed: BC at
+                the BC width, global batch 8, on composed meshes of the
+                same ranks: (a) zero2 on 2 data x 2 sequence (the ring)
+                over ("data", "sequence"), (b) the same mesh over
+                ("data",), (c) zero2 on 2 data x 2 pipe, (d) sharded
+                parameters on 2 fsdp x 2 sequence, (e) on 2 fsdp x 2
+                pipe, (f) the flat update on 2 data x 2 pipe; each one
+                step from the chain's seed-0 weights against the
+                single-device step (loss 1e-5 rel, the gradients under
+                the BC gate, the parameters under the Adam-step gate of
+                parallel_zero2), B1, B3 and B4 exactly what the same
+                shape's replicated step launches (8 each a rank a step),
+                every rank's parameter and Adam-moment bytes exactly the
+                reckoning from the whole leaves (stage leaves whole on
+                their stage), then 5 synced steps (not (f)); a control
+                each for (a) (the slice summed over data alone), (d)
+                (the whole leaves averaged over data x fsdp alone) and
+                (c) (the stage entries left un-averaged), which must
+                fail; then train_eval_model on (a) clipped to a global
+                norm the BC gradient exceeds (4 steps, checkpoints at 2
+                and 4, the clip factors below 1 and the same on every
+                rank), 4.pt resumed in sharded_params on (d) and on one
+                card bit for bit, and served on one card within 1e-4 of
+                the einsum path. Then parallel_3d: JAX's dp_sp_pp (2
+                data x 2 sequence x 2 pipe, zero2 over ("data",
+                "sequence")) on 8 gloo ranks in a second world, its step
+                and its ("data",) twin's under the same gates against
+                the single-device step, the twin against the step,
+                exact bytes, no flash launch (the manual ring's einsum
+                tiles), 3 synced steps. The four (eight) processes share
+                one card: no time here is a multi-card speed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits
@@ -4882,7 +4911,8 @@ def _parallel_spec() -> dict:
                 regimes=PARALLEL_REGIMES, train=PARALLEL_TRAIN,
                 critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE),
                 pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2),
-                sharded=dict(PARALLEL_SHARDED))
+                sharded=dict(PARALLEL_SHARDED), composed=dict(PARALLEL_COMPOSED),
+                three_d=dict(PARALLEL_3D))
 
 
 def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
@@ -4890,13 +4920,10 @@ def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int
     """A rank's f32 settings (as main() sets them) and its mesh. On the
     CPU (a rehearsal) the kernels' plain versions count as their kernels
     would, so the launch checks run as on the card."""
-    import torch
-
     from tensor2robot_tpu_torch.ops import flash_attention as fa
     from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _f32_only()
     if spec["device"] == "cpu" and not _RANK_MESHES:
         def counted(fn, *kernels):
             def run(*args, **kwargs):
@@ -5198,8 +5225,14 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 # 7 more with every sharded leaf gathered on use (~0.5 s each, tens of MB
 # staged), 4 trainer steps with 2 evals, a resume on the mesh and on one
 # card, a served checkpoint.
+# The composed meshes: a single-device reference step, six gate steps and
+# three controls (~1 s each with their gathers), 5 x 7 synced steps
+# (~0.6 s each), 4 trainer steps with 2 evals, a resume in another
+# regime and on one card, a served checkpoint; dp_sp_pp: 8 ranks up
+# (~10 s), the reference, two gate steps, 5 synced steps.
 PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60,
-                       "parallel_zero2": 45, "parallel_sharded": 62}
+                       "parallel_zero2": 45, "parallel_sharded": 62,
+                       "parallel_composed": 60, "parallel_3d": 40}
 
 
 @contextlib.contextmanager
@@ -6698,10 +6731,11 @@ def parallel_rank_sharded_train(spec: dict, model_dir: str) -> dict:
     return out
 
 
-def _one_card_resume(spec: dict, model_dir: str, resumed: dict) -> str:
-    """The newest checkpoint restored by the one-card trainer, against the
-    mesh trainer's resume gathered whole, bit for bit: every parameter and
-    Adam moment."""
+def _one_card_resume(spec: dict, model_dir: str, resumed: dict, clip: float) -> str:
+    """The newest checkpoint restored by the one-card trainer (Adam
+    clipped to global norm `clip`, as the run was), against the mesh
+    trainer's resume gathered whole, bit for bit: every parameter and Adam
+    moment."""
     import torch
 
     from tensor2robot_tpu_torch.models.transformer_models import (
@@ -6710,8 +6744,7 @@ def _one_card_resume(spec: dict, model_dir: str, resumed: dict) -> str:
     from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
 
     trainer = Trainer(TransformerBCModel(
-        create_optimizer_fn=_recording_clip(spec["sharded"]["clip"], []), **spec["model"]),
-        device=DEVICE)
+        create_optimizer_fn=_recording_clip(clip, []), **spec["model"]), device=DEVICE)
     state = restore_or_init_state(model_dir, trainer)
     if state.step != resumed["step"]:
         raise AssertionError(f"one card resumed step {state.step} != {resumed['step']}")
@@ -6813,7 +6846,7 @@ def parallel_sharded(world, spec: dict, model_dir: str) -> dict:
         if (len(scales) != steps or not all(0 < x < 1 for x in scales)
                 or any(r["scales"] != scales for r in runs)):
             raise AssertionError(f"clip factors by rank {[r['scales'] for r in runs]}")
-        resumed = _one_card_resume(spec, run_dir, runs[0]["resumed"])
+        resumed = _one_card_resume(spec, run_dir, runs[0]["resumed"], cfg["clip"])
         served, served_launches = _serve_mesh_checkpoint(
             run_dir, list(range(train["save_every"], steps + 1, train["save_every"])))
         add(served_launches)
@@ -6829,16 +6862,552 @@ def parallel_sharded(world, spec: dict, model_dir: str) -> dict:
     return launches
 
 
+# -- parallel_composed and parallel_3d: the composed regimes on the ranks ----------
+
+# BC at the BC width, global batch 8, on composed meshes of the 4 ranks:
+# name -> ((data, fsdp, sequence, pipe), trainer kwargs, the regime), the
+# meshes of ROADMAP.md A9.4c part 1: (a) zero2 on 2 data x 2 sequence (the
+# ring) over ("data", "sequence"), (b) the same mesh over ("data",), (c)
+# zero2 on 2 data x 2 pipe (JAX's dp_pp_zero2), (d) sharded parameters on
+# 2 fsdp x 2 sequence, (e) on 2 fsdp x 2 pipe, (f) the flat update on
+# 2 data x 2 pipe. `controls`: the mechanism each control breaks (it must
+# fail the gate); `untimed`: the meshes that get the gate only; the
+# train_eval_model run on mesh `train_mesh`, clipped to global norm `clip`
+# (below the BC gradient's norm, so every step clips), resumed on mesh
+# `resume`.
+PARALLEL_COMPOSED = dict(
+    meshes={
+        "a": ((2, 1, 2, 1), dict(shard_weight_update=True,
+                                 weight_update_axes=("data", "sequence")), "zero2"),
+        "b": ((2, 1, 2, 1), dict(shard_weight_update=True), "zero2"),
+        "c": ((2, 1, 1, 2), dict(shard_weight_update=True), "zero2"),
+        "d": ((1, 2, 2, 1), {}, "sharded_params"),
+        "e": ((1, 2, 1, 2), {}, "sharded_params"),
+        "f": ((2, 1, 1, 2), dict(flatten_optimizer_update=True), "replicated"),
+    },
+    controls={"a": "slice_over_data", "d": "whole_over_data_fsdp", "c": "stages_unaveraged"},
+    untimed=("f",), batch=8, clip=0.05, train_mesh="a", resume="d",
+    train=dict(steps=4, save_every=2, eval_steps=1))
+# JAX's dp_sp_pp preset on 8 ranks sharing the card: 2 data x 2 sequence
+# x 2 pipe, zero2 over ("data", "sequence"), against the single-device
+# step and against its ("data",) twin; `timed` synced steps.
+PARALLEL_3D = dict(ranks=8, mesh=(2, 1, 2, 2), axes=("data", "sequence"), twin=("data",),
+                   timed=3, batch=8)
+
+
+@contextlib.contextmanager
+def _composed_control(name, trainer):
+    """A control of parallel_composed in force inside (None: none): zero2's
+    slice summed over the data ranks alone (the other sequence ranks'
+    tokens dropped), the whole leaves averaged over data x fsdp alone, or
+    the stage entries left un-averaged over their stage's ranks."""
+    from tensor2robot_tpu_torch.parallel import collectives
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+
+    def data_only(x, mesh, axis_name, scatter_dimension=0):
+        _, size, index = mesh_lib.dims_group(mesh, axis_name)
+        summed = collectives.psum(x, mesh, mesh_lib.DATA_AXIS)
+        return summed.chunk(size, dim=scatter_dimension)[index]
+
+    saved = collectives.psum_scatter, mesh_lib.stage_group
+    if name == "slice_over_data":
+        collectives.psum_scatter = data_only
+    elif name == "whole_over_data_fsdp":
+        trainer.mean_axes = (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS)
+    elif name == "stages_unaveraged":
+        mesh_lib.stage_group = lambda mesh: (None, 1)
+    try:
+        yield
+    finally:
+        collectives.psum_scatter, mesh_lib.stage_group = saved
+
+
+def _reckoned_elements(weights: dict, stages: int, param_ways: int,
+                       moment_ways: int) -> tuple:
+    """(parameters, elements of one Adam moment) a rank holds, reckoned
+    from the whole leaves of the chain's state dict `weights`, not from
+    any trainer's layout: over `stages` > 1 a block's leaves are its
+    stage's (a rank holds 1/stages of them, whole); every other leaf of
+    mesh.MIN_WEIGHT_SIZE elements or more splits `param_ways` ways as a
+    parameter and `moment_ways` ways as a moment (at the BC width each has
+    a dim that divides), and a smaller one stays whole."""
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+
+    params = moments = 0
+    for name, value in weights.items():
+        n = value.numel()
+        if stages > 1 and ".block_" in name:
+            params += n // stages
+            moments += n // stages
+        elif n >= mesh_lib.MIN_WEIGHT_SIZE:
+            params += n // param_ways
+            moments += n // moment_ways
+        else:
+            params += n
+            moments += n
+    return params, moments
+
+
+def _f32_only() -> None:
+    """A rank's f32 settings, as main() sets them (no TF32 in matmuls or
+    cuDNN convolutions), before its first card work: the single-device
+    reference runs before the rank's first mesh."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _composed_reference(spec: dict, weights: dict, host) -> dict:
+    """Rank 0: the single-device flash step of BC from the chain
+    `weights` on the whole batch, cuDNN's convs deterministic: the loss,
+    the stepped parameters, Adam's first moments and the optimizer (its
+    hyperparameters)."""
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    trainer = Trainer(TransformerBCModel(**spec["model"]), device=spec["device"])
+    state = trainer.init_state(params=weights)
+    with _deterministic_convs():
+        loss = float(trainer.train_step(state, to_device(host, spec["device"]))["loss"])
+    return dict(loss=loss, optimizer=state.optimizer,
+                params={k: v.detach().clone() for k, v in state.network.state_dict().items()},
+                moments=_first_moments(trainer, state))
+
+
+def _composed_gate(got: dict, reference: dict, start: dict) -> dict:
+    """A mesh step (loss, gathered chain parameters and first moments)
+    against the single-device one: the loss error (LOSS_TOL rel) and
+    _adam_step_gate's worst gradient and parameter shares."""
+    (grad, grad_name), (worst, worst_name) = _adam_step_gate(
+        got["params"], reference["params"], start, got["moments"], reference["moments"],
+        reference["optimizer"])
+    loss_err = abs(got["loss"] - reference["loss"]) / abs(reference["loss"])
+    return dict(loss=got["loss"], loss_err=loss_err, grad=grad, grad_name=grad_name,
+                worst=worst, worst_name=worst_name,
+                ok=loss_err <= LOSS_TOL and grad <= 1.0 and worst <= 1.0)
+
+
+def _composed_step(spec: dict, dims: tuple, kwargs: dict, weights: dict, host,
+                   batch_size: int, timed: int, control=None) -> dict:
+    """On every rank of the mesh `dims` (data, fsdp, sequence, pipe): BC
+    (pipelined over a pipe dim) from the chain `weights` on this rank's
+    share of the global batch `host` of `batch_size`, one gate step
+    with `control` in force, its launches checked against the same
+    shape's replicated step's (blocks x ring hops, or a stage's blocks x
+    microbatches; none under sequence x pipe, whose manual ring runs the
+    einsum tiles), the loss and the parameters and first moments gathered
+    whole as the chain's, this rank's bytes; then, for `timed` > 0, the
+    synced steps. Returns the numbers and the main-path launches (none
+    for a control)."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.parallel import pipeline
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    device, layers = spec["device"], spec["layers"]
+    data, fsdp, sequence, stages = dims
+    mesh = _rank_setup(spec, data, sequence, fsdp=fsdp, pipe=stages)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    extra = dict(pipeline_stages=stages) if stages > 1 else {}
+    model = TransformerBCModel(mesh=mesh, **extra, **spec["model"])
+    trainer = Trainer(model, device=device, mesh=mesh, **kwargs)
+    state = trainer.init_state(params=weights)
+    batch = to_device(mesh_lib.shard_batch(host, mesh), device)
+    if stages > 1:
+        per_step = 0 if sequence > 1 else layers // stages * _pipe_micro(
+            batch_size // (data * fsdp), stages)
+    else:
+        per_step = layers * sequence
+    want = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    launches = {k: 0 for k in read_launches()}
+    reset_launches()
+    _sync(device)
+    with _composed_control(control, trainer), _deterministic_convs():
+        loss = float(trainer.train_step(state, batch)["loss"])
+    _sync(device)
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"{dims} {kwargs} {control} step launched {got} != {want}")
+    if control is None:
+        launches = dict(got)
+    out = dict(loss=loss, regime=trainer.regime, per_step=per_step)
+    out.update(_state_bytes(state, trainer))
+    # Copies: the saved tensors may be the live ones, which the timed
+    # steps move in place.
+    saved = trainer.checkpoint_state(state)
+    names = [n for n, _ in state.network.named_parameters()]
+    out["params"] = pipeline.unstack_stages(
+        {k: v.clone() for k, v in saved["params"].items()})
+    out["moments"] = pipeline.unstack_stages({
+        names[i]: entry["exp_avg"].clone() for i, entry in saved["optimizer"]["state"].items()})
+    del saved
+    if timed:
+        reset_launches()
+        out.update(_timed_mesh_steps(trainer, state, batch, device, timed))
+        got = read_launches()
+        if got != {name: count * (2 + timed) for name, count in want.items()}:
+            raise AssertionError(f"{dims} {kwargs} timed steps launched {got}")
+        for name, count in got.items():
+            launches[name] += count
+    out["launches"] = launches
+    del trainer, state
+    return out
+
+
+def parallel_rank_composed(spec: dict) -> dict:
+    """On every rank: the chain's seed-0 weights and the batch, rank 0's
+    single-device reference step, then each mesh of PARALLEL_COMPOSED (a
+    gate step, the synced steps) and each control; rank 0 holds every
+    gate. Returns the rank's numbers (parameters and moments dropped)
+    and the launches of its main-path calls."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+
+    cfg, device = spec["composed"], spec["device"]
+    _f32_only()
+    model = TransformerBCModel(**spec["model"])
+    weights = {k: v.detach() for k, v in model.init_network(
+        torch.Generator().manual_seed(0), device).state_dict().items()}
+    host = _bc_batch(model, cfg["batch"], seed=0)
+    rank = dist.get_rank()
+    reference = _composed_reference(spec, weights, host) if rank == 0 else None
+    dist.barrier()
+    out = {"rank": rank, "launches": {k: 0 for k in read_launches()}, "meshes": {},
+           "controls": {}}
+    for name, (dims, kwargs, _) in cfg["meshes"].items():
+        timed = 0 if name in cfg["untimed"] else spec["timed"]
+        result = _composed_step(spec, dims, kwargs, weights, host, cfg["batch"], timed)
+        for kernel, count in result.pop("launches").items():
+            out["launches"][kernel] += count
+        got = dict(loss=result.pop("loss"), params=result.pop("params"),
+                   moments=result.pop("moments"))
+        if rank == 0:
+            result["gate"] = _composed_gate(got, reference, weights)
+        out["meshes"][name] = result
+        out["meshes"][name]["reckoned"] = _composed_reckoning(
+            weights, dims, kwargs)
+        del got
+        dist.barrier()
+    for name, control in cfg["controls"].items():
+        dims, kwargs, _ = cfg["meshes"][name]
+        result = _composed_step(spec, dims, kwargs, weights, host, cfg["batch"], 0, control)
+        got = dict(loss=result.pop("loss"), params=result.pop("params"),
+                   moments=result.pop("moments"))
+        if rank == 0:
+            out["controls"][f"({name}) {control}"] = _composed_gate(got, reference, weights)
+        del got, result
+        dist.barrier()
+    return out
+
+
+def _composed_reckoning(weights: dict, dims: tuple, kwargs: dict) -> tuple:
+    """(parameters, one moment's elements) a rank holds on the mesh `dims`
+    in the regime of `kwargs`, reckoned (_reckoned_elements)."""
+    data, fsdp, sequence, stages = dims
+    if fsdp > 1:
+        return _reckoned_elements(weights, stages, fsdp, fsdp)
+    if kwargs.get("shard_weight_update"):
+        sizes = {"data": data, "fsdp": fsdp, "sequence": sequence, "pipe": stages}
+        group = math.prod(sizes[axis] for axis in kwargs.get("weight_update_axes",
+                                                               ("data",)))
+        return _reckoned_elements(weights, stages, 1, group)
+    return _reckoned_elements(weights, stages, 1, 1)
+
+
+def parallel_rank_composed_train(spec: dict, model_dir: str) -> dict:
+    """On every rank: train_eval_model of BC on PARALLEL_COMPOSED's
+    train_mesh, clipped, with checkpoints; then a trainer on its resume
+    mesh (another regime, the same model tree) resumes the newest one and
+    gathers it. Returns the final eval, each step's clip factor, the
+    launches, peak GiB and (rank 0) the resumed state gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.train.train_eval import (
+        Trainer,
+        restore_or_init_state,
+        train_eval_model,
+    )
+
+    cfg = spec["composed"]
+    (data, fsdp, sequence, stages), kwargs, _ = cfg["meshes"][cfg["train_mesh"]]
+    mesh = _rank_setup(spec, data, sequence, fsdp=fsdp, pipe=stages)
+    train, scales = cfg["train"], []
+    model = TransformerBCModel(mesh=mesh, create_optimizer_fn=_recording_clip(cfg["clip"], scales),
+                               **spec["model"])
+    if spec["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final_eval = train_eval_model(
+        model,
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=0),
+        DefaultRandomInputGenerator(batch_size=cfg["batch"], seed=1000),
+        model_dir=model_dir, max_train_steps=train["steps"],
+        save_checkpoints_steps=train["save_every"], eval_steps=train["eval_steps"],
+        log_every_steps=train["save_every"], device=spec["device"], mesh=mesh, **kwargs,
+    )
+    _sync(spec["device"])
+    launches = read_launches()
+    (data, fsdp, sequence, stages), kwargs, _ = cfg["meshes"][cfg["resume"]]
+    other = _rank_setup(spec, data, sequence, fsdp=fsdp, pipe=stages)
+    trainer = Trainer(TransformerBCModel(mesh=other, **spec["model"]), device=spec["device"],
+                      mesh=other, **kwargs)
+    resumed = trainer.checkpoint_state(restore_or_init_state(model_dir, trainer))
+    out = {"final_eval": final_eval, "scales": scales, "launches": launches,
+           "peak_gib": _peak_gib(spec["device"]), "regime": trainer.regime}
+    if dist.get_rank() == 0:
+        out["resumed"] = dict(
+            step=resumed["step"],
+            params={k: v.cpu() for k, v in resumed["params"].items()},
+            moments={i: {k: v.cpu() for k, v in e.items()}
+                     for i, e in resumed["optimizer"]["state"].items()})
+    return out
+
+
+def _composed_failures(ranks: list, cfg: dict) -> list:
+    """What every rank's parallel_rank_composed numbers break: a gate over
+    its limits, a control within them, a regime that is not the mesh's,
+    bytes other than the reckoning."""
+    failures = []
+    head = ranks[0]
+    for name, r in head["meshes"].items():
+        if not r["gate"]["ok"]:
+            failures.append(f"mesh ({name}) off the single-device step: {r['gate']}")
+    for name, gate in head["controls"].items():
+        if gate["ok"]:
+            failures.append(f"control {name} passed the gate: {gate}")
+    for r in ranks:
+        for name, m in r["meshes"].items():
+            regime = cfg["meshes"][name][2]
+            params, moment = m["reckoned"]
+            if m["regime"] != regime:
+                failures.append(f"rank {r['rank']} mesh ({name}) resolved {m['regime']}")
+            if m["param_bytes"] != 4 * params or m["opt_bytes"] != 2 * 4 * moment:
+                failures.append(
+                    f"rank {r['rank']} mesh ({name}) holds {m['param_bytes']} parameter and "
+                    f"{m['opt_bytes']} moment bytes, the reckoning {4 * params} and "
+                    f"{8 * moment}")
+    return failures
+
+
+def parallel_composed(world, spec: dict, model_dir: str) -> dict:
+    """The composed regimes on the 4 ranks: each mesh's step against the
+    single-device step with exact launches and bytes, its synced steps,
+    the controls; then train_eval_model clipped on mesh (a), resumed in
+    another regime and on one card, served from one card. Returns the
+    launches of every main-path call."""
+    t0 = time.monotonic()
+    cfg, layers = spec["composed"], spec["layers"]
+    launches = {name: 0 for name in read_launches()}
+
+    def add(counts) -> None:
+        for name, count in counts.items():
+            launches[name] += count
+
+    ranks = world.run(parallel_rank_composed, spec, timeout_s=PARALLEL_TIMEOUT)
+    for r in ranks:
+        add(r["launches"])
+    head = ranks[0]
+    whole = head["meshes"]["a"]["whole_bytes"]
+    for name, (dims, kwargs, regime) in cfg["meshes"].items():
+        m, gate = head["meshes"][name], head["meshes"][name]["gate"]
+        timing = ("gate only" if name in cfg["untimed"] else
+                  f"synced step median {m['step_ms']:.3f} ms (min {m['step_min']:.3f}, max "
+                  f"{m['step_max']:.3f}) over {spec['timed']} on rank 0, medians by rank "
+                  f"{[round(r['meshes'][name]['step_ms'], 3) for r in ranks]}; gloo "
+                  f"host-staged {m['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
+                  f"{[round(r['meshes'][name]['peak_gib'], 3) for r in ranks]}")
+        log(f"[parallel_composed] ({name}) {regime} on data x fsdp x sequence x pipe "
+            f"{'x'.join(map(str, dims))} {kwargs} on {card_line()}: loss "
+            f"{gate['loss']:.7f} (rel {gate['loss_err']:.2e}), worst gradient "
+            f"{gate['grad_name']} at {gate['grad']:.2e} and worst parameter "
+            f"{gate['worst_name']} at {gate['worst']:.2e} of their allowances; "
+            f"{m['param_bytes'] // 4} parameters ({m['param_bytes'] / 1e6:.3f} MB) and Adam "
+            f"moments {m['opt_bytes'] / 1e6:.3f} MB a rank (reckoned "
+            f"{m['reckoned'][0]} and 2 x {m['reckoned'][1]} elements; replicated "
+            f"{2 * whole / 1e6:.3f} MB); B1/B3/B4 {m['per_step']} each a rank a step; "
+            f"{timing}")
+    for name, gate in head["controls"].items():
+        log(f"[parallel_composed] control {name} (must fail) on {card_line()}: loss rel "
+            f"{gate['loss_err']:.2e}, worst gradient {gate['grad_name']} at "
+            f"{gate['grad']:.2e} and worst parameter {gate['worst_name']} at "
+            f"{gate['worst']:.2e} of their allowances")
+    failures = _composed_failures(ranks, cfg)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    train = cfg["train"]
+    steps = train["steps"]
+    per_rank = layers * cfg["meshes"][cfg["train_mesh"]][0][2]  # the ring's hops
+    want = {"flash_fwd": 0,
+            "flash_fwd_tile": per_rank * (steps + train["eval_steps"] * steps
+                                          // train["save_every"]),
+            "flash_bwd_dq": per_rank * steps, "flash_bwd_dkv": per_rank * steps}
+    with tempfile.TemporaryDirectory(dir=model_dir) as run_dir:
+        t_train = time.monotonic()
+        runs = world.run(parallel_rank_composed_train, spec, run_dir,
+                         timeout_s=PARALLEL_TIMEOUT)
+        for r in runs:
+            if r["launches"] != want:
+                raise AssertionError(f"composed train_eval_model launched {r['launches']} "
+                                     f"!= {want}")
+            add(r["launches"])
+            if r["regime"] != cfg["meshes"][cfg["resume"]][2]:
+                raise AssertionError(f"resumed in {r['regime']}")
+        finals = {round(r["final_eval"]["eval/mse"], 9) for r in runs}
+        if len(finals) != 1 or not all(math.isfinite(e) for e in finals):
+            raise AssertionError(f"ranks' final evals {finals}")
+        scales = runs[0]["scales"]
+        if (len(scales) != steps or not all(0 < x < 1 for x in scales)
+                or any(r["scales"] != scales for r in runs)):
+            raise AssertionError(f"clip factors by rank {[r['scales'] for r in runs]}")
+        resumed = _one_card_resume(spec, run_dir, runs[0]["resumed"], cfg["clip"])
+        served, served_launches = _serve_mesh_checkpoint(
+            run_dir, list(range(train["save_every"], steps + 1, train["save_every"])))
+        add(served_launches)
+        log(f"[parallel_composed] train_eval_model on mesh ({cfg['train_mesh']}) clipped to "
+            f"global norm {cfg['clip']} on {card_line()}: {steps} steps (B1/B3/B4 "
+            f"{per_rank * steps} a rank, B1 {want['flash_fwd_tile'] - per_rank * steps} "
+            f"more in its ring evals), clip factor by step {[round(x, 6) for x in scales]}, "
+            f"the same on every rank; final eval {runs[0]['final_eval']} on every rank; "
+            f"{steps}.pt resumed in {runs[0]['regime']} on mesh ({cfg['resume']}); "
+            f"{resumed}; {served}; peak GiB by rank "
+            f"{[round(r['peak_gib'], 3) for r in runs]}; {time.monotonic() - t_train:.1f}s")
+    log(f"[parallel_composed] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_composed']} s)")
+    return launches
+
+
+def parallel_rank_3d(spec: dict) -> dict:
+    """On every rank of the 8: the chain's seed-0 weights, rank 0's
+    single-device reference step, then the dp_sp_pp gate step over
+    ("data", "sequence") with its synced steps, and its ("data",) twin's
+    gate step; rank 0 holds both against the reference and the twin
+    against the step. Returns the rank's numbers and launches (none: the
+    manual ring of sequence x pipe runs the einsum tiles)."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+
+    cfg, device = spec["three_d"], spec["device"]
+    _f32_only()
+    model = TransformerBCModel(**spec["model"])
+    weights = {k: v.detach() for k, v in model.init_network(
+        torch.Generator().manual_seed(0), device).state_dict().items()}
+    host = _bc_batch(model, cfg["batch"], seed=0)
+    rank = dist.get_rank()
+    reference = _composed_reference(spec, weights, host) if rank == 0 else None
+    dist.barrier()
+    out = {"rank": rank}
+    for name, axes, timed in (("step", cfg["axes"], cfg["timed"]), ("twin", cfg["twin"], 0)):
+        kwargs = dict(shard_weight_update=True, weight_update_axes=axes)
+        result = _composed_step(spec, cfg["mesh"], kwargs, weights, host, cfg["batch"], timed)
+        got = dict(loss=result.pop("loss"), params=result.pop("params"),
+                   moments=result.pop("moments"))
+        result["reckoned"] = _composed_reckoning(weights, cfg["mesh"], kwargs)
+        if rank == 0:
+            result["gate"] = _composed_gate(got, reference, weights)
+            if name == "step":
+                first = got
+            else:
+                result["against_step"] = _composed_gate(got, dict(first, optimizer=reference[
+                    "optimizer"]), weights)
+        out[name] = result
+        del got
+        dist.barrier()
+    return out
+
+
+def parallel_3d(spec: dict) -> dict:
+    """JAX's dp_sp_pp on 8 gloo ranks sharing the card (a second world):
+    the gate step against the single-device step and its ("data",) twin,
+    exact bytes, no flash launch, the synced steps. Returns the launches
+    (all 0)."""
+    from tensor2robot_tpu_torch.parallel.launch import LocalWorld
+
+    t0 = time.monotonic()
+    cfg = spec["three_d"]
+    with LocalWorld(cfg["ranks"], threads=1, timeout_s=PARALLEL_TIMEOUT) as world:
+        up = time.monotonic() - t0
+        ranks = world.run(parallel_rank_3d, spec, timeout_s=PARALLEL_TIMEOUT)
+    head = ranks[0]
+    failures = []
+    for name in ("step", "twin"):
+        gate = head[name]["gate"]
+        if not gate["ok"]:
+            failures.append(f"dp_sp_pp {name} off the single-device step: {gate}")
+    if not head["twin"]["against_step"]["ok"]:
+        failures.append(f"dp_sp_pp twin off the step: {head['twin']['against_step']}")
+    for r in ranks:
+        for name in ("step", "twin"):
+            m = r[name]
+            params, moment = m["reckoned"]
+            if m["regime"] != "zero2" or m["param_bytes"] != 4 * params or (
+                    m["opt_bytes"] != 8 * moment) or any(m["launches"].values()):
+                failures.append(f"rank {r['rank']} dp_sp_pp {name}: {m['regime']}, "
+                                f"{m['param_bytes']} / {m['opt_bytes']} bytes (reckoned "
+                                f"{4 * params} / {8 * moment}), launches {m['launches']}")
+    step, twin = head["step"], head["twin"]
+    log(f"[parallel_3d] dp_sp_pp: {cfg['ranks']} gloo ranks on {spec['device']} up in "
+        f"{up:.1f}s, 2 data x 2 sequence x 2 pipe, zero2 over {cfg['axes']}, global batch "
+        f"{cfg['batch']}, on {card_line()}: loss {step['gate']['loss']:.7f} (rel "
+        f"{step['gate']['loss_err']:.2e}), worst gradient {step['gate']['grad_name']} at "
+        f"{step['gate']['grad']:.2e} and worst parameter {step['gate']['worst_name']} at "
+        f"{step['gate']['worst']:.2e} of their allowances; the {cfg['twin']} twin: rel "
+        f"{twin['gate']['loss_err']:.2e}, {twin['gate']['grad']:.2e} and "
+        f"{twin['gate']['worst']:.2e} against one card, {twin['against_step']['grad']:.2e} and "
+        f"{twin['against_step']['worst']:.2e} against the step; Adam moments "
+        f"{step['opt_bytes'] / 1e6:.3f} MB a rank ({twin['opt_bytes'] / 1e6:.3f} MB for the "
+        f"twin), {step['param_bytes'] / 1e6:.3f} MB of parameters; no flash launch (the manual "
+        f"ring's einsum tiles); synced step median {step['step_ms']:.3f} ms (min "
+        f"{step['step_min']:.3f}, max {step['step_max']:.3f}) over {cfg['timed']} on rank 0, "
+        f"medians by rank {[round(r['step']['step_ms'], 3) for r in ranks]}; gloo host-staged "
+        f"{step['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
+        f"{[round(r['step']['peak_gib'], 3) for r in ranks]}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    log(f"[parallel_3d] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_3d']} s)")
+    return {name: 0 for name in read_launches()}
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
     single-device step, then train_eval_model on a 2 x 2 mesh served from
     one card; then on the same ranks the critic over data x fsdp, MoE BC
     over data x expert, BC pipelined over data x pipe, BC's ZeRO-2
-    regimes over data and BC's parameters sharded over fsdp x model
-    (parallel_critic, parallel_moe, parallel_pipe, parallel_zero2,
-    parallel_sharded). Returns the launches of every rank's main-path
-    calls."""
+    regimes over data, BC's parameters sharded over fsdp x model and
+    BC's composed regimes (parallel_critic, parallel_moe, parallel_pipe,
+    parallel_zero2, parallel_sharded, parallel_composed); then JAX's
+    dp_sp_pp on 8 ranks in a second world (parallel_3d). Returns the
+    launches of every rank's main-path calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -6907,6 +7476,10 @@ def phase_parallel(model_dir: str) -> dict:
             launches[name] += count
         for name, count in parallel_sharded(world, spec, model_dir).items():
             launches[name] += count
+        for name, count in parallel_composed(world, spec, model_dir).items():
+            launches[name] += count
+    for name, count in parallel_3d(spec).items():
+        launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "
         f"{launches}")
     return launches

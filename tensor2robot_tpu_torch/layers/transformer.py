@@ -63,8 +63,10 @@ plain encoder takes the stacked layout as its chain (stage s's block b is
 block s * L/S + b), so a pipelined checkpoint serves on one card.
 
 Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
-A9: a mesh whose model dim is above 1, experts under a sequence dim
-above 1 (layers/moe.py) and decoding with a mesh.
+A9: experts under a sequence dim above 1 (layers/moe.py) and decoding
+with a mesh. A mesh with fsdp or model dims above 1 is the trainer's
+sharded_params regime (parallel/sharded_params.py), which composes with
+the sequence, pipe and expert dims here.
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ def _check_mesh(
         )
     if mesh is None:
         return
-    mesh_lib.check_ported_dims(mesh)
+    mesh_lib.check_mesh(mesh)
     if decode:
         raise NotImplementedError(
             "decoding over a mesh is not ported (ROADMAP.md A9): decode is "

@@ -11,14 +11,17 @@ shards (synchronized batch-norm moments, per-shard draws, shard_by_host
 input, exporters, hooks and continuous eval on rank 0's single-device
 model), experts computed by their resident expert rank, and a pipelined
 encoder's stages held by their pipe ranks (stacked in the checkpoint);
-ZeRO-2 over the data dim: the weight-update rule, the block-scaled
-gradient codecs and the trainer's exact and quantized regimes; and the
-sharded_params regime over fsdp and model (parallel/sharded_params.py:
-mesh.param_sharding's ZeRO-3 and Megatron column split, with clipping by
-a global norm across shards and stages). Still raising, naming
-ROADMAP.md A9: ZeRO-2 over other replica dims and parameter sharding
-composed with the sequence, pipe or expert dims (A9.4c), experts under a
-sequence dim, and the planner (A9.5).
+ZeRO-2 over the product of any replica dims (weight_update_axes), the
+block-scaled gradient codecs and the trainer's exact and quantized
+regimes; the sharded_params regime over fsdp and model
+(parallel/sharded_params.py: mesh.param_sharding's ZeRO-3 and Megatron
+column split); each of them, and the flat optimizer update, composed
+with the sequence, pipe and expert dims (a pipeline's stage entries whole
+on their stage, as JAX's stage rule places them), with clipping by a
+global norm across shards and stages. Still raising: sharding a network
+that takes its parameters functionally (MAML) and splitting attention
+heads over the model dim (ROADMAP.md A9.4c), experts under a sequence
+dim and decoding over a mesh (A9), and the planner (A9.5).
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (
@@ -31,6 +34,8 @@ from tensor2robot_tpu_torch.parallel.mesh import (
     PIPE_STAGES_KEY,
     MIN_WEIGHT_SIZE,
     SEQUENCE_AXIS,
+    complement,
+    dims_group,
     initialize_distributed,
     make_mesh,
     param_dims,

@@ -1,11 +1,15 @@
-"""Collectives over one dim of the mesh, each with its autograd rule.
+"""Collectives over dims of the mesh, each with its autograd rule.
 
 Port of the manual-collective spellings of tensor2robot_tpu/parallel/
 collectives.py (`psum`, `pmean`, `ppermute`, `all_to_all`, `all_gather`,
 `psum_scatter`, `axis_index`). Where a JAX function names a mesh axis, the
 port takes (mesh, axis name): the collective runs over that dim's process
-group, among the ranks that share every other coordinate. Each is
-differentiable with the rule JAX transposes it by:
+group, among the ranks that share every other coordinate. A tuple of
+names, as JAX's tuple of axes, runs over the group of those dims together
+(mesh.dims_group: the ranks that differ only along them, indexed
+row-major in the mesh's order), as the ZeRO-2 exchange does over a
+product of replica dims. Each is differentiable with the rule JAX
+transposes it by:
 
   * psum   <-> identity (pmean: the cotangent over the dim's size),
   * ppermute(perm) <-> ppermute(inverse perm),
@@ -72,7 +76,7 @@ caller can carry `sent - intended` as the error-feedback residual.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -109,6 +113,9 @@ __all__ = [
     "wire_summary",
 ]
 
+#: One mesh dim's name, or a tuple of them (their group: module docstring).
+AxisName = Union[str, Tuple[str, ...]]
+
 _STAGED = [0]
 
 
@@ -132,7 +139,12 @@ class _Dim:
         self.staged = size > 1 and dist.get_backend(group) == "gloo"
 
     @classmethod
-    def of(cls, mesh: DeviceMesh, axis: str) -> "_Dim":
+    def of(cls, mesh: DeviceMesh, axis) -> "_Dim":
+        """One dim's group (`axis` a name), or the group of several (a
+        tuple of names: mesh.dims_group)."""
+        if not isinstance(axis, str):
+            group, size, index = mesh_lib.dims_group(mesh, axis)
+            return cls(group, size, index)
         size = mesh_lib.axis_size(mesh, axis)
         if size == 1:
             return cls(None, 1, 0)
@@ -364,13 +376,13 @@ class _PSumScatter(torch.autograd.Function):
 # -- the sanctioned spellings -------------------------------------------------------
 
 
-def psum(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+def psum(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName) -> torch.Tensor:
     """Sum over the dim's ranks; its cotangent passes unchanged."""
     dim = _Dim.of(mesh, axis_name)
     return x if dim.size == 1 else _PSum.apply(x, dim)
 
 
-def pmean(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+def pmean(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName) -> torch.Tensor:
     dim = _Dim.of(mesh, axis_name)
     return x if dim.size == 1 else _PSum.apply(x, dim) / dim.size
 
@@ -395,7 +407,7 @@ def psum_data_shards(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return x if dim.size == 1 else _PSumBoth.apply(x, dim)
 
 
-def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
+def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Sends x along (source index, destination index) pairs of the dim."""
     dim = _Dim.of(mesh, axis_name)
@@ -405,7 +417,7 @@ def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
     return _PPermute.apply(x, dim, perm)
 
 
-def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName,
                split_axis: int, concat_axis: int) -> torch.Tensor:
     """lax.all_to_all(..., tiled=True): split_axis shrinks by the dim's
     size and concat_axis grows by it."""
@@ -420,14 +432,14 @@ def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis_name: str,
     return _AllToAll.apply(x, dim, split_axis, concat_axis)
 
 
-def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
+def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName, *,
                axis: int = 0) -> torch.Tensor:
     """lax.all_gather(..., tiled=True): every rank's x along `axis`."""
     dim = _Dim.of(mesh, axis_name)
     return x if dim.size == 1 else _AllGather.apply(x, dim, axis)
 
 
-def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
+def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName, *,
                  scatter_dimension: int = 0) -> torch.Tensor:
     """lax.psum_scatter(..., tiled=True): the sum over the dim's ranks,
     this rank's chunk of `scatter_dimension`."""
@@ -435,14 +447,14 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
     return x if dim.size == 1 else _PSumScatter.apply(x, dim, scatter_dimension)
 
 
-def copy_to(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+def copy_to(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName) -> torch.Tensor:
     """Megatron's f: x as it is, the cotangent summed over the dim's ranks
     (module docstring)."""
     dim = _Dim.of(mesh, axis_name)
     return x if dim.size == 1 else _CopyTo.apply(x, dim)
 
 
-def gather_from(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, *,
+def gather_from(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName, *,
                 axis: int = 0) -> torch.Tensor:
     """Megatron's g: every rank's x along `axis` (all_gather's forward),
     the cotangent's chunk of this rank in the backward (module
@@ -476,7 +488,7 @@ def gather_dims(shard: torch.Tensor, mesh: DeviceMesh,
     return whole
 
 
-def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, root: int) -> torch.Tensor:
+def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName, root: int) -> torch.Tensor:
     """The dim's rank `root`'s x on every rank of the dim (every rank
     passes a tensor of the same shape and dtype). No autograd rule: call
     it on tensors that need none."""
@@ -484,7 +496,7 @@ def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis_name: str, root: int) -> t
     return x if dim.size == 1 else _broadcast(x.detach(), dim, root)
 
 
-def stack_over(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tensor:
+def stack_over(x: torch.Tensor, mesh: DeviceMesh, axis_name: AxisName) -> torch.Tensor:
     """Every rank's x stacked on a new leading dim in the dim's order
     ([size, *x.shape] on every rank). No autograd rule."""
     dim = _Dim.of(mesh, axis_name)
@@ -492,7 +504,7 @@ def stack_over(x: torch.Tensor, mesh: DeviceMesh, axis_name: str) -> torch.Tenso
     return x.clone() if dim.size == 1 else _all_gather(x, dim, 0)
 
 
-def axis_index(mesh: DeviceMesh, axis_name: str) -> int:
+def axis_index(mesh: DeviceMesh, axis_name: AxisName) -> int:
     """This rank's index along the dim."""
     return _Dim.of(mesh, axis_name).index
 
@@ -577,7 +589,7 @@ class GradientCollective:
         raise NotImplementedError
 
     def reduce_scatter(self, rows: torch.Tensor, mesh: DeviceMesh,
-                       axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                       axis: AxisName) -> Tuple[torch.Tensor, torch.Tensor]:
         """Reduce-scatter over the dim `axis` of `mesh`. `rows` [N, L] is
         this rank's gradient in one chunk a peer (N the dim's size): chunk
         j is encoded and sent to peer j (an all_to_all), and each rank
@@ -593,7 +605,7 @@ class GradientCollective:
         return reduced, self.decode(payload).float()
 
     def all_gather_shard(self, shard: torch.Tensor, mesh: DeviceMesh,
-                         axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                         axis: AxisName) -> Tuple[torch.Tensor, torch.Tensor]:
         """All-gather of this rank's [L] shard. Returns (full [N * L]:
         every peer's dequantized shard in the dim's order, the same on
         every rank, sent [L]: the dequantized copy of this rank's own)."""

@@ -24,9 +24,12 @@ GPipe stages (parallel/pipeline.py: each pipe rank holds one stage's
 blocks, the entries that `pipe_stage_param_rule` names) and the expert
 dim's resident experts (ops/moe.py). `weight_update_sharding` is the
 ZeRO-2 rule of the trainer's shard_weight_update regime: which dim of a
-leaf's optimizer moments (and EMA) a data rank keeps its slice of.
-Parameter sharding composed with a sequence, pipe or expert dim above 1
-is not ported: it raises naming ROADMAP.md A9.4c (`check_ported_dims`).
+leaf's optimizer moments (and EMA) a rank of the replica group (the
+product of the weight-update dims) keeps its slice of. Both rules layer
+under `pipe_stage_param_rule`, as the JAX trainer's `place` layers them:
+over a pipe dim above 1 a stage entry is its stage's, whole on every rank
+of the stage, whatever the base rule says. Every dim composes with every
+other; `dims_group` is the process group of any set of dims.
 """
 
 from __future__ import annotations
@@ -158,23 +161,6 @@ def mesh_shape(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
     return dict(zip(AXES, check_mesh(mesh).shape))
 
 
-def check_ported_dims(mesh: Optional[DeviceMesh]) -> Dict[str, int]:
-    """mesh_shape(mesh), after refusing what is not ported yet: parameter
-    sharding (fsdp or model above 1) composed with a sequence, pipe or
-    expert dim above 1 raises NotImplementedError naming ROADMAP.md
-    A9.4c."""
-    shape = mesh_shape(mesh)
-    sharding = [axis for axis in (FSDP_AXIS, MODEL_AXIS) if shape[axis] > 1]
-    composed = [axis for axis in (SEQUENCE_AXIS, PIPE_AXIS, EXPERT_AXIS)
-                if shape[axis] > 1]
-    if sharding and composed:
-        raise NotImplementedError(
-            f"parameter sharding over {sharding} composed with {composed} above "
-            "1 is not ported yet (ROADMAP.md A9.4c)"
-        )
-    return shape
-
-
 def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
     return mesh_shape(mesh)[axis]
 
@@ -188,8 +174,43 @@ def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     return index, shape[DATA_AXIS] * shape[FSDP_AXIS]
 
 
-# id(mesh) -> (the mesh, this rank's data x fsdp group): made once a mesh.
-_DATA_GROUPS: Dict[int, Tuple[DeviceMesh, Any]] = {}
+# (id(mesh), dims) -> (the mesh, this rank's group, its index): made once.
+_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[DeviceMesh, Any, int]] = {}
+
+
+def complement(axes: Sequence[str]) -> Tuple[str, ...]:
+    """The mesh dims not in `axes`, in the mesh's order."""
+    return tuple(axis for axis in AXES if axis not in axes)
+
+
+def dims_group(mesh: DeviceMesh, axes: Sequence[str]) -> Tuple[Any, int, int]:
+    """(the process group, its size, this rank's index in it) of the ranks
+    that differ from this rank only along the mesh dims `axes`: they share
+    every other coordinate. The index runs row-major over `axes` in the
+    mesh's order (the group's own rank order). The group is None, the
+    world's default group, where `axes` span every rank, and for a mesh
+    of one rank without a process group. The first call for a mesh and a
+    set of dims creates the group of every coordinate of the other dims
+    (dist.new_group; a group of 1 too), so every rank makes it, in the
+    same order: the trainer does when it is built."""
+    axes = tuple(axis for axis in AXES if axis in set(axes))
+    shape = mesh_shape(mesh)
+    size = int(np.prod([shape[axis] for axis in axes]))
+    if mesh is None:
+        return None, 1, 0
+    if size == dist.get_world_size():
+        return None, size, dist.get_rank()
+    key = (id(mesh), axes)
+    cached = _GROUPS.get(key)
+    if cached is None or cached[0] is not mesh:
+        me, mine, index = dist.get_rank(), None, 0
+        order = [AXES.index(axis) for axis in complement(axes) + axes]
+        for ranks in mesh.mesh.permute(order).reshape(-1, size).tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine, index = group, ranks.index(me)
+        cached = _GROUPS[key] = (mesh, mine, index)
+    return cached[1], size, cached[2]
 
 
 def data_group(mesh: DeviceMesh):
@@ -198,22 +219,8 @@ def data_group(mesh: DeviceMesh):
     together are one global batch (the batch norms' moments and the
     trainer's draws are over it). None means the world's default group
     (every rank is a data x fsdp shard). Ranks enumerate in data_shard
-    order. The first call for a mesh creates the groups
-    (dist.new_group), so every rank makes it, in the same order: the
-    trainer does when it is built."""
-    shape = mesh_shape(mesh)
-    count = shape[DATA_AXIS] * shape[FSDP_AXIS]
-    if count == dist.get_world_size():
-        return None
-    cached = _DATA_GROUPS.get(id(mesh))
-    if cached is None or cached[0] is not mesh:
-        me, mine = dist.get_rank(), None
-        for ranks in mesh.mesh.reshape(count, -1).t().tolist():
-            group = dist.new_group(ranks)
-            if me in ranks:
-                mine = group
-        cached = _DATA_GROUPS[id(mesh)] = (mesh, mine)
-    return cached[1]
+    order (dims_group, which makes it)."""
+    return dims_group(mesh, (DATA_AXIS, FSDP_AXIS))[0]
 
 
 def pipe_group(mesh: DeviceMesh):
@@ -226,31 +233,13 @@ def pipe_group(mesh: DeviceMesh):
     return mesh.get_group(PIPE_AXIS)
 
 
-# id(mesh) -> (the mesh, this rank's stage group): made once a mesh.
-_STAGE_GROUPS: Dict[int, Tuple[DeviceMesh, Any]] = {}
-
-
 def stage_group(mesh: DeviceMesh) -> Tuple[Any, int]:
     """(the process group, its size) of the ranks that share this rank's
     pipe coordinate: the replicas of its stage, over which a stage-local
     gradient is averaged. The group is None (the world's default group)
-    for a pipe dim of 1. The first call for a mesh creates the groups
-    (dist.new_group), so every rank makes it, in the same order: the
-    trainer does when it is built."""
-    pipes = mesh_shape(mesh)[PIPE_AXIS]
-    size = dist.get_world_size() // pipes
-    if pipes == 1:
-        return None, size
-    cached = _STAGE_GROUPS.get(id(mesh))
-    if cached is None or cached[0] is not mesh:
-        me, mine = dist.get_rank(), None
-        ranks = mesh.mesh.movedim(AXES.index(PIPE_AXIS), 0).reshape(pipes, -1)
-        for stage_ranks in ranks.tolist():
-            group = dist.new_group(stage_ranks)
-            if me in stage_ranks:
-                mine = group
-        cached = _STAGE_GROUPS[id(mesh)] = (mesh, mine)
-    return cached[1], size
+    for a pipe dim of 1 (dims_group, which makes it)."""
+    group, size, _ = dims_group(mesh, complement((PIPE_AXIS,)))
+    return group, size
 
 
 def is_stage_entry(name: str) -> bool:
@@ -261,12 +250,14 @@ def is_stage_entry(name: str) -> bool:
 
 def pipe_stage_param_rule(mesh: Optional[DeviceMesh], base_rule=None):
     """The per-rank meaning of the JAX rule (which shards a stacked
-    [S, ...] leaf under PIPE_STAGES_KEY dim 0 over `pipe`): rule(name,
-    tensor) is PIPE_AXIS for a stage-local entry of a mesh whose pipe dim
-    is above 1 (this rank holds its own stage's slice of it), else
-    base_rule(name, tensor) (None: replicated, the entry is whole on every
-    rank). Parameters, their gradients, optimizer moments and the EMA share
-    the names, so one rule places them all."""
+    [S, ...] leaf under PIPE_STAGES_KEY dim 0 over `pipe` and nothing
+    else): rule(name, tensor) is PIPE_AXIS for a stage-local entry of a
+    mesh whose pipe dim is above 1 (this rank holds its own stage's slice
+    of it, whole), else base_rule(name, tensor) (None: replicated, the
+    entry is whole on every rank). The stage rule wins over the base rule
+    (param_sharding's, weight_update_sharding's), as in JAX's `place`.
+    Parameters, their gradients, optimizer moments and the EMA share the
+    names, so one rule places them all."""
     pipes = mesh_shape(mesh)[PIPE_AXIS]
 
     def rule(name: str, tensor=None):

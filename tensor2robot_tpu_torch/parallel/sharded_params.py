@@ -39,8 +39,12 @@ nn.Module the trainer holds:
 
 Attention runs over all heads on every model rank: the fused qkv [3E, E]
 splits its 3E outputs, which do not fall on head boundaries, and the
-gathered output feeds the whole attention. Splitting heads over the model
-ranks is not ported. A network whose forward takes its parameters
+gathered output feeds the whole attention (the sequence-parallel ring or
+Ulysses over this rank's tokens, where the mesh has a sequence dim).
+Splitting heads over the model ranks is not ported (ROADMAP.md A9.4c).
+Beside pipeline stages (a pipe dim above 1) the stages' blocks stay whole
+on every rank of their stage, and only the entries outside the stages
+(the embed, the positional table, the head) are sharded. A network whose forward takes its parameters
 functionally (MAML's inner loop, `takes_sharded_params = False`) cannot
 take shards, and sharding it raises NotImplementedError naming
 ROADMAP.md A9.4c.
@@ -157,12 +161,15 @@ def _gather_on_use(module: nn.Module, mesh, leaves: Layout) -> None:
 def shard_network(network: nn.Module, mesh) -> Layout:
     """Shards `network` in place over the mesh's fsdp and model dims
     (module docstring); returns the layout ({} on a mesh whose fsdp and
-    model dims are 1: the network is left as it is)."""
-    rule = mesh_lib.param_sharding(mesh)
+    model dims are 1: the network is left as it is). Over a pipe dim above
+    1 a stage entry stays whole (mesh.pipe_stage_param_rule: JAX places
+    the stacked stage leaves over pipe and nothing else), so a pipeline
+    stage's blocks run as on a mesh without fsdp or model."""
+    rule = mesh_lib.pipe_stage_param_rule(mesh, mesh_lib.param_sharding(mesh))
     layout: Layout = {}
     for name, p in network.named_parameters():
         dims = rule(name, p)
-        if dims != (None, None):
+        if dims not in (mesh_lib.PIPE_AXIS, (None, None)):
             layout[name] = dims
     if mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS) * mesh_lib.axis_size(
             mesh, mesh_lib.MODEL_AXIS) > 1 and not getattr(network, "takes_sharded_params", True):

@@ -23,7 +23,10 @@ vector of the parameters raveled in `named_parameters` order
 padded to the quantized ZeRO-2 step's block layout (the padded tail never
 moves). Such a checkpoint stores the flat vector with `ema_names`, the
 parameters it ravels; `ema_as_tree` and `checkpoint_ema` give every
-reader (eval, export, predictors, warm starts) the tree back. The
+reader (eval, export, predictors, warm starts) the tree back. Over a pipe
+dim the flat vector holds the rank's stage entries and the shared ones
+(`ema_as_tree` cuts it by that rank's parameters), and the checkpoint
+holds it as a tree, its stage entries stacked over pipe. The
 quantized ZeRO-2 regime's checkpoints also hold its error-feedback
 residuals (`collective_residual`).
 """

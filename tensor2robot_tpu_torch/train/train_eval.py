@@ -104,38 +104,48 @@ squared norms over the pipe ranks.
 The weight-update regimes, resolved as the JAX package's
 ShardingPlan.regime() resolves them (quant_zero2 where a codec engages,
 else sharded_params over an fsdp or model dim above 1, else zero2 with
-shard_weight_update over a data dim above 1, else replicated):
+shard_weight_update over a replica group above 1, else replicated). Each
+composes with the sequence, pipe and expert dims; over a pipe dim the
+stage rule wins, as in JAX's `place`: a stage entry, its moments and its
+EMA are whole on every rank of their stage, whatever the regime's rule.
   * sharded_params (an fsdp or model dim above 1, whatever
     shard_weight_update and the codec say, as in JAX): the network's
-    parameters become this rank's shards as mesh.param_sharding lays them
-    out (parallel/sharded_params.py: ZeRO-3 over fsdp, the Megatron
-    column split over model, gathered on use), and the optimizer, its
-    moments and the EMA hold and step the shards only. The step sums a
-    sharded gradient over the data ranks (its gather's backward already
-    summed it over fsdp) and averages the whole leaves over the data x
-    fsdp shards; nothing is averaged over model, whose ranks hold the
-    same batch. Rank 0 writes the replicated layout (every shard
-    gathered) and a resume cuts it again, on any mesh or one device.
-    Composed with a sequence, pipe or expert dim above 1 it raises
-    NotImplementedError naming ROADMAP.md A9.4c, and so does a network
-    that takes its parameters functionally (MAML).
+    parameters outside a pipeline's stages become this rank's shards as
+    mesh.param_sharding lays them out (parallel/sharded_params.py: ZeRO-3
+    over fsdp, the Megatron column split over model, gathered on use),
+    and the optimizer, its moments and the EMA hold and step the shards
+    only. The step sums a leaf cut over fsdp over the data, sequence,
+    pipe and expert ranks (its gather's backward already summed it over
+    fsdp) and averages the whole leaves over every dim but model
+    (`Trainer.mean_axes`); nothing is averaged over model, whose ranks
+    hold the same batch. Rank 0 writes the replicated layout (every shard
+    gathered) and a resume cuts it again, on any mesh or one device. A
+    network that takes its parameters functionally (MAML) raises
+    NotImplementedError naming ROADMAP.md A9.4c.
   * flatten_optimizer_update (optax.flatten): the optimizer steps one
     flat vector of the parameters, which are views of it
     (models/optimizers.FlatParameters), and the EMA is stored flat
-    (train/state.py unravels it for eval, export and readers). The batch
-    norms' running statistics update in place, as in every other regime:
-    JAX's fuse_batch_stats_update computes the same numbers in one pass
-    to save small device copies on a TPU, and is not ported. Refused
-    with an fsdp or model dim above 1 and with shard_weight_update
-    (ValueError, JAX's), and over a pipe dim above 1 (A9.4c).
-  * zero2 (shard_weight_update over a data dim above 1, the codec
-    "none"): each data rank keeps the optimizer moments and the EMA of
-    its slice of every leaf mesh.weight_update_sharding shards, and the
-    step reduce-scatters those leaves' gradients, steps the optimizer on
-    the slices, all-gathers them, and all-reduces the rest as the
-    replicated step does: the replicated step's arithmetic. Rank 0 writes
-    the replicated trainer's checkpoint (moments and EMA gathered), and a
-    resume cuts it again, so the two layouts interchange.
+    (train/state.py unravels it for eval, export and readers). Over a
+    pipe dim the vector holds the rank's stage entries and the shared
+    ones, and the checkpoint holds them one a parameter, stacked over
+    pipe like the per-leaf step's. The batch norms' running statistics
+    update in place, as in every other regime: JAX's
+    fuse_batch_stats_update computes the same numbers in one pass to
+    save small device copies on a TPU, and is not ported. Refused with an
+    fsdp or model dim above 1 and with shard_weight_update (ValueError,
+    JAX's).
+  * zero2 (shard_weight_update where the product of the
+    weight_update_axes dims, ("data",) by default, is above 1; the codec
+    "none" or off a pure data mesh): each rank of the replica group (the
+    ranks that differ only along those dims) keeps the optimizer moments
+    and the EMA of its slice of every leaf mesh.weight_update_sharding
+    shards over the group (a stage entry stays whole), and the step
+    reduce-scatters those leaves' gradients over the group, sums the
+    slice over the other dims' ranks, steps the optimizer on the slices,
+    all-gathers them, and all-reduces the rest as the replicated step
+    does: the replicated step's arithmetic. Rank 0 writes the replicated
+    trainer's checkpoint (moments and EMA gathered), and a resume cuts it
+    again, so the layouts interchange.
   * quant_zero2 (shard_weight_update on a pure data mesh, data above 1,
     and collective_quant, or T2R_COLLECTIVE_QUANT, other than "none"):
     JAX's quant_train_step, the flat block-padded parameter vector
@@ -154,14 +164,11 @@ shard_weight_update over a data dim above 1, else replicated):
     within the quantization's tolerance, not bit for bit.
 Clipping by a global norm sees the global gradient in every regime but
 the quantized one, as optax's under GSPMD: where the optimizer steps
-shards (a sharded_params shard, a zero2 slice, a pipe stage's entries)
-each squared norm is summed over the mesh dims that cut it
-(models/optimizers.py's global_norm_squared). With quantized
-collectives it is refused, as JAX refuses it there. shard_weight_update
-over a data dim composed with a sequence, pipe or expert dim above 1, and
-train_eval_model's weight_update_axes other than ("data",), raise
-NotImplementedError naming ROADMAP.md A9.4c; `plan` (the planner) names
-A9.5.
+shards (a sharded_params shard, a zero2 slice, a pipe stage's entries,
+the stage runs of the flat vector) each squared norm is summed over the
+mesh dims that cut it, once (models/optimizers.py's global_norm_squared).
+With quantized collectives it is refused, as JAX refuses it there. `plan`
+(the planner) raises NotImplementedError naming ROADMAP.md A9.5.
 """
 
 from __future__ import annotations
@@ -169,6 +176,7 @@ from __future__ import annotations
 import hashlib
 import itertools
 import logging
+import math
 import os
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
@@ -211,43 +219,39 @@ from tensor2robot_tpu_torch.utils.device import (
 
 
 def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: bool,
-                    collective_quant: Optional[str],
-                    collective_block: Optional[int]) -> tuple:
+                    collective_quant: Optional[str], collective_block: Optional[int],
+                    weight_update_axes: Sequence[str]) -> tuple:
     """(regime, the quantized collective or None), as the JAX trainer
     resolves them (ShardingPlan.regime(): quant_zero2 where a codec
-    engages, else sharded_params over an fsdp or model dim above 1, else
-    zero2 with shard_weight_update over a data dim above 1, else
-    replicated), after its refusals and the port's (module docstring)."""
+    engages, which is only with shard_weight_update on a pure data mesh
+    whose data dim is above 1; else sharded_params over an fsdp or model
+    dim above 1; else zero2 with shard_weight_update where the product of
+    the weight_update_axes dims is above 1; else replicated), after the
+    flat update's refusal (JAX's ValueError)."""
     shape = mesh_lib.mesh_shape(mesh)
+    unknown = [axis for axis in weight_update_axes if axis not in mesh_lib.AXES]
+    if unknown:
+        raise ValueError(f"weight_update_axes {tuple(weight_update_axes)} name no mesh "
+                         f"dims {unknown}; the dims are {mesh_lib.AXES}")
     sharding = shape[mesh_lib.FSDP_AXIS] > 1 or shape[mesh_lib.MODEL_AXIS] > 1
-    composed = [axis for axis in (mesh_lib.SEQUENCE_AXIS, mesh_lib.PIPE_AXIS,
-                                  mesh_lib.EXPERT_AXIS) if shape[axis] > 1]
-    data = shape[mesh_lib.DATA_AXIS]
-    if shard_weight_update and data > 1 and composed and not sharding:
-        raise NotImplementedError(
-            f"shard_weight_update over a data dim composed with {composed} above 1 "
-            "is not ported yet (ROADMAP.md A9.4c)")
-    if flatten_optimizer_update:
-        if (shape[mesh_lib.FSDP_AXIS] > 1 or shape[mesh_lib.MODEL_AXIS] > 1
-                or shard_weight_update):
-            raise ValueError(
-                "flatten_optimizer_update concatenates all parameters into one "
-                "replicated vector, which defeats fsdp/tensor-parallel parameter "
-                "sharding and ZeRO-2 weight-update sharding; use it only in "
-                "replicated-parameter regimes.")
-        if shape[mesh_lib.PIPE_AXIS] > 1:
-            raise NotImplementedError(
-                "flatten_optimizer_update over a pipe dim above 1 is not ported "
-                "yet (ROADMAP.md A9.4c)")
+    if flatten_optimizer_update and (sharding or shard_weight_update):
+        raise ValueError(
+            "flatten_optimizer_update concatenates all parameters into one "
+            "replicated vector, which defeats fsdp/tensor-parallel parameter "
+            "sharding and ZeRO-2 weight-update sharding; use it only in "
+            "replicated-parameter regimes.")
     name = collective_quant if collective_quant is not None else flags.get_enum(
         "T2R_COLLECTIVE_QUANT")
     block = collective_block if collective_block is not None else flags.get_int(
         "T2R_COLLECTIVE_BLOCK")
-    if shard_weight_update and data > 1 and name != "none" and not (sharding or composed):
+    pure_data = all(shape[axis] == 1 for axis in mesh_lib.complement((mesh_lib.DATA_AXIS,)))
+    if (name != "none" and shard_weight_update and pure_data
+            and shape[mesh_lib.DATA_AXIS] > 1):
         return "quant_zero2", collectives.get_collective(name, block)
     if sharding:
         return "sharded_params", None
-    if shard_weight_update and data > 1:
+    group = math.prod(shape[axis] for axis in weight_update_axes)
+    if shard_weight_update and group > 1:
         return "zero2", None
     return "replicated", None
 
@@ -261,7 +265,7 @@ def _check_trainer_mesh(model, mesh) -> None:
     collectives with no gradient reduction), and of the same data x fsdp
     sizes where its loss spans the batch (else each shard would take its
     own negatives)."""
-    shape = mesh_lib.check_ported_dims(mesh)
+    shape = mesh_lib.mesh_shape(mesh)
     candidates = [model, getattr(model, "_model", None)]
     model_mesh = next((getattr(m, "_mesh") for m in candidates
                        if getattr(m, "_mesh", None) is not None), None)
@@ -383,10 +387,12 @@ class Trainer:
     this rank's device of a mesh (module docstring). Train steps
     preprocess with `step_generator(seed, step)`; `remat` and
     `grad_accum_steps` are the memory regimes; shard_weight_update,
-    flatten_optimizer_update, collective_quant and collective_block are
-    the JAX CompiledModel's weight-update regimes (module docstring). The
-    zero2 regime shards the leaves mesh.weight_update_sharding shards,
-    those of mesh.MIN_WEIGHT_SIZE elements or more."""
+    weight_update_axes, flatten_optimizer_update, collective_quant and
+    collective_block are the JAX CompiledModel's weight-update regimes
+    (module docstring). The zero2 regime shards, over the product of the
+    weight_update_axes dims (None: ("data",)), the leaves
+    mesh.weight_update_sharding shards, those of mesh.MIN_WEIGHT_SIZE
+    elements or more outside a pipeline's stages."""
 
     def __init__(
         self,
@@ -401,6 +407,7 @@ class Trainer:
         flatten_optimizer_update: bool = False,
         collective_quant: Optional[str] = None,
         collective_block: Optional[int] = None,
+        weight_update_axes: Optional[Sequence[str]] = None,
     ):
         if plan is not None:
             raise NotImplementedError(
@@ -408,11 +415,23 @@ class Trainer:
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         _check_trainer_mesh(model, mesh)
+        self.weight_update_axes = tuple(
+            (mesh_lib.DATA_AXIS,) if weight_update_axes is None else weight_update_axes)
         self.regime, self.collective = _resolve_regime(
             mesh, shard_weight_update, flatten_optimizer_update, collective_quant,
-            collective_block)
+            collective_block, self.weight_update_axes)
         self.flatten_optimizer_update = bool(flatten_optimizer_update)
-        self.weight_update_rule = mesh_lib.weight_update_sharding(mesh)
+        # zero2's rule (name, tensor) -> the dim sliced over the replica
+        # group, or PIPE_AXIS for a stage entry (whole on its stage).
+        wu_rule = mesh_lib.weight_update_sharding(mesh, axes=self.weight_update_axes)
+        self.weight_update_rule = mesh_lib.pipe_stage_param_rule(
+            mesh, lambda name, tensor: wu_rule(tensor))
+        # The dims over whose ranks a whole leaf's gradient (outside a
+        # pipeline's stages) and the metrics are averaged: every dim but
+        # model in the sharded_params regime (model ranks hold the same
+        # batch, and equal gradients), else every dim.
+        self.mean_axes = (mesh_lib.complement((mesh_lib.MODEL_AXIS,))
+                          if self.regime == "sharded_params" else mesh_lib.AXES)
         # The sharded_params regime's layout ({name: (model dim, fsdp
         # dim)}), set by init_state.
         self.param_layout: sharded_params.Layout = {}
@@ -424,13 +443,21 @@ class Trainer:
         self.ranks = 1 if mesh is None else dist.get_world_size()
         self.shard, self.data_shards = (
             (0, 1) if mesh is None else mesh_lib.data_shard(mesh))
-        if self.data_shards > 1:
-            mesh_lib.data_group(mesh)  # made here, on every rank together
         self.pipes = mesh_lib.axis_size(mesh, mesh_lib.PIPE_AXIS)
         # Which state entries are this rank's stage's (pipe dim above 1).
         self.stage_local = mesh_lib.pipe_stage_param_rule(mesh)
-        if self.pipes > 1:
-            mesh_lib.stage_group(mesh)  # made here, on every rank together
+        if mesh is not None:
+            # The groups the steps reduce over, made here on every rank
+            # together (dist.new_group).
+            groups = [(mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS), self.mean_axes,
+                      mesh_lib.complement((mesh_lib.PIPE_AXIS,))]
+            if self.regime == "sharded_params":
+                groups.append(mesh_lib.complement((mesh_lib.MODEL_AXIS, mesh_lib.FSDP_AXIS)))
+            if self.regime == "zero2":
+                groups += [self.weight_update_axes,
+                           mesh_lib.complement(self.weight_update_axes)]
+            for axes in groups:
+                mesh_lib.dims_group(mesh, axes)
         self._twin_network: Optional[torch.nn.Module] = None
         self.is_chief = mesh is None or dist.get_rank() == 0
         self.device = resolve_device(device) if mesh is None else rank_device(device)
@@ -471,9 +498,10 @@ class Trainer:
             update = _QuantizedUpdate(network, self.collective, self.mesh)
             self._flat_layout = update.layout
         elif self.regime == "zero2":
-            update = _ShardedUpdate(network, self._shard_dims(network), self.mesh)
+            update = _ShardedUpdate(network, self._shard_dims(network), self.mesh,
+                                    self.weight_update_axes)
         elif self.flatten_optimizer_update:
-            update = _FlatUpdate(network)
+            update = _FlatUpdate(network, self.stage_local)
         optimizer = self.optimizer_factory(
             network.parameters() if update is None else update.optimizer_params())
         clipping = getattr(optimizer, "clipping", None)
@@ -487,7 +515,8 @@ class Trainer:
             self._sum_norms_over_shards(
                 optimizer, network.named_parameters() if update is None
                 else update.named_optimizer_params(),
-                update.dims if self.regime == "zero2" else ())
+                update.dims if self.regime == "zero2" else (),
+                update.stage_segments() if isinstance(update, _FlatUpdate) else None)
         ema = None
         if self.model.use_avg_model_params:
             ema = init_ema(network) if update is None else update.init_ema()
@@ -497,13 +526,16 @@ class Trainer:
                                  if self.regime == "quant_zero2" else None),
             weight_update=update)
 
-    def _sum_norms_over_shards(self, optimizer, named, sliced) -> None:
+    def _sum_norms_over_shards(self, optimizer, named, sliced, flat_segments=None) -> None:
         """Points clip_by_global_norm at the global gradient where the
         optimizer steps shards of it: each parameter's squared norm is
         summed over the mesh dims its shards are cut along (a
         sharded_params shard over fsdp and model, a zero2 slice, named
-        in `sliced`, over data, a pipe stage's entry over pipe), a whole
-        one counts once."""
+        in `sliced`, over the weight-update dims, a pipe stage's entry
+        over pipe), a whole one counts once. The flat update's one vector
+        over a pipe dim (`flat_segments`: its stage entries' and its other
+        entries' (offset, size) runs) sums its stage runs' squares over
+        pipe and counts the rest once."""
         axes_of = {}
         for name, p in named:
             if name in self.param_layout:
@@ -511,18 +543,31 @@ class Trainer:
                     axis for axis, d in zip((mesh_lib.MODEL_AXIS, mesh_lib.FSDP_AXIS),
                                             self.param_layout[name]) if d is not None)
             elif name in sliced:
-                axes_of[id(p)] = (mesh_lib.DATA_AXIS,)
+                axes_of[id(p)] = self.weight_update_axes
             elif self.stage_local(name):
                 axes_of[id(p)] = (mesh_lib.PIPE_AXIS,)
-        if not axes_of:
+        if flat_segments is not None and flat_segments[0]:
+            split_id = id(named[0][1])
+        elif axes_of:
+            split_id = None
+        else:
             return
-        groups = sorted(set(axes_of.values()) | {()})
+        groups = sorted(set(axes_of.values()) | {()}
+                        | ({(mesh_lib.PIPE_AXIS,)} if split_id is not None else set()))
         mesh = self.mesh
+
+        def runs_square(grad, runs):
+            return sum((grad[o:o + n].square().sum() for o, n in runs),
+                       torch.zeros((), device=grad.device))
 
         def global_norm_squared(params, squares):
             parts = {axes: [] for axes in groups}
             for p, square in zip(params, squares):
-                parts[axes_of.get(id(p), ())].append(square)
+                if id(p) == split_id:
+                    parts[(mesh_lib.PIPE_AXIS,)].append(runs_square(p.grad, flat_segments[0]))
+                    parts[()].append(runs_square(p.grad, flat_segments[1]))
+                else:
+                    parts[axes_of.get(id(p), ())].append(square)
             total = None
             for axes in groups:
                 part = sum(parts[axes], torch.zeros((), device=self.device))
@@ -533,12 +578,13 @@ class Trainer:
         optimizer.global_norm_squared = global_norm_squared
 
     def _shard_dims(self, network: nn.Module) -> Dict[str, int]:
-        """{parameter name: the dim a data rank keeps a slice of} of the
-        zero2 regime (mesh.weight_update_sharding)."""
+        """{parameter name: the dim a rank of the replica group keeps a
+        slice of} of the zero2 regime (mesh.weight_update_sharding over
+        the weight-update dims; a stage entry stays whole)."""
         dims = {}
         for name, p in network.named_parameters():
-            dim = self.weight_update_rule(p)
-            if dim is not None:
+            dim = self.weight_update_rule(name, p)
+            if dim is not None and dim != mesh_lib.PIPE_AXIS:
                 dims[name] = dim
         return dims
 
@@ -687,14 +733,14 @@ class Trainer:
         return Trainer(self.model.without_mesh(), device=self.device, seed=self.seed)
 
     def average_over_ranks(self, network, loss, metrics, skip=()):
-        """pmean over every rank of each gradient and each scalar float
-        metric, in one flat all_reduce (a stage-local gradient: over its
-        stage's ranks, in a second one); returns the averaged loss and
-        metrics. In the sharded_params regime the mean is over the data x
-        fsdp shards only: ranks that differ in model alone hold the same
-        batch, and their gradients are equal. A parameter without a
+        """pmean of each gradient and each scalar float metric over the
+        ranks of the `mean_axes` dims (every rank; every rank but the other
+        model ranks in the sharded_params regime, whose ranks hold the same
+        batch and equal gradients), in one flat all_reduce, and of a
+        stage-local gradient over its stage's ranks, in a second one;
+        returns the averaged loss and metrics. A parameter without a
         gradient joins as zeros, so every rank's bucket has the same
-        layout; the parameters named in `skip` (zero2's sharded leaves,
+        layout; the parameters named in `skip` (zero2's sliced leaves,
         sharded_params' leaves cut over fsdp) stay out."""
         named = [(n, p) for n, p in network.named_parameters()
                  if p.requires_grad and n not in skip]
@@ -707,10 +753,7 @@ class Trainer:
         scalars = [k for k, v in metrics.items()
                    if v.ndim == 0 and v.is_floating_point()]
         values = [loss] + [metrics[k] for k in scalars]
-        if self.regime == "sharded_params":
-            size, group = self.data_shards, mesh_lib.data_group(self.mesh)
-        else:
-            size, group = self.ranks, None
+        group, size, _ = mesh_lib.dims_group(self.mesh, self.mean_axes)
         averaged = collectives.all_reduce_mean_flat(grads(params) + values, size, group)
         if staged:
             group, size = mesh_lib.stage_group(self.mesh)
@@ -743,11 +786,13 @@ class Trainer:
         """{step, params, ema_params, optimizer} as the checkpoint holds
         them: the network's state dict, the EMA and the optimizer's state
         dict (None with optimizer=False), with `ema_names` for a flat EMA
-        and the quantized regime's `collective_residual`. Over a pipe dim
-        above 1 every stage-local entry is stacked over the pipe ranks
-        ([S, ...]), in the ZeRO-2 regimes every shard is gathered over the
-        data ranks, and in the sharded_params regime every sharded
-        parameter, its moments and its EMA over fsdp and model: a
+        and the quantized regime's `collective_residual`. In the zero2
+        regime every slice is gathered over the replica group (the
+        quantized one's rows over the data ranks), in the sharded_params
+        regime every sharded parameter, its moments and its EMA over fsdp
+        and model, and the flat update over a pipe dim is cut into one
+        entry a parameter; then, over a pipe dim above 1, every
+        stage-local entry is stacked over the pipe ranks ([S, ...]): a
         collective, which every rank calls. Every regime but the quantized
         one saves the replicated trainer's layout."""
         params = {k: v.detach() for k, v in state.network.state_dict().items()}
@@ -760,7 +805,7 @@ class Trainer:
         if self.pipes == 1:
             return saved
         ema, opt = saved["ema_params"], saved["optimizer"]
-        params = self._stack_stages(params)
+        params = self._stack_stages(saved["params"])
         ema = None if ema is None else self._stack_stages(ema)
         if opt is not None:
             names = [n for n, _ in state.network.named_parameters()]
@@ -775,23 +820,34 @@ class Trainer:
                          network: torch.nn.Module) -> Dict[str, Any]:
         """A checkpoint as this rank's `network` restores it: over a pipe
         dim above 1 each stacked stage-local entry is this rank's stage's
-        slice; in the ZeRO-2 regimes each gathered moment, EMA and
-        residual is this data rank's shard of it, and in the sharded_params
-        regime each sharded parameter, its moments and its EMA this rank's
-        shard."""
+        slice; then in the zero2 regime each gathered moment and EMA entry
+        is this rank's slice of it over the weight-update dims, in the
+        quantized one this data rank's rows, in the sharded_params regime
+        each sharded parameter, its moments and its EMA this rank's shard,
+        and with the flat update the entries are raveled into its one
+        vector."""
+        checkpoint = self._stage_slice(checkpoint, network)
         if self.regime == "sharded_params":
             return _ShardedParams.local(checkpoint, network, self.param_layout, self.mesh)
         if self.regime == "zero2":
-            return _ShardedUpdate.local(
-                checkpoint, network, self._shard_dims(network),
-                collectives.axis_index(self.mesh, mesh_lib.DATA_AXIS),
-                mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS))
+            _, size, index = mesh_lib.dims_group(self.mesh, self.weight_update_axes)
+            return _ShardedUpdate.local(checkpoint, network, self._shard_dims(network),
+                                        index, size)
         if self.regime == "quant_zero2":
             layout = collectives.FlatShardLayout(
                 sum(p.numel() for p in network.parameters()),
                 mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS), self.collective.block)
             return _QuantizedUpdate.local(
                 checkpoint, layout, collectives.axis_index(self.mesh, mesh_lib.DATA_AXIS))
+        if self.flatten_optimizer_update:
+            return _FlatUpdate.local(checkpoint, network)
+        return checkpoint
+
+    def _stage_slice(self, checkpoint: Dict[str, Any],
+                     network: torch.nn.Module) -> Dict[str, Any]:
+        """Over a pipe dim above 1, the checkpoint with each stacked
+        stage-local entry (parameter, EMA, moment) cut to this rank's
+        stage; the checkpoint as it is otherwise."""
         if self.pipes == 1:
             return checkpoint
         stage = collectives.axis_index(self.mesh, mesh_lib.PIPE_AXIS)
@@ -801,7 +857,8 @@ class Trainer:
                 k: v[stage] if self.stage_local(k) else v for k, v in tensors.items()}
 
         out = dict(checkpoint, params=pick(checkpoint["params"]),
-                   ema_params=pick(checkpoint.get("ema_params")))
+                   ema_params=pick(state_lib.checkpoint_ema(checkpoint)))
+        out.pop("ema_names", None)
         opt = checkpoint.get("optimizer")
         if opt is not None:
             names = [n for n, _ in network.named_parameters()]
@@ -898,16 +955,32 @@ def _unrow(row: torch.Tensor, shape, dim: int) -> torch.Tensor:
 class _FlatUpdate:
     """flatten_optimizer_update: the optimizer steps one flat vector of
     the parameters (models/optimizers.FlatParameters), and the EMA is one
-    flat vector updated in one pass."""
+    flat vector updated in one pass. Over a pipe dim above 1 the vector
+    holds this rank's entries, its stage's and the shared ones, averaged
+    as the per-leaf step averages them; its checkpoint holds them as the
+    per-leaf trainer's does (the EMA a tree, one optimizer entry a
+    parameter), so the stage entries stack over pipe, and `local` ravels
+    them back."""
 
-    def __init__(self, network: nn.Module):
+    def __init__(self, network: nn.Module, stage_local):
         self.flat = FlatParameters(network)
+        self.stage_local = stage_local
+        self.staged = any(stage_local(name) for name in self.flat.names)
 
     def optimizer_params(self):
         return [self.flat.flat]
 
     def named_optimizer_params(self):
         return [("flat", self.flat.flat)]
+
+    def stage_segments(self):
+        """([(offset, size)] of the vector's stage entries, the same of
+        its other entries), for clipping by a global norm."""
+        stage, other, offset = [], [], 0
+        for name, p in zip(self.flat.names, self.flat.params):
+            (stage if self.stage_local(name) else other).append((offset, p.numel()))
+            offset += p.numel()
+        return stage, other
 
     def init_ema(self) -> torch.Tensor:
         return self.flat.flat.detach().clone()
@@ -923,23 +996,69 @@ class _FlatUpdate:
         return loss, metrics
 
     def gather(self, saved: Dict[str, Any]) -> None:
+        """The saved EMA named (ema_names), or, over a pipe dim above 1,
+        the EMA and the optimizer's entries cut into one a parameter."""
+        if not self.staged:
+            if saved["ema_params"] is not None:
+                saved["ema_names"] = list(self.flat.names)
+            return
+        template = dict(zip(self.flat.names, self.flat.params))
         if saved["ema_params"] is not None:
-            saved["ema_names"] = list(self.flat.names)
+            saved["ema_params"] = {k: v.clone() for k, v in state_lib.ema_as_tree(
+                saved["ema_params"], template).items()}
+        opt = saved["optimizer"]
+        if opt is not None:
+            entry = opt["state"].get(0, {})
+            cut = {k: (state_lib.ema_as_tree(v, template) if v.ndim else None)
+                   for k, v in entry.items()}
+            saved["optimizer"] = dict(
+                opt, param_groups=[dict(group, params=list(range(len(template))))
+                                   for group in opt["param_groups"]],
+                state={i: {k: v.clone() if cut[k] is None else cut[k][name].clone()
+                           for k, v in entry.items()}
+                       for i, name in enumerate(self.flat.names)} if entry else {})
+
+    @staticmethod
+    def local(checkpoint: Dict[str, Any], network: nn.Module) -> Dict[str, Any]:
+        """A checkpoint whose EMA and optimizer entries are one a
+        parameter, raveled into the flat vector's layout (a flat
+        checkpoint passes as it is)."""
+        names = [n for n, _ in network.named_parameters()]
+        out = dict(checkpoint)
+        ema = checkpoint.get("ema_params")
+        if isinstance(ema, dict):
+            out["ema_params"] = torch.cat([ema[n].reshape(-1) for n in names])
+            out["ema_names"] = names
+        opt = checkpoint.get("optimizer")
+        if opt is not None and len(opt["param_groups"][0]["params"]) > 1:
+            entries = [opt["state"][i] for i in range(len(names))] if opt["state"] else []
+            state = {0: {k: torch.cat([e[k].reshape(-1) for e in entries]) if v.ndim else v
+                         for k, v in entries[0].items()}} if entries else {}
+            out["optimizer"] = dict(opt, state=state, param_groups=[
+                dict(group, params=[0]) for group in opt["param_groups"]])
+        return out
 
 
 class _ShardedUpdate:
     """zero2: every leaf that mesh.weight_update_sharding shards (`dims`,
-    name -> dim) is stepped by the optimizer as this data rank's slice of
-    it, a view of the parameter; the moments and the EMA exist for that
-    slice only. A step reduce-scatters those leaves' gradients (one
-    bucket, divided by the data size), all-reduces the others with the
-    metrics as the replicated step does, steps the optimizer, and
-    all-gathers the updated slices into the parameters (one bucket)."""
+    name -> dim; a pipeline's stage entries stay whole) is stepped by the
+    optimizer as this rank's slice of it over the replica group, the
+    ranks that differ only along the weight-update dims `axes`; a view of
+    the parameter, whose moments and EMA exist for that slice only. A
+    step reduce-scatters those leaves' gradients over the group (one
+    bucket), sums the slice over the complement's ranks (every other dim:
+    the replica group's copies of this slice on the other data, sequence,
+    pipe and expert coordinates) and divides by the number of ranks, so
+    the slice is the replicated step's mean over every rank; it
+    all-reduces the other leaves with the metrics as the replicated step
+    does (a stage entry over its stage's ranks), steps the optimizer, and
+    all-gathers the updated slices into the parameters over the group
+    (one bucket)."""
 
-    def __init__(self, network: nn.Module, dims: Dict[str, int], mesh):
-        self.mesh, self.dims = mesh, dims
-        self.size = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
-        self.index = collectives.axis_index(mesh, mesh_lib.DATA_AXIS)
+    def __init__(self, network: nn.Module, dims: Dict[str, int], mesh, axes: Sequence[str]):
+        self.mesh, self.dims, self.axes = mesh, dims, tuple(axes)
+        self.rest = mesh_lib.complement(self.axes)
+        _, self.size, self.index = mesh_lib.dims_group(mesh, self.axes)
         self.full: Dict[str, nn.Parameter] = {}
         self.views: Dict[str, torch.Tensor] = {}
         for name, p in network.named_parameters():
@@ -964,8 +1083,8 @@ class _ShardedUpdate:
             if self.full:
                 rows = torch.cat([_grad(p).movedim(self.dims[n], 0).reshape(self.size, -1)
                                   for n, p in self.full.items()], dim=1)
-                mine = collectives.psum_scatter(rows, self.mesh, mesh_lib.DATA_AXIS)[0]
-                mine = mine / self.size
+                mine = collectives.psum_scatter(rows, self.mesh, self.axes)[0]
+                mine = collectives.psum(mine, self.mesh, self.rest) / trainer.ranks
                 offset = 0
                 for name, p in self.full.items():
                     view = self.views[name]
@@ -980,7 +1099,7 @@ class _ShardedUpdate:
             if self.full:
                 mine = torch.cat([self.views[n].detach().movedim(self.dims[n], 0).reshape(-1)
                                   for n in self.full])
-                rows = collectives.all_gather(mine, self.mesh, mesh_lib.DATA_AXIS)
+                rows = collectives.all_gather(mine, self.mesh, self.axes)
                 rows = rows.view(self.size, -1)
                 offset = 0
                 for name, p in self.full.items():
@@ -993,13 +1112,13 @@ class _ShardedUpdate:
         return loss, metrics
 
     def gather(self, saved: Dict[str, Any]) -> None:
-        """The saved state as the replicated trainer's: each sharded
-        leaf's moments and EMA gathered over the data ranks."""
+        """The saved state as the replicated trainer's: each sliced
+        leaf's moments and EMA gathered over the replica group."""
 
         def whole(name, t):
             if name not in self.dims or t.shape != self.views[name].shape:
                 return t
-            return collectives.all_gather(t.detach(), self.mesh, mesh_lib.DATA_AXIS,
+            return collectives.all_gather(t.detach(), self.mesh, self.axes,
                                           axis=self.dims[name])
 
         if saved["ema_params"] is not None:
@@ -1014,8 +1133,9 @@ class _ShardedUpdate:
     @staticmethod
     def local(checkpoint: Dict[str, Any], network: nn.Module, dims: Dict[str, int],
               index: int, size: int) -> Dict[str, Any]:
-        """A replicated-layout checkpoint as this data rank restores it:
-        each sharded leaf's moments and EMA cut to its slice."""
+        """A replicated-layout checkpoint as this rank of the replica
+        group (`index` of `size`) restores it: each sliced leaf's moments
+        and EMA cut to its slice."""
         shapes = {n: p.shape for n, p in network.named_parameters()}
 
         def mine(name, t):
@@ -1038,25 +1158,23 @@ class _ShardedUpdate:
 
 class _ShardedParams:
     """sharded_params: the network's parameters are this rank's shards
-    (parallel/sharded_params.py; `layout` names the sharded ones), and the
-    optimizer, its moments and the EMA step them. After the backward a
-    leaf cut over fsdp already holds the sum over the fsdp ranks of their
-    batch shards' terms (its gather's backward reduce-scatters), so a step
-    sums it over the data ranks and divides by the data x fsdp count (one
-    bucket); every other leaf (whole, or cut over model alone: a kernel
-    none of whose other dims fsdp divides) and the metrics are averaged
-    over the data x fsdp shards (average_over_ranks), whose ranks share
-    this rank's model index and so its model shard. Nothing is averaged
-    over model: a model rank's shard of a column-split kernel has its own
-    columns' gradient, and a whole leaf the same gradient on every model
-    rank."""
+    (parallel/sharded_params.py; `layout` names the sharded ones, never a
+    pipeline's stage entries), and the optimizer, its moments and the EMA
+    step them. After the backward a leaf cut over fsdp already holds the
+    sum over the fsdp ranks of their batch shards' terms (its gather's
+    backward reduce-scatters), so a step sums it over the ranks of the
+    trainer's `mean_axes` dims but fsdp (data, sequence, pipe and expert)
+    and divides by the count of the `mean_axes` ranks (one bucket); every
+    other leaf (whole, or cut over model alone: a kernel none of whose
+    other dims fsdp divides) and the metrics are averaged over the
+    `mean_axes` ranks (average_over_ranks), which share this rank's model
+    index and so its model shard, and a stage entry over its stage's
+    ranks. Nothing is averaged over model: a model rank's shard of a
+    column-split kernel has its own columns' gradient, and a whole leaf
+    the same gradient on every model rank."""
 
     def __init__(self, network: nn.Module, layout: sharded_params.Layout, mesh):
         self.layout, self.mesh = layout, mesh
-        shape = mesh_lib.mesh_shape(mesh)
-        self.data = shape[mesh_lib.DATA_AXIS]
-        self.count = self.data * shape[mesh_lib.FSDP_AXIS]
-        self.group = mesh.get_group(mesh_lib.DATA_AXIS) if self.data > 1 else None
         self.params = dict(network.named_parameters())
         self.fsdp_cut = {name for name, (_, fsdp_dim) in layout.items()
                          if fsdp_dim is not None}
@@ -1073,11 +1191,15 @@ class _ShardedParams:
     def reduce(self, trainer: "Trainer", state: TrainState, loss, metrics):
         """The step's gradient exchange (class docstring); returns the
         averaged loss and metrics."""
+        axes = trainer.mean_axes
+        group, size, _ = mesh_lib.dims_group(
+            self.mesh, [axis for axis in axes if axis != mesh_lib.FSDP_AXIS])
+        _, count, _ = mesh_lib.dims_group(self.mesh, axes)
         with torch.no_grad():
             sharded = [p for name, p in self.params.items()
                        if name in self.fsdp_cut and p.requires_grad]
             for p, g in zip(sharded, collectives.all_reduce_mean_flat(
-                    [_grad(p) for p in sharded], self.data, self.group, count=self.count)):
+                    [_grad(p) for p in sharded], size, group, count=count)):
                 p.grad = g
         return trainer.average_over_ranks(state.network, loss, metrics, skip=self.fsdp_cut)
 
@@ -1423,17 +1545,12 @@ def train_eval_model(
 
     iterations_per_loop > 1 runs K steps per loop, and hooks then observe
     loop granularity. remat, grad_accum_steps and shard_weight_update are
-    the memory levers, and flatten_optimizer_update, collective_quant,
-    collective_block the other weight-update regimes (Trainer).
-    weight_update_axes is JAX's, and only its default, None or
-    ("data",), is legal until ROADMAP.md A9.4c. In the quantized ZeRO-2
-    regime every metrics line carries the exchange's
-    collective_log_record. With a mesh every rank of the world calls this
-    with the same arguments (module docstring)."""
-    if weight_update_axes is not None and tuple(weight_update_axes) != (mesh_lib.DATA_AXIS,):
-        raise NotImplementedError(
-            f"weight_update_axes={tuple(weight_update_axes)}: ZeRO-2 over replica "
-            "axes other than ('data',) is not ported yet (ROADMAP.md A9.4c)")
+    the memory levers, weight_update_axes the replica dims ZeRO-2 shards
+    over (None: ("data",)), and flatten_optimizer_update,
+    collective_quant, collective_block the other weight-update regimes
+    (Trainer). In the quantized ZeRO-2 regime every metrics line carries
+    the exchange's collective_log_record. With a mesh every rank of the
+    world calls this with the same arguments (module docstring)."""
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     eval_generators = normalize_eval_generators(input_generator_eval)
@@ -1444,6 +1561,7 @@ def train_eval_model(
         shard_weight_update=shard_weight_update,
         flatten_optimizer_update=flatten_optimizer_update,
         collective_quant=collective_quant, collective_block=collective_block,
+        weight_update_axes=weight_update_axes,
     )
     chief = trainer.is_chief
     if chief:

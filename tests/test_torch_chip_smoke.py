@@ -433,10 +433,15 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     that leaves reach mesh.MIN_WEIGHT_SIZE; global batch 2: the checked
     step, its control, bytes a rank, 2 + 2 timed steps and as many with
     every sharded leaf gathered on use, then a clipped
-    trainer run of 2 steps resumed on one device and served). The
-    ranks import chip_smoke afresh and take their sizes and device from
-    the phase's spec, and count the plain versions' calls as launches
-    themselves."""
+    trainer run of 2 steps resumed on one device and served), BC's
+    composed regimes on the same ranks (d_model 128, global batch 4: six
+    meshes' checked steps and 2 + 2 timed steps but the flat update's,
+    three controls, a clipped trainer run of 2 steps on 2 data x 2
+    sequence resumed in sharded_params on 2 fsdp x 2 sequence and on one
+    device, and served), and dp_sp_pp on 8 more ranks (its step, its
+    twin's, 2 + 1 timed steps). The ranks import chip_smoke afresh and
+    take their sizes and device from the phase's spec, and count the
+    plain versions' calls as launches themselves."""
     import sys
 
     monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
@@ -457,6 +462,11 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "PARALLEL_SHARDED", dict(
         chip_smoke.PARALLEL_SHARDED, batch=2, train=dict(steps=2, save_every=2,
                                                          eval_steps=1)))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_COMPOSED", dict(
+        chip_smoke.PARALLEL_COMPOSED, batch=4, train=dict(steps=2, save_every=2,
+                                                          eval_steps=1)))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_3D", dict(chip_smoke.PARALLEL_3D, batch=4,
+                                                        timed=1))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
     # 2 more steps; the 2 x 2 run's 4 steps and 2 evals of 2 hops x 2
@@ -472,18 +482,25 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     # steps (the control's step and the 2 + 2 steps gathered on use are
     # not counted), its eval's B2, and the
     # trainer run of 2 steps with one eval, 2 layers each time; the served
-    # batch's B2 in this process.
+    # batch's B2 in this process. Composed: per rank the checked step
+    # and 2 + 2 timed steps of the three sequence meshes (2 layers x 2
+    # hops) and of the two timed pipe meshes (1 block x 2 microbatches),
+    # the flat update's checked step, and the trainer run's 2 steps and
+    # one ring eval; the served batch's B2 in this process; dp_sp_pp none.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
     pipe = 4 * (1 + 4 + 2 + 2 * 2)
     zero2 = 4 * (1 + 5 * 2 + 2 * 2) * 2 + 2 * 2
     sharded = 4 * (1 + 4 + 2) * 2
+    composed = 4 * (3 * 4 * (1 + 4) + 2 * 2 * (1 + 4) + 2 * 1)
     assert launches == {
-        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2 + 4 * (2 + 2) + 2,
+        "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2 + 4 * (2 + 2) + 2 + 2,
         "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
-                           + moe + pipe + zero2 + sharded),
-        "flash_bwd_dq": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded,
-        "flash_bwd_dkv": 4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded,
+                           + moe + pipe + zero2 + sharded + composed + 4 * 4 * (2 + 1)),
+        "flash_bwd_dq": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
+                         + composed + 4 * 4 * 2),
+        "flash_bwd_dkv": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
+                          + composed + 4 * 4 * 2),
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
@@ -522,5 +539,18 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "global norm 0.05", "the same on every rank",
                  "2.pt resumed on one card equal bit for bit to the mesh's resume",
                  "2.pt served on one card by CheckpointPredictor",
-                 "[parallel_sharded] sub-phase"):
+                 "[parallel_sharded] sub-phase",
+                 "[parallel_composed] (a) zero2 on data x fsdp x sequence x pipe 2x1x2x1",
+                 "[parallel_composed] (b) zero2", "[parallel_composed] (c) zero2",
+                 "[parallel_composed] (d) sharded_params", "[parallel_composed] (e) "
+                 "sharded_params", "[parallel_composed] (f) replicated",
+                 "gate only", "B1/B3/B4 4 each a rank a step", "B1/B3/B4 2 each a rank a step",
+                 "[parallel_composed] control (a) slice_over_data (must fail)",
+                 "[parallel_composed] control (d) whole_over_data_fsdp (must fail)",
+                 "[parallel_composed] control (c) stages_unaveraged (must fail)",
+                 "[parallel_composed] train_eval_model on mesh (a) clipped to global norm",
+                 "2.pt resumed in sharded_params on mesh (d)",
+                 "[parallel_composed] sub-phase",
+                 "[parallel_3d] dp_sp_pp: 8 gloo ranks on cpu up in",
+                 "no flash launch", "[parallel_3d] sub-phase"):
         assert line in out, out

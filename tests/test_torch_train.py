@@ -345,12 +345,8 @@ class TestUnportedArguments:
         [
             # A mesh is ported (A9 part 1); an object that is not the
             # port's DeviceMesh raises TypeError naming the type it wants.
-            # ZeRO-2 is ported over the data dim (A9.4a): over other
-            # replica axes it still raises, naming A9.4c; the planner
-            # names A9.5.
+            # The planner names A9.5.
             (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
-            (dict(shard_weight_update=True,
-                  weight_update_axes=("data", "sequence")), "A9"),
             (dict(create_exporters_fn=lambda m: create_default_exporters(
                 m, serve_quant=("int8",))), "A10"),
         ],
@@ -370,22 +366,23 @@ class TestUnportedArguments:
         assert not os.path.exists(tmp_path / "checkpoints")
         if "plan" in kw:
             assert "ROADMAP.md A9.5" in str(raised.value)
-        if "weight_update_axes" in kw:
-            assert "ROADMAP.md A9.4c" in str(raised.value)
 
     @pytest.mark.parametrize(
         "kw",
         [dict(remat=True), dict(grad_accum_steps=2), dict(iterations_per_loop=2),
          dict(hook_builders=[_NoHooks()]), dict(shard_weight_update=True),
-         dict(flatten_optimizer_update=True)],
+         dict(flatten_optimizer_update=True),
+         dict(weight_update_axes=("data", "sequence"), shard_weight_update=True)],
         ids=lambda x: next(iter(x)),
     )
     def test_ported_regimes_train(self, tmp_path, kw):
         """The regimes and hooks ported from A4 and A5 train and
         checkpoint (tests/test_torch_train_regimes.py holds them to JAX),
-        and so do the weight-update regimes of A9.4a on one device
-        (shard_weight_update over no data dim is the replicated step;
-        tests/test_torch_zero2*.py hold them to JAX)."""
+        and so do the weight-update regimes of A9.4 on one device
+        (shard_weight_update over a weight-update group of 1, whatever
+        its dims, is the replicated step, as JAX resolves it;
+        tests/test_torch_zero2*.py and test_torch_composed_regimes.py hold
+        them to JAX)."""
         train, _ = _generators()
         train_eval.train_eval_model(
             TransformerBCModel(**SMALL, device_type="cpu"), train,
@@ -393,6 +390,10 @@ class TestUnportedArguments:
             device="cpu", **kw,
         )
         assert state_lib.checkpoint_steps(str(tmp_path)) == [2]
+        if "weight_update_axes" in kw:
+            trainer = train_eval.Trainer(TransformerBCModel(**SMALL, device_type="cpu"),
+                                         device="cpu", **kw)
+            assert trainer.regime == "replicated"
 
     def test_flat_update_refused_with_zero2(self, tmp_path):
         """flatten_optimizer_update beside shard_weight_update raises

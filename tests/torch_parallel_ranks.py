@@ -192,12 +192,12 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
 
 
 def unported_pins() -> dict:
-    """What a real mesh still refuses, each case's error as "<type>:
-    <message>" ("" when nothing was raised): a model dim composed with a
-    pipe dim, the plan, shard_weight_update over data on a pipe mesh and
-    decoding over a mesh (NotImplementedError naming ROADMAP.md A9), MoE
-    inside a pipeline (JAX's ValueError). The pipelined encoder itself
-    now builds ("pipeline_stages")."""
+    """What a real mesh refuses, each case's error as "<type>: <message>"
+    ("" when nothing was raised): the plan and decoding over a mesh
+    (NotImplementedError naming ROADMAP.md A9), MoE inside a pipeline
+    (JAX's ValueError). The pipelined encoder builds ("pipeline_stages"),
+    and so do a model dim composed with a pipe dim and
+    shard_weight_update over data on a pipe mesh, once refused."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
     from tensor2robot_tpu_torch.train.train_eval import Trainer

@@ -191,8 +191,8 @@ def resume_elsewhere(model_kwargs: dict, weights: dict, batch: dict, model_dir: 
 
 
 def refusals() -> dict:
-    """What the sharded meshes refuse, each as "<type>: <message>" ("" when
-    nothing was raised), and what they resolve."""
+    """What the sharded and composed meshes refuse, each as "<type>:
+    <message>" ("" when nothing was raised), and what they resolve."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
 
@@ -204,6 +204,11 @@ def refusals() -> dict:
         return MockT2RModel(device_type="cpu", create_optimizer_fn=lambda: (
             optimizers.with_gradient_clipping(optimizers.create_adam_optimizer(), 1.0)))
 
+    trainers = {}
+
+    def build(name, **kwargs):
+        trainers[name] = train_eval.Trainer(**kwargs)
+
     cases = {
         "clipping_quant_zero2": lambda: train_eval.Trainer(
             clipped_mock(), device="cpu", mesh=data, shard_weight_update=True,
@@ -213,11 +218,12 @@ def refusals() -> dict:
             flatten_optimizer_update=True),
         "sharded_params_with_pipe": lambda: TransformerEncoder(
             32, 2, 4, 8, mesh=fsdp_pipe, pipeline_stages=2),
-        "trainer_on_fsdp_x_pipe": lambda: train_eval.Trainer(
-            MockT2RModel(device_type="cpu"), device="cpu", mesh=fsdp_pipe),
-        "zero2_with_pipe": lambda: train_eval.Trainer(
-            bc_model(TINY, pipe_mesh=mesh((2, 1, 1), pipe=2)), device="cpu",
-            mesh=mesh((2, 1, 1), pipe=2), shard_weight_update=True),
+        "trainer_on_fsdp_x_pipe": lambda: build(
+            "trainer_on_fsdp_x_pipe", model=bc_model(TINY, pipe_mesh=fsdp_pipe),
+            device="cpu", mesh=fsdp_pipe),
+        "zero2_with_pipe": lambda: build(
+            "zero2_with_pipe", model=bc_model(TINY, pipe_mesh=mesh((2, 1, 1), pipe=2)),
+            device="cpu", mesh=mesh((2, 1, 1), pipe=2), shard_weight_update=True),
         "maml_on_fsdp": lambda: _maml_trainer(fsdp_model).init_state(),
     }
     out = {}
@@ -227,7 +233,8 @@ def refusals() -> dict:
             out[name] = ""
         except (NotImplementedError, ValueError) as err:
             out[name] = f"{type(err).__name__}: {err}"
-    regimes = {
+    regimes = {name: trainer.regime for name, trainer in trainers.items()}
+    regimes.update({
         "fsdp_model_with_zero2_flag": train_eval.Trainer(
             MockT2RModel(device_type="cpu"), device="cpu", mesh=fsdp_model,
             shard_weight_update=True).regime,
@@ -242,7 +249,7 @@ def refusals() -> dict:
             shard_weight_update=True).regime,
         "data": train_eval.Trainer(MockT2RModel(device_type="cpu"), device="cpu",
                                    mesh=data).regime,
-    }
+    })
     return dict(errors=out, regimes=regimes)
 
 
