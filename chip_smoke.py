@@ -3319,14 +3319,17 @@ META_ENV = dict(tasks=10, adaptations=2)
 META_SUCCESS = -1.5
 
 
-def meta_model(use_second_order: bool = True, device_type: str = "gpu", **kwargs):
+def meta_model(use_second_order: bool = True, device_type: str = "gpu", mesh=None,
+               **kwargs):
+    """Pose MAML, its base built with `mesh` (its loss's sums then span
+    the mesh's data x fsdp shards)."""
     from tensor2robot_tpu_torch.research.pose_env import (
         PoseEnvRegressionModel,
         PoseEnvRegressionModelMAML,
     )
 
     return PoseEnvRegressionModelMAML(
-        base_model=PoseEnvRegressionModel(device_type=device_type),
+        base_model=PoseEnvRegressionModel(device_type=device_type, mesh=mesh),
         num_inner_loop_steps=1, use_second_order=use_second_order, **kwargs)
 
 
@@ -4912,7 +4915,8 @@ def _parallel_spec() -> dict:
                 critic=dict(PARALLEL_CRITIC), moe=dict(PARALLEL_MOE),
                 pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2),
                 sharded=dict(PARALLEL_SHARDED), composed=dict(PARALLEL_COMPOSED),
-                three_d=dict(PARALLEL_3D))
+                three_d=dict(PARALLEL_3D), moe_sequence=dict(PARALLEL_MOE_SEQUENCE),
+                maml=dict(PARALLEL_MAML))
 
 
 def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
@@ -5229,10 +5233,16 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 # three controls (~1 s each with their gathers), 5 x 7 synced steps
 # (~0.6 s each), 4 trainer steps with 2 evals, a resume in another
 # regime and on one card, a served checkpoint; dp_sp_pp: 8 ranks up
-# (~10 s), the reference, two gate steps, 5 synced steps.
+# (~10 s), the reference, two gate steps, 5 synced steps (the composed
+# meshes' and dp_sp_pp's timed steps cut to 2 and 1 to pay for the next
+# two sub-phases). MoE over expert x sequence: two
+# mesh backwards, an eval, the single-device reference, 5 synced steps of
+# ~0.5 s. Sharded MAML: per order the single-device reference, a gate
+# step (and a control), 5 synced steps of ~0.3 s.
 PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60,
                        "parallel_zero2": 45, "parallel_sharded": 62,
-                       "parallel_composed": 60, "parallel_3d": 40}
+                       "parallel_composed": 60, "parallel_3d": 40,
+                       "parallel_moe_sequence": 40, "parallel_maml_sharded": 30}
 
 
 @contextlib.contextmanager
@@ -6871,8 +6881,9 @@ def parallel_sharded(world, spec: dict, model_dir: str) -> dict:
 # zero2 on 2 data x 2 pipe (JAX's dp_pp_zero2), (d) sharded parameters on
 # 2 fsdp x 2 sequence, (e) on 2 fsdp x 2 pipe, (f) the flat update on
 # 2 data x 2 pipe. `controls`: the mechanism each control breaks (it must
-# fail the gate); `untimed`: the meshes that get the gate only; the
-# train_eval_model run on mesh `train_mesh`, clipped to global norm `clip`
+# fail the gate); `untimed`: the meshes that get the gate only, the others
+# `timed` synced steps; the train_eval_model run on mesh `train_mesh`,
+# clipped to global norm `clip`
 # (below the BC gradient's norm, so every step clips), resumed on mesh
 # `resume`.
 PARALLEL_COMPOSED = dict(
@@ -6886,13 +6897,13 @@ PARALLEL_COMPOSED = dict(
         "f": ((2, 1, 1, 2), dict(flatten_optimizer_update=True), "replicated"),
     },
     controls={"a": "slice_over_data", "d": "whole_over_data_fsdp", "c": "stages_unaveraged"},
-    untimed=("f",), batch=8, clip=0.05, train_mesh="a", resume="d",
+    untimed=("f",), timed=2, batch=8, clip=0.05, train_mesh="a", resume="d",
     train=dict(steps=4, save_every=2, eval_steps=1))
 # JAX's dp_sp_pp preset on 8 ranks sharing the card: 2 data x 2 sequence
 # x 2 pipe, zero2 over ("data", "sequence"), against the single-device
 # step and against its ("data",) twin; `timed` synced steps.
 PARALLEL_3D = dict(ranks=8, mesh=(2, 1, 2, 2), axes=("data", "sequence"), twin=("data",),
-                   timed=3, batch=8)
+                   timed=1, batch=8)
 
 
 @contextlib.contextmanager
@@ -7091,7 +7102,7 @@ def parallel_rank_composed(spec: dict) -> dict:
     out = {"rank": rank, "launches": {k: 0 for k in read_launches()}, "meshes": {},
            "controls": {}}
     for name, (dims, kwargs, _) in cfg["meshes"].items():
-        timed = 0 if name in cfg["untimed"] else spec["timed"]
+        timed = 0 if name in cfg["untimed"] else cfg["timed"]
         result = _composed_step(spec, dims, kwargs, weights, host, cfg["batch"], timed)
         for kernel, count in result.pop("launches").items():
             out["launches"][kernel] += count
@@ -7236,7 +7247,7 @@ def parallel_composed(world, spec: dict, model_dir: str) -> dict:
         m, gate = head["meshes"][name], head["meshes"][name]["gate"]
         timing = ("gate only" if name in cfg["untimed"] else
                   f"synced step median {m['step_ms']:.3f} ms (min {m['step_min']:.3f}, max "
-                  f"{m['step_max']:.3f}) over {spec['timed']} on rank 0, medians by rank "
+                  f"{m['step_max']:.3f}) over {cfg['timed']} on rank 0, medians by rank "
                   f"{[round(r['meshes'][name]['step_ms'], 3) for r in ranks]}; gloo "
                   f"host-staged {m['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
                   f"{[round(r['meshes'][name]['peak_gib'], 3) for r in ranks]}")
@@ -7397,6 +7408,394 @@ def parallel_3d(spec: dict) -> dict:
     return {name: 0 for name in read_launches()}
 
 
+# -- parallel_moe_sequence: MoE BC on 2 expert x 2 sequence ranks ------------------
+
+# MoE BC at the BC width on 2 expert x 2 sequence (ring) ranks: 4 experts,
+# k = 2, batch 8 (every rank holds the whole batch: expert and sequence
+# ranks share it), 2 resident experts a rank, each block's MoE gathering
+# the episode's 2 shards before routing; `timed` synced steps.
+PARALLEL_MOE_SEQUENCE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=3)
+# Each control must miss its gate by this factor or more.
+CONTROL_MARGIN = 100
+
+
+@contextlib.contextmanager
+def _slicing_moe_gather(on: bool):
+    """The MoE x sequence control in force inside when `on`: the MoE's
+    gather of the sequence shards takes this rank's slice of the cotangent
+    in its backward (gather_from) instead of summing the sequence ranks'
+    (all_gather's psum_scatter)."""
+    import types
+
+    from tensor2robot_tpu_torch.layers import moe as moe_layers
+    from tensor2robot_tpu_torch.parallel import collectives
+
+    saved = moe_layers.collectives
+    if on:
+        moe_layers.collectives = types.SimpleNamespace(
+            all_gather=collectives.gather_from, axis_index=collectives.axis_index)
+    try:
+        yield
+    finally:
+        moe_layers.collectives = saved
+
+
+def parallel_rank_moe_sequence(spec: dict, episodes: list) -> dict:
+    """On every rank of the 2 expert x 2 sequence mesh: one MoE BC
+    backward on the batch's `episodes` (router picks recorded, gradients
+    averaged by the trainer's bucket), its launches; the eval forward; then
+    the control's backward. Rank 0 then takes the single-device MoE step
+    and eval forward on the same weights and episodes and measures the
+    mesh's loss, aux, gradients, eval action and the control against them
+    (the caller gates them once it has compared the routing). Returns the
+    picks, the main-path launches and rank 0's measurements."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device = spec["moe_sequence"], spec["device"]
+    experts, sequence = cfg["mesh"]
+    mesh = _rank_setup(spec, 1, sequence, expert=experts)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    kwargs = dict(spec["model"], num_experts=cfg["experts"])
+    model = TransformerBCModel(mesh=mesh, **kwargs)
+    trainer = Trainer(model, device=device, mesh=mesh)
+    network = trainer.init_state(torch.Generator().manual_seed(0)).network
+    host = _bc_batch(model, spec["batch"], seed=0)
+    part = {k: v[episodes] for k, v in host.items()}
+    batch = to_device(mesh_lib.shard_batch(part, mesh), device)
+    rank = dist.get_rank()
+
+    def backward(control: bool):
+        network.zero_grad(set_to_none=True)
+        network.train()
+        with _RouterRecorder() as recorder, _deterministic_convs(), \
+                _slicing_moe_gather(control):
+            features, labels = trainer.preprocess_train(batch)
+            loss, metrics = trainer.backward(network, features, labels)
+            loss, metrics = trainer.average_over_ranks(network, loss, metrics)
+        grads = {n: p.grad.detach().clone() for n, p in network.named_parameters()}
+        return loss, metrics, grads, recorder
+
+    reset_launches()
+    loss, metrics, grads, recorder = backward(False)
+    _sync(device)
+    launches = read_launches()
+    with torch.inference_mode():
+        network.eval()
+        features, _ = trainer.preprocessor.preprocess(batch["features"], None, mode="eval")
+        reset_launches()
+        action = model.packed_inference(network, features, "eval")[2]["inference_output"]
+        _sync(device)
+        eval_launches = read_launches()
+    control_loss, _, control_grads, _ = backward(True)
+    out = dict(rank=rank, shard=0, launches=launches, eval_launches=eval_launches,
+               picks=[(ids.cpu().numpy(), m.cpu().numpy()) for ids, m in recorder.picks(2)])
+    if rank == 0:
+        reference = TransformerBCModel(**kwargs)
+        ref_trainer = Trainer(reference, device=device)
+        ref_network = ref_trainer.init_state(params=network.state_dict()).network
+        ref_network.train()
+        with _RouterRecorder() as ref_recorder, _deterministic_convs():
+            ref_loss, ref_metrics = ref_trainer.forward_loss(ref_network, batch)
+            ref_loss.backward()
+        ref_grads = {n: p.grad.detach() for n, p in ref_network.named_parameters()}
+        with torch.inference_mode():
+            ref_network.eval()
+            ref_action = reference.packed_inference(
+                ref_network, features, "eval")[2]["inference_output"]
+        out.update(gate=_bc_grad_gate(loss.item(), grads, ref_loss.item(), ref_grads),
+                   control=_bc_grad_gate(control_loss.item(), control_grads,
+                                         ref_loss.item(), ref_grads),
+                   aux=metrics["loss/moe_aux"].item(),
+                   ref_aux=ref_metrics["loss/moe_aux"].item(),
+                   eval_err=((action - ref_action).abs()
+                             / (1 + ref_action.abs())).max().item(),
+                   ref_picks=[(ids.cpu().numpy(), m.cpu().numpy())
+                              for ids, m in ref_recorder.picks(2)])
+    dist.barrier()
+    return out
+
+
+def parallel_rank_moe_sequence_time(spec: dict) -> dict:
+    """On every rank: synced MoE train steps on the expert x sequence
+    mesh; returns the median and spread, peak GiB, staged MB a step and
+    the launches."""
+    import torch
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device = spec["moe_sequence"], spec["device"]
+    experts, sequence = cfg["mesh"]
+    mesh = _rank_setup(spec, 1, sequence, expert=experts)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerBCModel(mesh=mesh, num_experts=cfg["experts"], **spec["model"])
+    trainer = Trainer(model, device=device, mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    batch = to_device(mesh_lib.shard_batch(_bc_batch(model, spec["batch"], seed=7), mesh),
+                      device)
+    reset_launches()
+    out = _timed_mesh_steps(trainer, state, batch, device, cfg["timed"])
+    out["launches"] = read_launches()
+    return out
+
+
+def parallel_moe_sequence(world, spec: dict) -> dict:
+    """MoE BC on 2 expert x 2 sequence ranks against the single-device MoE
+    step (the moe phase's routing rule), its eval forward, the control,
+    then its synced step. Returns the launches of every rank's main-path
+    calls."""
+    t0 = time.monotonic()
+    cfg, layers = spec["moe_sequence"], spec["layers"]
+    experts, sequence = cfg["mesh"]
+    per_step = layers * sequence  # B1/B3/B4: the ring's hops in every layer
+    want = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    eval_want = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
+    launches = {name: 0 for name in want}
+    episodes, dropped = list(range(spec["batch"])), []
+    for _ in range(2):
+        ranks = world.run(parallel_rank_moe_sequence, spec, episodes,
+                          timeout_s=PARALLEL_TIMEOUT)
+        for r in ranks:
+            if r["launches"] != want or r["eval_launches"] != eval_want:
+                raise AssertionError(f"rank {r['rank']} MoE x sequence step launched "
+                                     f"{r['launches']}, its eval {r['eval_launches']}")
+            for name in launches:
+                launches[name] += r["launches"][name] + r["eval_launches"][name]
+        flips = _moe_flips(ranks, episodes, 1)
+        wide = [f for f in flips if f[3] >= MOE_FLIP_MARGIN]
+        if wide:
+            raise AssertionError(f"mesh routing differs past the margin {MOE_FLIP_MARGIN}: "
+                                 f"(layer, episode, step, margin) {wide}")
+        if not flips:
+            break
+        dropped += sorted({f[1] for f in flips})
+        episodes = [e for e in episodes if e not in dropped]
+        log(f"[parallel_moe_sequence] routing flips under the margin {MOE_FLIP_MARGIN} "
+            f"(layer, episode, step, margin) {flips}: episodes {dropped} left out")
+    else:
+        raise AssertionError("mesh routing still flips after leaving episodes out")
+    head = ranks[0]
+    gate, control = head["gate"], head["control"]
+    aux_err = abs(head["aux"] - head["ref_aux"]) / abs(head["ref_aux"])
+    if not gate["ok"] or not aux_err <= LOSS_TOL or not head["eval_err"] <= SERVE_TOL:
+        raise AssertionError(f"MoE x sequence step: {gate}; aux {head['aux']} vs "
+                             f"{head['ref_aux']}; eval {head['eval_err']}")
+    if not control["worst"] >= CONTROL_MARGIN:
+        raise AssertionError(f"the slicing-gather control's worst gradient is "
+                             f"{control['worst']} of its allowance, under {CONTROL_MARGIN}")
+    timed = world.run(parallel_rank_moe_sequence_time, spec, timeout_s=PARALLEL_TIMEOUT)
+    steps = 2 + cfg["timed"]
+    for r in timed:
+        if r["launches"] != {k: v * steps for k, v in want.items()}:
+            raise AssertionError(f"{steps} MoE x sequence steps launched {r['launches']}")
+        for name, count in r["launches"].items():
+            launches[name] += count
+    log(f"[parallel_moe_sequence] MoE BC ({cfg['experts']} experts, k = 2, "
+        f"{cfg['experts'] // experts} resident a rank) on a {experts} expert x {sequence} "
+        f"sequence (ring) mesh, batch {len(episodes)}, on {card_line()}: loss "
+        f"{gate['loss']:.7f} vs one card {gate['ref_loss']:.7f} (rel {gate['loss_err']:.2e}); "
+        f"loss/moe_aux {head['aux']:.7f} (rel {aux_err:.2e}); worst gradient "
+        f"{gate['worst_name']} at {gate['worst']:.2e} of its allowance; eval forward within "
+        f"{head['eval_err']:.2e}; routing picks differing {len(flips)} (left out: "
+        f"{dropped or 'none'}); control (the MoE gather's backward slicing the cotangent) "
+        f"worst gradient {control['worst_name']} at {control['worst']:.2e} of its allowance "
+        f"(fails, as it must); B1/B3/B4 {per_step} each a rank a step (B1 {per_step} in its "
+        f"eval); synced step median {timed[0]['step_ms']:.3f} ms (min "
+        f"{timed[0]['step_min']:.3f}, max {timed[0]['step_max']:.3f}) over {cfg['timed']} "
+        f"on rank 0, medians by rank {[round(r['step_ms'], 3) for r in timed]}; peak GiB by "
+        f"rank {[round(r['peak_gib'], 3) for r in timed]}; gloo host-staged "
+        f"{timed[0]['staged_mb']:.3f} MB a step on rank 0")
+    log(f"[parallel_moe_sequence] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_moe_sequence']} s)")
+    return launches
+
+
+# -- parallel_maml_sharded: pose MAML on sharded parameters ------------------------
+
+# Pose MAML (8 tasks x (3 + 3) at 64x64, f32, one inner step) on 1 data x
+# 2 fsdp x 2 model ranks in sharded_params, second and first order, each
+# against the single-device outer step; `timed` synced steps of each. No
+# MAML family has a leaf of mesh.MIN_WEIGHT_SIZE (2^14) elements, so the
+# ranks shard leaves of `min_shard` elements or more (JAX's CompiledModel
+# param_min_shard_size): pose's conv3-6 kernels and pose_fc1, each cut
+# over fsdp and model.
+PARALLEL_MAML = dict(mesh=(1, 2, 2), tasks=META_TASKS, min_shard=2 ** 13, timed=3)
+
+
+@contextlib.contextmanager
+def _min_shard_size(size: int):
+    """The sharding rule with leaves of `size` elements or more cut."""
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+
+    saved = mesh_lib.flax_param_spec
+    mesh_lib.flax_param_spec = functools.partial(saved, min_weight_size=size)
+    try:
+        yield
+    finally:
+        mesh_lib.flax_param_spec = saved
+
+
+@contextlib.contextmanager
+def _unreduced_over_fsdp(on: bool):
+    """The sharded-MAML control in force inside when `on`: a leaf cut over
+    fsdp is gathered whole by a gather whose backward keeps this rank's
+    slice of the cotangent, so its gradient misses the other fsdp ranks'
+    tasks."""
+    from tensor2robot_tpu_torch.parallel import collectives
+
+    saved = collectives.all_gather
+    if on:
+        collectives.all_gather = collectives.gather_from
+    try:
+        yield
+    finally:
+        collectives.all_gather = saved
+
+
+def parallel_rank_maml(spec: dict) -> dict:
+    """On every rank of the 1 x 2 x 2 mesh, for each order: the outer
+    step's loss and every gradient gathered whole (reduced as a step
+    reduces them), the layout and this rank's parameter and Adam bytes
+    (after one optimizer step) beside the reckoning from the whole leaves,
+    then (second order) the control, and the synced steps; rank 0 holds
+    them against the single-device outer step on the same weights and task
+    batch. Returns the rank's numbers (no flash kernel runs)."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.data.input_generators import (
+        DefaultRandomInputGenerator,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.parallel import sharded_params
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device = spec["maml"], spec["device"]
+    data, fsdp, model_ways = cfg["mesh"]
+    mesh = _rank_setup(spec, data, 1, fsdp=fsdp, model=model_ways)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    generator = DefaultRandomInputGenerator(batch_size=cfg["tasks"], seed=0)
+    generator.set_specification_from_model(meta_model(), "train")
+    host = next(iter(generator.create_dataset("train")))
+    weights = meta_model().init_network(torch.Generator().manual_seed(0), "cpu").state_dict()
+    reckoned = sum(v.numel() // (fsdp * model_ways) if v.numel() >= cfg["min_shard"]
+                   else v.numel() for k, v in weights.items())
+    local = to_device(mesh_lib.shard_batch(host, mesh), device)
+    rank = dist.get_rank()
+    out = {"rank": rank, "orders": {}}
+    for name, second in (("second order", True), ("first order", False)):
+        reference = None
+        if rank == 0:
+            ref_trainer = Trainer(meta_model(second), device=device)
+            ref_network = ref_trainer.init_state(params=weights).network
+            with _deterministic_convs():
+                features, labels = ref_trainer.preprocess_train(to_device(host, device))
+                ref_loss, _ = ref_trainer.backward(ref_network, features, labels)
+            reference = (ref_loss.item(), {n: p.grad.detach() for n, p in
+                                            ref_network.named_parameters()})
+            del ref_trainer, ref_network
+        trainer = Trainer(meta_model(second, mesh=mesh), device=device, mesh=mesh)
+        with _min_shard_size(cfg["min_shard"]):
+            state = trainer.init_state(params=weights)
+
+        def step(control: bool):
+            state.network.zero_grad(set_to_none=True)
+            with _deterministic_convs(), _unreduced_over_fsdp(control):
+                features, labels = trainer.preprocess_train(local)
+                loss, metrics = trainer.backward(state.network, features, labels)
+            loss, _ = trainer.reduce_gradients(state, loss, metrics)
+            return loss.item(), sharded_params.full_grads(state.network,
+                                                          trainer.param_layout, mesh)
+
+        loss, grads = step(False)
+        control = step(True) if second else None
+        state.network.zero_grad(set_to_none=True)
+        result = dict(layout=dict(trainer.param_layout), regime=trainer.regime,
+                      reckoned=reckoned)
+        if device.startswith("cuda"):
+            torch.cuda.reset_peak_memory_stats()
+        result.update(_timed_mesh_steps(trainer, state, local, device, cfg["timed"]))
+        result.update(_state_bytes(state, trainer))
+        if rank == 0:
+            result["gate"] = _bc_grad_gate(loss, grads, *reference)
+            if control is not None:
+                result["control"] = _bc_grad_gate(*control, *reference)
+        out["orders"][name] = result
+        del trainer, state, grads, control
+        dist.barrier()
+    return out
+
+
+def parallel_maml_sharded(world, spec: dict) -> None:
+    """Pose MAML on sharded parameters over 1 data x 2 fsdp x 2 model
+    ranks, second and first order: each outer step against the
+    single-device one (the meta phase's gate), the layout non-empty, bytes
+    a rank exact, the control, the synced steps."""
+    t0 = time.monotonic()
+    cfg = spec["maml"]
+    ranks = world.run(parallel_rank_maml, spec, timeout_s=PARALLEL_TIMEOUT)
+    failures = []
+    for r in ranks:
+        for name, m in r["orders"].items():
+            if m["regime"] != "sharded_params" or not m["layout"]:
+                failures.append(f"rank {r['rank']} {name}: {m['regime']}, layout "
+                                f"{m['layout']}")
+            if m["param_bytes"] != 4 * m["reckoned"] or m["opt_bytes"] != 8 * m["reckoned"]:
+                failures.append(f"rank {r['rank']} {name}: {m['param_bytes']} parameter and "
+                                f"{m['opt_bytes']} moment bytes, the reckoning "
+                                f"{4 * m['reckoned']} and {8 * m['reckoned']}")
+    for name, m in ranks[0]["orders"].items():
+        if not m["gate"]["ok"]:
+            failures.append(f"{name} off the single-device step: {m['gate']}")
+        if "control" in m and not m["control"]["worst"] >= CONTROL_MARGIN:
+            failures.append(f"{name} control at {m['control']['worst']} of its allowance, "
+                            f"under {CONTROL_MARGIN}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    data, fsdp, model_ways = cfg["mesh"]
+    for name, m in ranks[0]["orders"].items():
+        gate = m["gate"]
+        control = (f"; control (an fsdp-cut leaf's gradient not reduced over fsdp) worst "
+                   f"gradient {m['control']['worst_name']} at {m['control']['worst']:.2e} of "
+                   f"its allowance (fails, as it must)" if "control" in m else "")
+        log(f"[parallel_maml_sharded] pose MAML {name}, {cfg['tasks']} tasks x "
+            f"({META_SAMPLES} + {META_SAMPLES}), f32, on a {data} data x {fsdp} fsdp x "
+            f"{model_ways} model mesh, leaves of {cfg['min_shard']} elements or more sharded "
+            f"({len(m['layout'])}: {sorted(m['layout'])}), on {card_line()}: loss "
+            f"{gate['loss']:.7f} vs one card {gate['ref_loss']:.7f} (rel "
+            f"{gate['loss_err']:.2e}); worst gradient {gate['worst_name']} at "
+            f"{gate['worst']:.2e} of its allowance; "
+            f"{m['param_bytes'] // 4} parameters a rank and Adam moments "
+            f"{m['opt_bytes'] / 1e6:.6f} MB (reckoned {m['reckoned']} elements; whole "
+            f"{m['whole_bytes'] // 4}){control}; synced outer step median "
+            f"{m['step_ms']:.3f} ms (min {m['step_min']:.3f}, max {m['step_max']:.3f}) over "
+            f"{cfg['timed']} on rank 0, medians by rank "
+            f"{[round(r['orders'][name]['step_ms'], 3) for r in ranks]}; gloo host-staged "
+            f"{m['staged_mb']:.3f} MB a step on rank 0; peak GiB by rank "
+            f"{[round(r['orders'][name]['peak_gib'], 3) for r in ranks]}")
+    log(f"[parallel_maml_sharded] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_maml_sharded']} s)")
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
@@ -7405,9 +7804,11 @@ def phase_parallel(model_dir: str) -> dict:
     over data x expert, BC pipelined over data x pipe, BC's ZeRO-2
     regimes over data, BC's parameters sharded over fsdp x model and
     BC's composed regimes (parallel_critic, parallel_moe, parallel_pipe,
-    parallel_zero2, parallel_sharded, parallel_composed); then JAX's
-    dp_sp_pp on 8 ranks in a second world (parallel_3d). Returns the
-    launches of every rank's main-path calls."""
+    parallel_zero2, parallel_sharded, parallel_composed), MoE BC over
+    expert x sequence and pose MAML on sharded parameters
+    (parallel_moe_sequence, parallel_maml_sharded); then JAX's dp_sp_pp on
+    8 ranks in a second world (parallel_3d). Returns the launches of every
+    rank's main-path calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -7478,6 +7879,9 @@ def phase_parallel(model_dir: str) -> dict:
             launches[name] += count
         for name, count in parallel_composed(world, spec, model_dir).items():
             launches[name] += count
+        for name, count in parallel_moe_sequence(world, spec).items():
+            launches[name] += count
+        parallel_maml_sharded(world, spec)
     for name, count in parallel_3d(spec).items():
         launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "

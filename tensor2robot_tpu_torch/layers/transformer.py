@@ -42,7 +42,11 @@ fsdp then averages the data shards' means into the global batch mean.
 
 Expert parallelism (`mesh` with an `expert` dim above 1): each block's
 MoE computes only this rank's resident experts (ops/moe.py has the rule);
-expert ranks share their batch and run everything else whole.
+expert ranks share their batch and run everything else whole. Under a
+sequence dim above 1 a block's MoE gathers the episode's shards before
+routing and slices this rank's back after the combine (layers/moe.py), so
+routing sees whole episodes as in JAX; the gradient rule above holds
+through it.
 
 Pipelining (`pipeline_stages` = S > 1 over a mesh whose `pipe` dim is S):
 the blocks split into S equal stages and pipe rank s holds only stage s's
@@ -62,11 +66,13 @@ rank's slice) and the chain's `block_<i>` (this stage's blocks), and a
 plain encoder takes the stacked layout as its chain (stage s's block b is
 block s * L/S + b), so a pipelined checkpoint serves on one card.
 
-Not ported yet, and rejected with NotImplementedError naming ROADMAP.md
-A9: experts under a sequence dim above 1 (layers/moe.py) and decoding
-with a mesh. A mesh with fsdp or model dims above 1 is the trainer's
-sharded_params regime (parallel/sharded_params.py), which composes with
-the sequence, pipe and expert dims here.
+Decode takes a mesh whose sequence dim is 1 (each rank decodes its
+requests; an expert dim splits the MoE as in training) and refuses a
+sequence dim above 1 with JAX's ValueError: decode is single-device
+serving. MoE inside a pipeline raises JAX's ValueError too. A mesh with
+fsdp or model dims above 1 is the trainer's sharded_params regime
+(parallel/sharded_params.py), which composes with the sequence, pipe and
+expert dims here.
 """
 
 from __future__ import annotations
@@ -111,8 +117,8 @@ def _check_mesh(
     """Eager checks of the parallel arguments: a mode typo fails on the
     laptop run (ValueError, as JAX), a mesh of the wrong type with a
     TypeError, a manual sequence size that is not the mesh's with a
-    ValueError, and the regimes not ported with NotImplementedError naming
-    ROADMAP.md A9."""
+    ValueError, and decoding over a sequence dim above 1 with JAX's
+    ValueError (JAX raises it at the decode step; here at construction)."""
     if sequence_parallel_mode not in SEQUENCE_PARALLEL:
         raise ValueError(
             "sequence_parallel_mode must be 'ring' or 'ulysses', "
@@ -126,10 +132,10 @@ def _check_mesh(
     if mesh is None:
         return
     mesh_lib.check_mesh(mesh)
-    if decode:
-        raise NotImplementedError(
-            "decoding over a mesh is not ported (ROADMAP.md A9): decode is "
-            "single-device serving, build the decode network without a mesh"
+    if decode and _sequence_size(mesh) > 1:
+        raise ValueError(
+            "decode mode is single-device (serving); drop the "
+            "sequence-parallel mesh"
         )
 
 

@@ -23,6 +23,11 @@ forward applies autocast's casts of convolutions and dense layers as a
 torch function mode; FlaxLayerNorm takes its decomposed formula inside
 (tf_modules.decomposed_layer_norms), whose second derivatives hold.
 
+In the trainer's sharded_params regime (an fsdp or model dim above 1)
+the base's leaves that the rule cuts are this rank's shards; the forward
+gathers each whole once before the inner loop and the learned inner rates
+(scalars) stay whole (parallel/sharded_params.py has the rule).
+
 Because the predict forward takes gradients (`forward_takes_gradients`),
 its export is traced by make_fx per static batch of tasks, inner backward
 included, rather than by torch.export over a dynamic batch
@@ -32,6 +37,7 @@ included, rather than by torch.export over a dynamic batch
 from __future__ import annotations
 
 import abc
+import copy
 from typing import Callable, Optional, Union
 
 import torch
@@ -44,6 +50,7 @@ from tensor2robot_tpu_torch.meta_learning.maml_inner_loop import (
     MAMLInnerLoopGradientDescent,
 )
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
+from tensor2robot_tpu_torch.parallel import sharded_params
 from tensor2robot_tpu_torch.research.dql_grasping_lib.tf_modules import (
     decomposed_layer_norms,
 )
@@ -59,8 +66,8 @@ class MAMLNetwork(nn.Module):
     the rates are not learned)."""
 
     #: The inner loop takes the base's parameters functionally
-    #: (functional_call), so they cannot be shards
-    #: (parallel/sharded_params.py refuses, naming ROADMAP.md A9.4c).
+    #: (functional_call): sharded over fsdp or model, they are gathered
+    #: whole before it (parallel/sharded_params.gathered_parameters).
     takes_sharded_params = False
 
     def __init__(self, base: nn.Module, learn_inner_lr: bool = False,
@@ -162,6 +169,26 @@ class MAMLModel(AbstractT2RModel):
     def base_model(self) -> AbstractT2RModel:
         return self._base_model
 
+    # -- a base built with the trainer's mesh ----------------------------------
+
+    @property
+    def loss_spans_the_batch(self) -> bool:
+        """The base's: the outer loss is the base's over every task."""
+        return getattr(self._base_model, "loss_spans_the_batch", False)
+
+    @property
+    def _mesh(self):
+        return getattr(self._base_model, "_mesh", None)
+
+    def without_mesh(self) -> "MAMLModel":
+        """This model over the base without its mesh."""
+        base = self._base_model.without_mesh()
+        if base is self._base_model:
+            return self
+        clone = copy.copy(self)
+        clone._base_model = base
+        return clone
+
     @property
     def num_inner_loop_steps(self) -> int:
         return self._num_inner_loop_steps
@@ -227,7 +254,10 @@ class MAMLModel(AbstractT2RModel):
 
     def _meta_forward(self, network, features, mode, labels, outer_grad):
         base = network.base
-        params = dict(base.named_parameters())
+        # Whole tensors for functional_call: a leaf sharded over fsdp or
+        # model is gathered here, once, outside the vmap over tasks and the
+        # inner grad, so its backward runs once, in the outer backward.
+        params = sharded_params.gathered_parameters(base)
         inner_lrs = None
         if self._inner_loop.learn_inner_lr:
             inner_lrs = {name: network.inner_lrs[key]
@@ -237,7 +267,10 @@ class MAMLModel(AbstractT2RModel):
             if inner_lrs is not None:
                 inner_lrs = {name: lr.detach() for name, lr in inner_lrs.items()}
         paths = flax_parameter_paths(base)
-        base_model = self._base_model
+        # Each task adapts on its own samples: the inner loop runs the base
+        # without a mesh (the outer loss, model_train_fn, takes the base's
+        # over the tasks of every shard).
+        base_model = self._base_model.without_mesh()
 
         def bind(fn: Callable) -> Callable:
             call = _BaseCall(fn, base)

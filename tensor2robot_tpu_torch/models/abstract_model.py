@@ -67,6 +67,11 @@ class AbstractT2RModel(ModelInterface):
       init_from_checkpoint_fn: a warm start, state dict -> state dict,
         applied to every freshly initialized network
         (models/checkpoint_init.default_init_from_checkpoint_fn).
+      use_summaries: whether the trainer asks its train metrics writer for
+        TensorBoard events when train_eval_model's use_tensorboard is None
+        (None: off on "tpu", on otherwise, as in the JAX package). The port
+        writes no TensorBoard events (train/metrics.py), so this only
+        reaches MetricsWriter.
     """
 
     def __init__(
@@ -78,6 +83,7 @@ class AbstractT2RModel(ModelInterface):
         avg_model_params_decay: float = 0.9999,
         init_from_checkpoint_fn: Optional[
             Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+        use_summaries: Optional[bool] = None,
     ):
         self._preprocessor_cls = preprocessor_cls
         self._create_optimizer_fn = create_optimizer_fn
@@ -85,10 +91,16 @@ class AbstractT2RModel(ModelInterface):
         self.use_avg_model_params = use_avg_model_params
         self.avg_model_params_decay = avg_model_params_decay
         self._init_from_checkpoint_fn = init_from_checkpoint_fn
+        self._use_summaries = (use_summaries if use_summaries is not None
+                               else device_type != "tpu")
 
     @property
     def device_type(self) -> str:
         return self._device_type
+
+    @property
+    def use_summaries(self) -> bool:
+        return self._use_summaries
 
     @property
     def is_device_tpu(self) -> bool:

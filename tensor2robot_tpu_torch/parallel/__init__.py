@@ -18,10 +18,11 @@ regimes; the sharded_params regime over fsdp and model
 column split); each of them, and the flat optimizer update, composed
 with the sequence, pipe and expert dims (a pipeline's stage entries whole
 on their stage, as JAX's stage rule places them), with clipping by a
-global norm across shards and stages. Still raising: sharding a network
-that takes its parameters functionally (MAML) and splitting attention
-heads over the model dim (ROADMAP.md A9.4c), experts under a sequence
-dim and decoding over a mesh (A9), and the planner (A9.5).
+global norm across shards and stages; experts under a sequence dim (each
+block's MoE gathers the episode's shards), MAML on sharded parameters
+(gathered whole before the inner loop), and decoding over a mesh whose
+sequence dim is 1. Not ported: splitting attention heads over the model
+dim (ROADMAP.md A9.4c, a layout choice) and the planner (A9.5).
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (

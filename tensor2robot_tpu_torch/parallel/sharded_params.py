@@ -44,10 +44,19 @@ Ulysses over this rank's tokens, where the mesh has a sequence dim).
 Splitting heads over the model ranks is not ported (ROADMAP.md A9.4c).
 Beside pipeline stages (a pipe dim above 1) the stages' blocks stay whole
 on every rank of their stage, and only the entries outside the stages
-(the embed, the positional table, the head) are sharded. A network whose forward takes its parameters
-functionally (MAML's inner loop, `takes_sharded_params = False`) cannot
-take shards, and sharding it raises NotImplementedError naming
-ROADMAP.md A9.4c.
+(the embed, the positional table, the head) are sharded.
+
+A network whose forward takes its parameters functionally
+(`takes_sharded_params = False`: MAML, whose inner loop runs
+torch.func.functional_call of the base network on adapted tensors) gets
+its shards and no forward hooks and never the column split: its forward
+reads `gathered_parameters`, every sharded leaf gathered whole once by
+the same differentiable gather as a gather on use, and runs on whole
+tensors. The outer gradient comes back to the shards through the
+gather's backward (psum_scatter over fsdp, this rank's slice over
+model), so the trainer reduces it as it reduces any sharded leaf's. The
+JAX package writes no mesh code for MAML: GSPMD gathers its placed
+leaves inside the inner loop.
 """
 
 from __future__ import annotations
@@ -171,12 +180,6 @@ def shard_network(network: nn.Module, mesh) -> Layout:
         dims = rule(name, p)
         if dims not in (mesh_lib.PIPE_AXIS, (None, None)):
             layout[name] = dims
-    if mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS) * mesh_lib.axis_size(
-            mesh, mesh_lib.MODEL_AXIS) > 1 and not getattr(network, "takes_sharded_params", True):
-        raise NotImplementedError(
-            f"{type(network).__name__} takes its parameters functionally and cannot "
-            "train on shards of them: parameter sharding of this family is not "
-            "ported yet (ROADMAP.md A9.4c)")
     if not layout:
         return layout
     modules = dict(network.named_modules())
@@ -189,6 +192,10 @@ def shard_network(network: nn.Module, mesh) -> Layout:
             local_tensor(whole.detach(), dims, mesh).clone(),
             requires_grad=whole.requires_grad)
         owners.setdefault(owner, {})[leaf] = dims
+    if not getattr(network, "takes_sharded_params", True):
+        for owner, leaves in owners.items():
+            modules[owner]._sharded_leaves = (leaves, mesh)
+        return layout
     for owner, leaves in owners.items():
         module = modules[owner]
         weight = leaves.get("weight")
@@ -197,6 +204,20 @@ def shard_network(network: nn.Module, mesh) -> Layout:
         else:
             _gather_on_use(module, mesh, leaves)
     return layout
+
+
+def gathered_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: parameter} of `module` (a network that takes its parameters
+    functionally, or a submodule of one), every leaf shard_network cut
+    gathered whole by the differentiable gather (module docstring): a
+    collective wherever a leaf is cut. Whole leaves are the parameters
+    themselves."""
+    out = {}
+    for name, p in module.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        leaves, mesh = getattr(module.get_submodule(owner), "_sharded_leaves", ({}, None))
+        out[name] = _gathered(p, leaves[leaf], mesh) if leaf in leaves else p
+    return out
 
 
 def full_grads(network: nn.Module, layout: Layout, mesh) -> Dict[str, torch.Tensor]:

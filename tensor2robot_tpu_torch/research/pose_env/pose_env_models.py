@@ -7,6 +7,14 @@ scores a whole CEM population per state) and `PoseEnvRegressionModel`
 preprocessors. Modules are named as the flax modules are, so
 utils/jax_params.py converts the JAX package's variables onto them. The
 MAML variant is pose_env_maml_models.py.
+
+The regression loss is a ratio of sums over the batch (the weighted
+squared error over the weights), so over data x fsdp shards the model is
+built with the trainer's mesh (`loss_spans_the_batch`) and sums both over
+the shards (collectives.psum_data_shards) before it divides: every rank
+takes the global batch's loss, as the JAX package's GSPMD step does,
+where a mean of the shards' ratios would weigh each shard's samples by
+its own total weight.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from tensor2robot_tpu_torch.layers.vision_layers import (
 )
 from tensor2robot_tpu_torch.models.abstract_model import MODE_TRAIN, init_parameters
 from tensor2robot_tpu_torch.models.base_models import CriticModel, RegressionModel
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
     SpecTransformationPreprocessor,
 )
@@ -194,12 +203,16 @@ class _PoseRegressionNet(nn.Module):
 
 
 class PoseEnvRegressionModel(RegressionModel):
-    """Image -> pose regression, reward-weighted MSE."""
+    """Image -> pose regression, reward-weighted MSE; with a `mesh` the
+    loss's sums span every data x fsdp shard's batch (module docstring)."""
 
-    def __init__(self, action_size: int = 2, **kwargs):
+    loss_spans_the_batch = True
+
+    def __init__(self, action_size: int = 2, mesh=None, **kwargs):
         kwargs.setdefault("preprocessor_cls", DefaultPoseEnvRegressionPreprocessor)
         super().__init__(**kwargs)
         self._action_size = action_size
+        self._mesh = mesh
 
     @property
     def action_size(self) -> int:
@@ -231,8 +244,13 @@ class PoseEnvRegressionModel(RegressionModel):
         weights = torch.clamp_min(labels["reward"], 0.0)
         squared = torch.square(
             inference_outputs["inference_output"] - labels["target_pose"])
-        loss = torch.sum(weights * squared) / torch.clamp_min(
-            torch.sum(weights) * squared.shape[-1], 1e-6)
+        sums = torch.stack([torch.sum(weights * squared),
+                            torch.sum(weights) * squared.shape[-1]])
+        if self._mesh is not None:
+            # Each shard's rows then take N x their cotangent, and the
+            # trainer's mean over the ranks divides the N back out.
+            sums = collectives.psum_data_shards(sums, self._mesh)
+        loss = sums[0] / torch.clamp_min(sums[1], 1e-6)
         return loss, {"loss/weighted_mse": loss}
 
     def pack_features(self, state, context, timestep):

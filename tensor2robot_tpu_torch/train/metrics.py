@@ -1,8 +1,12 @@
 """Metrics writing: one JSON object per logged step.
 
-Port of tensor2robot_tpu/train/metrics.py (its JSONL channel; TensorBoard
-events are not ported). The trainer reads the step's scalars to the host
-only on log steps.
+Port of tensor2robot_tpu/train/metrics.py. The JAX package writes
+TensorBoard events beside `metrics.jsonl` when asked (`use_tensorboard`)
+and flax's TensorFlow writer imports, and otherwise keeps `metrics.jsonl`
+alone. The port never imports TensorBoard, so it takes `use_tensorboard`
+and always keeps `metrics.jsonl` alone: the JAX package's behaviour
+without TensorFlow. The trainer reads the step's scalars to the host only
+on log steps.
 """
 
 from __future__ import annotations
@@ -39,9 +43,13 @@ def collective_record(
 
 
 class MetricsWriter:
-    """Appends {step, wall_time, metrics...} lines to <log_dir>/<filename>."""
+    """Appends {step, wall_time, metrics...} lines to <log_dir>/<filename>.
+    `use_tensorboard` is accepted as the JAX package's writer takes it and
+    writes nothing more (module docstring)."""
 
-    def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
+    def __init__(self, log_dir: str, filename: str = "metrics.jsonl",
+                 use_tensorboard: bool = False):
+        del use_tensorboard  # no TensorBoard in the port: metrics.jsonl alone
         os.makedirs(log_dir, exist_ok=True)
         self._file = open(os.path.join(log_dir, filename), "a")
 

@@ -120,8 +120,8 @@ EMA are whole on every rank of their stage, whatever the regime's rule.
     (`Trainer.mean_axes`); nothing is averaged over model, whose ranks
     hold the same batch. Rank 0 writes the replicated layout (every shard
     gathered) and a resume cuts it again, on any mesh or one device. A
-    network that takes its parameters functionally (MAML) raises
-    NotImplementedError naming ROADMAP.md A9.4c.
+    network that takes its parameters functionally (MAML) gathers its
+    shards whole before its inner loop (sharded_params.gathered_parameters).
   * flatten_optimizer_update (optax.flatten): the optimizer steps one
     flat vector of the parameters, which are views of it
     (models/optimizers.FlatParameters), and the EMA is stored flat
@@ -1527,6 +1527,7 @@ def train_eval_model(
     mesh=None,
     seed: int = 0,
     use_ema_for_eval: Optional[bool] = None,
+    use_tensorboard: Optional[bool] = None,
     iterations_per_loop: int = 1,
     infeed_depth: Optional[int] = None,
     remat: bool = False,
@@ -1549,8 +1550,11 @@ def train_eval_model(
     over (None: ("data",)), and flatten_optimizer_update,
     collective_quant, collective_block the other weight-update regimes
     (Trainer). In the quantized ZeRO-2 regime every metrics line carries
-    the exchange's collective_log_record. With a mesh every rank of the
-    world calls this with the same arguments (module docstring)."""
+    the exchange's collective_log_record. use_tensorboard (None: the
+    model's use_summaries) reaches the train metrics writer as in the JAX
+    package, which writes metrics.jsonl alone here (train/metrics.py). With
+    a mesh every rank of the world calls this with the same arguments
+    (module docstring)."""
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     eval_generators = normalize_eval_generators(input_generator_eval)
@@ -1602,9 +1606,13 @@ def train_eval_model(
     # The quantized exchange's bytes and measured wall time ride in every
     # metrics line ({} in the other regimes; a collective when measured).
     collective_info = trainer.collective_log_record()
-    writer = MetricsWriter(os.path.join(model_dir, "train")) if chief else None
+    if use_tensorboard is None:
+        use_tensorboard = model.use_summaries
+    writer = (MetricsWriter(os.path.join(model_dir, "train"), use_tensorboard=use_tensorboard)
+              if chief else None)
     eval_writers = {
-        name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)))
+        name: MetricsWriter(os.path.join(model_dir, eval_dir_name(name)),
+                            use_tensorboard=False)
         for name in eval_generators
     } if chief else {}
     exporting = trainer.single_device()
@@ -1760,11 +1768,20 @@ def predict_from_model(
     t2r_model,
     input_generator,
     model_dir: str,
+    mesh=None,
     device: Union[str, torch.device] = DEFAULT_DEVICE,
 ) -> Iterator[TensorSpecStruct]:
     """Restores the newest durable checkpoint (EMA parameters when the
-    model keeps them) and yields each batch's export outputs as numpy."""
+    model keeps them) and yields each batch's export outputs as numpy.
+
+    With a mesh (JAX's keyword) each rank predicts every batch whole on its
+    own device (rank_device) from the replicated restore, through the
+    model without its mesh: no collective, and the outputs JAX gathers
+    from its data shards."""
     model = maybe_wrap_for_tpu(t2r_model)
+    if mesh is not None:
+        mesh_lib.check_mesh(mesh)
+        model, device = model.without_mesh(), rank_device(device)
     trainer = Trainer(model, device=device)
     checkpoint = durability.load_newest_durable(model_dir)
     if checkpoint is None:

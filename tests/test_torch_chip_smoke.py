@@ -438,10 +438,13 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     meshes' checked steps and 2 + 2 timed steps but the flat update's,
     three controls, a clipped trainer run of 2 steps on 2 data x 2
     sequence resumed in sharded_params on 2 fsdp x 2 sequence and on one
-    device, and served), and dp_sp_pp on 8 more ranks (its step, its
-    twin's, 2 + 1 timed steps). The ranks import chip_smoke afresh and
-    take their sizes and device from the phase's spec, and count the
-    plain versions' calls as launches themselves."""
+    device, and served), MoE BC on 2 expert x 2 sequence ranks (its
+    checked step, its eval, the control, 2 + 2 timed steps), pose MAML of
+    4 tasks on 1 data x 2 fsdp x 2 model ranks (second and first order,
+    each with 2 + 1 timed steps; no flash kernel), and dp_sp_pp on 8 more
+    ranks (its step, its twin's, 2 + 1 timed steps). The ranks import
+    chip_smoke afresh and take their sizes and device from the phase's
+    spec, and count the plain versions' calls as launches themselves."""
     import sys
 
     monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
@@ -467,6 +470,10 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                                                           eval_steps=1)))
     monkeypatch.setattr(chip_smoke, "PARALLEL_3D", dict(chip_smoke.PARALLEL_3D, batch=4,
                                                         timed=1))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_MOE_SEQUENCE",
+                        dict(chip_smoke.PARALLEL_MOE_SEQUENCE, timed=2))
+    monkeypatch.setattr(chip_smoke, "PARALLEL_MAML", dict(chip_smoke.PARALLEL_MAML, tasks=4,
+                                                          timed=1))
     launches = chip_smoke.phase_parallel(str(tmp_path))
     # Per rank: the checked step, the eval forward, 2 + 2 timed steps and
     # 2 more steps; the 2 x 2 run's 4 steps and 2 evals of 2 hops x 2
@@ -486,21 +493,25 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     # and 2 + 2 timed steps of the three sequence meshes (2 layers x 2
     # hops) and of the two timed pipe meshes (1 block x 2 microbatches),
     # the flat update's checked step, and the trainer run's 2 steps and
-    # one ring eval; the served batch's B2 in this process; dp_sp_pp none.
+    # one ring eval; the served batch's B2 in this process. MoE x sequence:
+    # per rank the checked step, its eval's B1 and 2 + 2 timed steps, 2
+    # layers x 2 hops each time. Sharded MAML and dp_sp_pp none.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
     pipe = 4 * (1 + 4 + 2 + 2 * 2)
     zero2 = 4 * (1 + 5 * 2 + 2 * 2) * 2 + 2 * 2
     sharded = 4 * (1 + 4 + 2) * 2
     composed = 4 * (3 * 4 * (1 + 4) + 2 * 2 * (1 + 4) + 2 * 1)
+    moe_sequence = 4 * 4 * (1 + 4)
     assert launches == {
         "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2 + 4 * (2 + 2) + 2 + 2,
         "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
-                           + moe + pipe + zero2 + sharded + composed + 4 * 4 * (2 + 1)),
+                           + moe + pipe + zero2 + sharded + composed + 4 * 4 * (2 + 1)
+                           + moe_sequence + 4 * 4),
         "flash_bwd_dq": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
-                         + composed + 4 * 4 * 2),
+                         + composed + 4 * 4 * 2 + moe_sequence),
         "flash_bwd_dkv": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
-                          + composed + 4 * 4 * 2),
+                          + composed + 4 * 4 * 2 + moe_sequence),
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
@@ -551,6 +562,15 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "[parallel_composed] train_eval_model on mesh (a) clipped to global norm",
                  "2.pt resumed in sharded_params on mesh (d)",
                  "[parallel_composed] sub-phase",
+                 "[parallel_moe_sequence] MoE BC (4 experts, k = 2, 2 resident a rank) on "
+                 "a 2 expert x 2 sequence (ring) mesh", "(left out: none)",
+                 "B1/B3/B4 4 each a rank a step (B1 4 in its eval)",
+                 "[parallel_moe_sequence] sub-phase",
+                 "[parallel_maml_sharded] pose MAML second order, 4 tasks x (3 + 3), f32, on "
+                 "a 1 data x 2 fsdp x 2 model mesh, leaves of 8192 elements or more sharded "
+                 "(5: ", "control (an fsdp-cut leaf's gradient not reduced over fsdp)",
+                 "[parallel_maml_sharded] pose MAML first order",
+                 "[parallel_maml_sharded] sub-phase",
                  "[parallel_3d] dp_sp_pp: 8 gloo ranks on cpu up in",
                  "no flash launch", "[parallel_3d] sub-phase"):
         assert line in out, out

@@ -177,20 +177,25 @@ class TestMoeMlp:
             moe.moe_mlp(torch.zeros(10, FEATURES), *weights, group_size=4)
 
     def test_mesh_names_its_roadmap_item(self):
-        """Experts take a mesh now (tests/test_torch_expert_parallel.py);
-        what a mesh still refuses names its item: experts under a sequence
-        dim (ROADMAP.md A9). Anything but a DeviceMesh of the six dims is a
-        TypeError."""
+        """Experts take a mesh (tests/test_torch_expert_parallel.py), and
+        since A9 a sequence dim too: a MoEBlock over a sequence dim of 2
+        builds (tests/test_torch_moe_sequence.py trains it against JAX).
+        Anything but a DeviceMesh of the six dims is a TypeError; an expert
+        dim that does not divide the experts a ValueError."""
         weights = [torch.from_numpy(w) for w in _weights(0)]
         with pytest.raises(TypeError, match="DeviceMesh"):
             moe.moe_mlp(torch.zeros(8, FEATURES), *weights, mesh=object())
         mesh_lib.make_mesh()  # the in-process group of one
-        # A sequence dim of 2, made without its process groups: MoEBlock
-        # refuses it before any collective.
+        # Meshes made without their process groups: construction runs no
+        # collective.
         sequence = DeviceMesh("cpu", torch.arange(2).reshape(1, 1, 1, 2, 1, 1),
                               mesh_dim_names=mesh_lib.AXES, _init_backend=False)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A9"):
-            moe_layers.MoEBlock(FEATURES, EXPERTS, HIDDEN, mesh=sequence)
+        block = moe_layers.MoEBlock(FEATURES, EXPERTS, HIDDEN, mesh=sequence)
+        assert block.mesh is sequence
+        experts = DeviceMesh("cpu", torch.arange(3).reshape(1, 1, 1, 1, 1, 3),
+                             mesh_dim_names=mesh_lib.AXES, _init_backend=False)
+        with pytest.raises(ValueError, match="do not split"):
+            moe_layers.MoEBlock(FEATURES, EXPERTS, HIDDEN, mesh=experts)
 
 
 def _flax_params(module, x, seed):

@@ -160,24 +160,33 @@ def pins(world):
 
 # The pins A9.4c part 1 lifted: a model dim composed with a pipe dim, and
 # shard_weight_update on a pipe mesh (tests/test_torch_composed_regimes.py
-# holds the composed steps to JAX's).
-LIFTED = ("model_dim", "trainer_shard_weight_update")
+# holds the composed steps to JAX's); and A9's decode over a mesh whose
+# sequence dim is 1 (tests/test_torch_mesh_decode.py holds it to JAX's).
+LIFTED = ("model_dim", "trainer_shard_weight_update", "decode_over_a_data_mesh")
+# JAX's own refusals, kept as its ValueErrors.
+JAXS = {"decode_over_a_mesh": "decode mode is single-device"}
 
 
 @pytest.mark.parametrize("case", ["model_dim", "decode_over_a_mesh", "trainer_plan",
-                                  "trainer_shard_weight_update"])
+                                  "trainer_shard_weight_update",
+                                  "decode_over_a_data_mesh"])
 def test_what_a_real_mesh_still_refuses_names_a9(pins, case):
-    """What A9 still holds open (the plan, here on a pipe mesh) and
-    decoding over a mesh raise on every rank of a real mesh, naming
-    ROADMAP.md A9; the model dim and shard_weight_update on a pipe mesh,
-    once refused here, now build (LIFTED). Experts under a sequence dim:
-    tests/test_torch_expert_parallel.py."""
+    """What A9 still holds open (the plan, here on a pipe mesh, naming
+    ROADMAP.md A9.5) raises on every rank of a real mesh; decoding over a
+    sequence dim keeps JAX's ValueError (JAXS); the model dim,
+    shard_weight_update on a pipe mesh and decoding over a data mesh, once
+    refused here, now build (LIFTED). Experts under a sequence dim:
+    tests/test_torch_moe_sequence.py."""
     for rank_pins in pins:
         if case in LIFTED:
             assert rank_pins[case] == ""
             continue
+        if case in JAXS:
+            assert rank_pins[case].startswith("ValueError: ")
+            assert JAXS[case] in rank_pins[case]
+            continue
         assert rank_pins[case].startswith("NotImplementedError: ")
-        assert "ROADMAP.md A9" in rank_pins[case]
+        assert "ROADMAP.md A9.5" in rank_pins[case]
 
 
 def test_pipelining_builds_on_a_real_mesh_and_refuses_moe(pins):

@@ -503,26 +503,24 @@ def test_clipping_with_quantized_collectives_is_jaxs_limit(refusals):
         assert "ROADMAP" not in message
 
 
-# The pins A9.4c part 1 lifted, with the regime each resolves (None: an
-# encoder, no trainer); tests/test_torch_composed_regimes.py holds their
-# steps to JAX's.
+# The pins A9.4c lifted, with the regime each resolves (None: an encoder,
+# no trainer): part 1's compositions (tests/test_torch_composed_regimes.py
+# holds their steps to JAX's) and part 2's MAML on shards
+# (tests/test_torch_maml_sharded.py).
 LIFTED = {"sharded_params_with_pipe": None, "trainer_on_fsdp_x_pipe": "sharded_params",
-          "zero2_with_pipe": "zero2"}
+          "zero2_with_pipe": "zero2", "maml_on_fsdp": "sharded_params"}
 
 
 @pytest.mark.parametrize("case", ["sharded_params_with_pipe", "trainer_on_fsdp_x_pipe",
                                   "zero2_with_pipe", "maml_on_fsdp"])
 def test_what_stays_refused_names_a9_4c(refusals, case):
-    """MAML on shards stays refused, naming A9.4c; the compositions once
-    refused here (a pipelined encoder on fsdp x pipe, a trainer on it, and
-    zero2 on data x pipe) now build, in JAX's regimes (LIFTED)."""
+    """The cases once refused here, naming A9.4c (a pipelined encoder on
+    fsdp x pipe, a trainer on it, zero2 on data x pipe, and MAML on fsdp x
+    model), now build, in JAX's regimes (LIFTED)."""
     for out in refusals:
-        if case in LIFTED:
-            assert out["errors"][case] == ""
-            assert out["regimes"].get(case) == LIFTED[case]
-            continue
-        assert out["errors"][case].startswith("NotImplementedError: ")
-        assert "ROADMAP.md A9.4c" in out["errors"][case]
+        assert case in LIFTED
+        assert out["errors"][case] == ""
+        assert out["regimes"].get(case) == LIFTED[case]
 
 
 def test_the_flat_update_keeps_jaxs_value_error(refusals):

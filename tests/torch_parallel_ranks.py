@@ -193,11 +193,12 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
 
 def unported_pins() -> dict:
     """What a real mesh refuses, each case's error as "<type>: <message>"
-    ("" when nothing was raised): the plan and decoding over a mesh
-    (NotImplementedError naming ROADMAP.md A9), MoE inside a pipeline
-    (JAX's ValueError). The pipelined encoder builds ("pipeline_stages"),
-    and so do a model dim composed with a pipe dim and
-    shard_weight_update over data on a pipe mesh, once refused."""
+    ("" when nothing was raised): the plan (NotImplementedError naming
+    ROADMAP.md A9.5), decoding over a sequence dim and MoE inside a
+    pipeline (JAX's ValueErrors). The pipelined encoder builds
+    ("pipeline_stages"), and so do a model dim composed with a pipe dim,
+    shard_weight_update over data on a pipe mesh and decoding over a data
+    mesh, once refused."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
     from tensor2robot_tpu_torch.train.train_eval import Trainer
@@ -219,6 +220,8 @@ def unported_pins() -> dict:
                                                 pipeline_stages=2),
         "decode_over_a_mesh": lambda: TransformerEncoder(32, 2, 4, 8, mesh=seq,
                                                          decode=True),
+        "decode_over_a_data_mesh": lambda: TransformerEncoder(
+            32, 2, 4, 8, mesh=mesh(4, 1), decode=True),
         "trainer_plan": lambda: Trainer(piped(), device="cpu", mesh=pipe, plan=object()),
         "trainer_shard_weight_update": lambda: Trainer(
             piped(data_pipe), device="cpu", mesh=data_pipe, shard_weight_update=True),
@@ -463,9 +466,9 @@ def moe_forward_flops(model_kwargs: dict, batch: dict, expert: int) -> int:
 
 
 def moe_unported(model_kwargs: dict) -> dict:
-    """What experts over a mesh still refuse: a sequence dim (expert x
-    sequence, NotImplementedError naming A9) and an expert dim that does
-    not divide the experts (ValueError)."""
+    """Experts over a mesh: under a sequence dim (expert x sequence, which
+    builds) and on an expert dim that does not divide the experts
+    (ValueError)."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
 
     cases = {

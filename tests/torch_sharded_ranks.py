@@ -208,6 +208,7 @@ def refusals() -> dict:
 
     def build(name, **kwargs):
         trainers[name] = train_eval.Trainer(**kwargs)
+        return trainers[name]
 
     cases = {
         "clipping_quant_zero2": lambda: train_eval.Trainer(
@@ -224,7 +225,8 @@ def refusals() -> dict:
         "zero2_with_pipe": lambda: build(
             "zero2_with_pipe", model=bc_model(TINY, pipe_mesh=mesh((2, 1, 1), pipe=2)),
             device="cpu", mesh=mesh((2, 1, 1), pipe=2), shard_weight_update=True),
-        "maml_on_fsdp": lambda: _maml_trainer(fsdp_model).init_state(),
+        "maml_on_fsdp": lambda: build("maml_on_fsdp", model=_maml_model(fsdp_model),
+                                      device="cpu", mesh=fsdp_model).init_state(),
     }
     out = {}
     for name, fn in cases.items():
@@ -253,7 +255,9 @@ def refusals() -> dict:
     return dict(errors=out, regimes=regimes)
 
 
-def _maml_trainer(m):
+def _maml_model(m):
+    """Pose MAML whose base is built with the mesh `m` (its loss's sums
+    span the shards)."""
     from tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models import (
         PoseEnvRegressionModelMAML,
     )
@@ -261,9 +265,8 @@ def _maml_trainer(m):
         PoseEnvRegressionModel,
     )
 
-    model = PoseEnvRegressionModelMAML(base_model=PoseEnvRegressionModel(device_type="cpu"),
-                                       device_type="cpu")
-    return train_eval.Trainer(model, device="cpu", mesh=m)
+    return PoseEnvRegressionModelMAML(
+        base_model=PoseEnvRegressionModel(device_type="cpu", mesh=m), device_type="cpu")
 
 
 def collective_pair(shape) -> dict:
