@@ -239,7 +239,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 and forward from the same weights and batch on rank 0 (the
                 BC gate; 1e-4 abs + rel); B1, B3 and B4 must launch exactly
                 16, 4 and 12 times a rank a step (B2 4 times in Ulysses'
-                eval); then the synced step (median of 5), peak memory,
+                eval); then the synced step (median of 3), peak memory,
                 gloo-staged MB a step and rank 0's profiled step. Then train_eval_model on a
                 2 x 2 data x sequence mesh (4 steps, checkpoints at 2 and
                 4 from rank 0, exact launches) and its 4.pt served on one
@@ -274,7 +274,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 eval forward held to the BC gate against the single-device
                 flash step from the same weights and batch, B1, B3 and B4
                 exactly 8 times a rank a step (B2 8 times in its eval);
-                the synced step (median of 5), peak GiB and staged MB;
+                the synced step (median of 3), peak GiB and staged MB;
                 one step on a 2 sequence x 2 pipe mesh (the manual einsum
                 ring in every stage, no kernel) under the same gate; then
                 train_eval_model on 2 data x 2 pipe (2 steps, a checkpoint
@@ -315,7 +315,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 reckoning from the whole leaves (each of 2^14 elements
                 or more split four ways), B1, B3 and B4 exactly 4 times
                 a rank a step (B2 4 in its eval); the synced step
-                (median of 5), staged MB and peak GiB, and the same
+                (median of 3), staged MB and peak GiB, and the same
                 steps with every sharded leaf gathered on use (the
                 column split off; checked, not counted); then train_eval_model clipped to a global
                 norm the BC gradient exceeds (4 steps, checkpoints at 2
@@ -345,7 +345,21 @@ Phases, each fatal on failure (exit code 1, no result line):
                 and 4, the clip factors below 1 and the same on every
                 rank), 4.pt resumed in sharded_params on (d) and on one
                 card bit for bit, and served on one card within 1e-4 of
-                the einsum path. Then parallel_3d: JAX's dp_sp_pp (2
+                the einsum path. (parallel_moe_sequence and
+                parallel_maml_sharded follow.) And parallel_plan: the
+                sharding planner at the BC width, global batch 8: the
+                dp_pp_zero2 preset built by its plan (mesh, model from
+                model_kwargs(), Trainer(plan=...)) audited clean entry
+                by entry and one step bit for bit against the
+                hand-wired trainer on the same weights and batch, with
+                the hand-wired step's launches (8 each a rank); then
+                T2R_PLAN=auto on a cold plan cache measuring shortlist-2
+                (one probe or more; the analytic top five and each
+                probe's step, peak memory and analytic/measured memory
+                printed), a warm call reading the cache (0 probes, the
+                same plan document byte for byte on every rank) and one
+                audited plan-driven step on the winner. Then
+                parallel_3d: JAX's dp_sp_pp (2
                 data x 2 sequence x 2 pipe, zero2 over ("data",
                 "sequence")) on 8 gloo ranks in a second world, its step
                 and its ("data",) twin's under the same gates against
@@ -4887,9 +4901,9 @@ PARALLEL_REGIMES = {
     "ulysses": ("ulysses", None, NUM_LAYERS),
     "ring_window300": ("ring", 300, NUM_LAYERS * 3),
 }
-# Timed steps of each sequence regime and of the pipelined step (5 holds
-# the whole run near 750 s).
-PARALLEL_TIMED_STEPS = 5
+# Timed steps of each sequence regime and of the pipelined step (3 since
+# the planner's sub-phase, parallel_plan, joined the run).
+PARALLEL_TIMED_STEPS = 3
 # train_eval_model on a 2 x 2 data x sequence mesh: steps, checkpoint
 # interval and eval batches (4 steps hold the whole run near 750 s).
 PARALLEL_TRAIN = dict(steps=4, save_every=2, eval_steps=1)
@@ -4916,7 +4930,7 @@ def _parallel_spec() -> dict:
                 pipe=dict(PARALLEL_PIPE), zero2=dict(PARALLEL_ZERO2),
                 sharded=dict(PARALLEL_SHARDED), composed=dict(PARALLEL_COMPOSED),
                 three_d=dict(PARALLEL_3D), moe_sequence=dict(PARALLEL_MOE_SEQUENCE),
-                maml=dict(PARALLEL_MAML))
+                maml=dict(PARALLEL_MAML), plan=dict(PARALLEL_PLAN))
 
 
 def _rank_setup(spec: dict, data: int, sequence: int, fsdp: int = 1, expert: int = 1,
@@ -4975,7 +4989,7 @@ def parallel_rank_regime(spec: dict, regime: str) -> dict:
     """On every rank (sequence = 4): one step's loss and every gradient,
     averaged over the ranks by the trainer's bucket, and one eval forward;
     rank 0 holds them against the single-device flash step and forward on
-    the same weights and batch. Then the synced step (median of 5), peak
+    the same weights and batch. Then the synced step (median of 3), peak
     memory and staged bytes a step. Returns the rank's numbers and the
     launches its main-path calls made."""
     import torch
@@ -5242,7 +5256,8 @@ PARALLEL_MOE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=5)
 PARALLEL_RECKONED_S = {"parallel_critic": 110, "parallel_moe": 45, "parallel_pipe": 60,
                        "parallel_zero2": 45, "parallel_sharded": 62,
                        "parallel_composed": 60, "parallel_3d": 40,
-                       "parallel_moe_sequence": 40, "parallel_maml_sharded": 30}
+                       "parallel_moe_sequence": 40, "parallel_maml_sharded": 30,
+                       "parallel_plan": 30}
 
 
 @contextlib.contextmanager
@@ -7640,19 +7655,6 @@ PARALLEL_MAML = dict(mesh=(1, 2, 2), tasks=META_TASKS, min_shard=2 ** 13, timed=
 
 
 @contextlib.contextmanager
-def _min_shard_size(size: int):
-    """The sharding rule with leaves of `size` elements or more cut."""
-    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
-
-    saved = mesh_lib.flax_param_spec
-    mesh_lib.flax_param_spec = functools.partial(saved, min_weight_size=size)
-    try:
-        yield
-    finally:
-        mesh_lib.flax_param_spec = saved
-
-
-@contextlib.contextmanager
 def _unreduced_over_fsdp(on: bool):
     """The sharded-MAML control in force inside when `on`: a leaf cut over
     fsdp is gathered whole by a gather whose backward keeps this rank's
@@ -7713,9 +7715,9 @@ def parallel_rank_maml(spec: dict) -> dict:
             reference = (ref_loss.item(), {n: p.grad.detach() for n, p in
                                             ref_network.named_parameters()})
             del ref_trainer, ref_network
-        trainer = Trainer(meta_model(second, mesh=mesh), device=device, mesh=mesh)
-        with _min_shard_size(cfg["min_shard"]):
-            state = trainer.init_state(params=weights)
+        trainer = Trainer(meta_model(second, mesh=mesh), device=device, mesh=mesh,
+                          param_min_shard_size=cfg["min_shard"])
+        state = trainer.init_state(params=weights)
 
         def step(control: bool):
             state.network.zero_grad(set_to_none=True)
@@ -7796,6 +7798,221 @@ def parallel_maml_sharded(world, spec: dict) -> None:
         f"{PARALLEL_RECKONED_S['parallel_maml_sharded']} s)")
 
 
+# -- parallel_plan: the sharding planner on the same ranks ---------------------------
+
+# Full-width BC (global batch `batch`) on the 4 ranks: (a) the `preset`
+# plan (2 data x 2 pipe, ZeRO-2 over data) built by the planner (its mesh,
+# the model from model_kwargs(), Trainer(plan=...) and its audit) against
+# the hand-wired trainer on the same weights and batch, one gate step each;
+# (b) T2R_PLAN=auto on a cold plan cache with T2R_PLAN_MEASURE=`measure`
+# (`measure_steps` timed steps a probe), then a warm call, then one
+# plan-driven step on the winner.
+PARALLEL_PLAN = dict(preset="dp_pp_zero2", batch=8, measure="shortlist-2", measure_steps=1)
+
+
+def _tensors_equal(a, b) -> tuple:
+    """(every pair bit for bit, the largest absolute difference) of two
+    equally long tensor lists."""
+    import torch
+
+    worst = max(((x.float() - y.float()).abs().max().item() for x, y in zip(a, b)
+                 if x.numel()), default=0.0)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), worst
+
+
+def parallel_rank_plan(spec: dict, cache_dir: str) -> dict:
+    """On every rank: (a) the preset's plan-driven trainer and the
+    hand-wired one from the same weights, the audit's entries and
+    mismatches, one gate step each (deterministic cuDNN) with its loss
+    and launches, and whether every parameter and optimizer state tensor
+    this rank holds agrees bit for bit; (b) the cold and warm auto
+    searches' stats and plan documents, rank 0's table as the cache holds
+    it, and the winner's plan-driven step (its audit and launches).
+    Returns the rank's numbers and the launches of its main-path calls."""
+    import torch
+    import torch.distributed as dist
+
+    from tensor2robot_tpu_torch.models.transformer_models import (
+        TransformerBCModel,
+    )
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    from tensor2robot_tpu_torch.parallel import plan_cache, planner
+    from tensor2robot_tpu_torch.train.infeed import to_device
+    from tensor2robot_tpu_torch.train.train_eval import Trainer
+
+    cfg, device = spec["plan"], spec["device"]
+    plan = planner.resolve_preset(cfg["preset"])
+    hand_mesh = _rank_setup(spec, plan.data, plan.sequence, pipe=plan.pipe)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    rank = dist.get_rank()
+    out = {"rank": rank, "launches": {k: 0 for k in read_launches()}}
+    planned = Trainer(TransformerBCModel(mesh=plan.build_mesh(), **plan.model_kwargs(),
+                                         **spec["model"]), device=device, plan=plan)
+    hand = Trainer(TransformerBCModel(mesh=hand_mesh, **plan.model_kwargs(), **spec["model"]),
+                   device=device, mesh=hand_mesh, shard_weight_update=True)
+    weights = hand.model.without_mesh().init_network(
+        torch.Generator().manual_seed(0), "cpu").state_dict()
+    host = _bc_batch(hand.model, cfg["batch"], seed=0)
+    batch = to_device(mesh_lib.shard_batch(host, hand_mesh), device)
+    local = cfg["batch"] // plan.data
+    per_step = spec["layers"] // plan.pipe * _pipe_micro(local, plan.pipe)
+    out["want"] = {"flash_fwd": 0, "flash_fwd_tile": per_step, "flash_bwd_dq": per_step,
+                   "flash_bwd_dkv": per_step}
+
+    def counted_step(trainer, state, local_batch):
+        reset_launches()
+        with _deterministic_convs():
+            loss = trainer.train_step(state, local_batch)["loss"].item()
+        _sync(device)
+        launches = read_launches()
+        for name, count in launches.items():
+            out["launches"][name] += count
+        return loss, launches
+
+    states = {}
+    for name, trainer in (("plan", planned), ("hand", hand)):
+        state = trainer.init_state(params=weights)
+        states[name] = state
+        if name == "plan":
+            out["audit"] = planner.audit_state_layout(trainer.layout, trainer.mesh, state)
+            out["regimes"] = (trainer.regime, hand.regime)
+        out[f"{name}_loss"], out[f"{name}_launches"] = counted_step(trainer, state, batch)
+
+    def held(state):
+        opt = [t for entry in state.optimizer.state.values() for t in entry.values()
+               if torch.is_tensor(t)]
+        return [p.detach() for p in state.network.parameters()] + opt
+
+    out["bitwise"], out["max_diff"] = _tensors_equal(held(states["plan"]), held(states["hand"]))
+    del planned, hand, states
+    dist.barrier()
+
+    flags_set = dict(T2R_PLAN="auto", T2R_PLAN_CACHE_DIR=cache_dir,
+                     T2R_PLAN_MEASURE=cfg["measure"],
+                     T2R_PLAN_MEASURE_STEPS=str(cfg["measure_steps"]))
+    saved = {k: os.environ.get(k) for k in flags_set}
+    os.environ.update(flags_set)
+    try:
+        model = TransformerBCModel(**spec["model"])
+        reset_launches()
+        t0 = time.monotonic()
+        cold = planner.resolve_plan_from_flag(model, host, device=device)
+        out["cold_s"] = time.monotonic() - t0
+        out["cold"] = dict(stats=planner.last_search(),
+                           doc=json.dumps(cold.to_json(), sort_keys=True))
+        for name, count in read_launches().items():
+            out["launches"][name] += count
+        t0 = time.monotonic()
+        warm = planner.resolve_plan_from_flag(model, host, device=device)
+        out["warm_s"] = time.monotonic() - t0
+        out["warm"] = dict(stats=planner.last_search(),
+                           doc=json.dumps(warm.to_json(), sort_keys=True))
+        if rank == 0:
+            out["table"] = plan_cache.load(out["cold"]["stats"]["fingerprint"],
+                                           cache_dir)["table"]
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    trainer = Trainer(model, device=device, plan=warm)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    out["winner_audit"] = planner.audit_state_layout(trainer.layout, trainer.mesh, state)
+    out["winner_regime"] = trainer.regime
+    out["winner_loss"], out["winner_launches"] = counted_step(
+        trainer, state, to_device(mesh_lib.shard_batch(host, trainer.mesh), device))
+    out["winner_want"] = {"flash_fwd": 0, "flash_fwd_tile": spec["layers"],
+                          "flash_bwd_dq": spec["layers"], "flash_bwd_dkv": spec["layers"]}
+    return out
+
+
+def parallel_plan(world, spec: dict, model_dir: str) -> dict:
+    """The planner on the ranks: the preset's plan-driven step against the
+    hand-wired one (audit clean, bit for bit, the same launches), then the
+    cold auto search (measured, one probe or more), the warm one (the
+    cache, no probe, the same document) and the winner's plan-driven step
+    (audit clean, its launches). Returns the launches of every rank's
+    main-path calls."""
+    t0 = time.monotonic()
+    cfg = spec["plan"]
+    with tempfile.TemporaryDirectory(dir=model_dir) as cache_dir:
+        ranks = world.run(parallel_rank_plan, spec, cache_dir, timeout_s=PARALLEL_TIMEOUT)
+    failures = []
+    for r in ranks:
+        audits = (("preset", r["audit"]), ("winner", r["winner_audit"]))
+        for name, audit in audits:
+            if not audit["leaves"] or audit["mismatches"]:
+                failures.append(f"rank {r['rank']} {name} audit {audit['leaves']} entries, "
+                                f"mismatches {audit['mismatches'][:5]}")
+        if r["regimes"] != ("zero2", "zero2"):
+            failures.append(f"rank {r['rank']} regimes {r['regimes']}")
+        if not r["bitwise"] or r["plan_loss"] != r["hand_loss"]:
+            failures.append(f"rank {r['rank']} plan-driven step off the hand-wired one: loss "
+                            f"{r['plan_loss']!r} vs {r['hand_loss']!r}, max diff {r['max_diff']}")
+        for name in ("plan", "hand"):
+            if r[f"{name}_launches"] != r["want"]:
+                failures.append(f"rank {r['rank']} {name} step launched "
+                                f"{r[f'{name}_launches']} != {r['want']}")
+        if r["winner_launches"] != r["winner_want"]:
+            failures.append(f"rank {r['rank']} winner's step launched {r['winner_launches']} "
+                            f"!= {r['winner_want']}")
+        cold, warm = r["cold"]["stats"], r["warm"]["stats"]
+        if cold["source"] != "measured" or cold["probe_compiles"] < 1:
+            failures.append(f"rank {r['rank']} cold search {cold['source']} with "
+                            f"{cold['probe_compiles']} probes")
+        if warm["source"] != "cache" or warm["probe_compiles"] != 0:
+            failures.append(f"rank {r['rank']} warm search {warm['source']} with "
+                            f"{warm['probe_compiles']} probes")
+        if r["warm"]["doc"] != r["cold"]["doc"] or r["cold"]["doc"] != ranks[0]["cold"]["doc"]:
+            failures.append(f"rank {r['rank']} plan documents differ: {r['cold']['doc']} / "
+                            f"{r['warm']['doc']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    head = ranks[0]
+    log(f"[parallel_plan] (a) preset {cfg['preset']} on {card_line()}: BC at full width "
+        f"(T={spec['model']['episode_length']}, global batch {cfg['batch']}), the plan's "
+        f"mesh, model and Trainer(plan=...): audit clean over {head['audit']['leaves']} "
+        f"entries on every rank ({[r['audit']['leaves'] for r in ranks]}); one step "
+        f"against the hand-wired Trainer(mesh=make_mesh(data=2, pipe=2), "
+        f"shard_weight_update=True) on the same weights and batch: loss "
+        f"{head['plan_loss']!r} vs {head['hand_loss']!r}, every parameter and optimizer "
+        f"state tensor bit for bit on every rank; B1/B3/B4 "
+        f"{head['want']['flash_fwd_tile']} each a rank a step, the hand-wired step's")
+    for row in head["table"][:5]:
+        log(f"[parallel_plan] (b) analytic table: {row['plan']['name']} memory "
+            f"{row['memory']['total']} B/rank comm {row['comm']['total']} B/rank a step "
+            f"{'feasible' if row['feasible'] else 'infeasible: ' + '; '.join(row['reasons'])}")
+    for row in head["table"]:
+        probe = row.get("measured")
+        if probe is None:
+            continue
+        if probe.get("skipped"):
+            log(f"[parallel_plan] (b) probe {row['plan']['name']} skipped: {probe['skipped']}")
+            continue
+        ratio = probe.get("analytic_memory_error", {}).get("ratio")
+        log(f"[parallel_plan] (b) probe {row['plan']['name']} on {card_line()}: step "
+            f"{probe['step_time_ms']:.3f} ms (the slowest rank's, {probe['steps_timed']} "
+            f"timed), peak memory {probe['memory_per_device_bytes']} B/rank, analytic / "
+            f"measured memory {ratio}")
+    cold, warm = head["cold"]["stats"], head["warm"]["stats"]
+    log(f"[parallel_plan] (b) T2R_PLAN=auto, T2R_PLAN_MEASURE={cfg['measure']}: cold "
+        f"{cold['source']} with {cold['probe_compiles']} probe(s) in {head['cold_s']:.1f}s, "
+        f"winner {cold['plan']}; warm {warm['source']} with {warm['probe_compiles']} probes "
+        f"in {head['warm_s']:.2f}s, to_json() byte-identical on every rank; the winner's "
+        f"plan-driven step ({head['winner_regime']}): audit clean over "
+        f"{head['winner_audit']['leaves']} entries, loss {head['winner_loss']:.7f}, B1/B3/B4 "
+        f"{head['winner_want']['flash_fwd_tile']} each a rank")
+    log(f"[parallel_plan] sub-phase {time.monotonic() - t0:.1f}s (reckoned "
+        f"{PARALLEL_RECKONED_S['parallel_plan']} s)")
+    launches = {name: 0 for name in read_launches()}
+    for r in ranks:
+        for name, count in r["launches"].items():
+            launches[name] += count
+    return launches
+
+
 def phase_parallel(model_dir: str) -> dict:
     """Sequence- and data-parallel BC at full width over 4 gloo ranks
     sharing the card: ring, Ulysses and a windowed ring against the
@@ -7806,9 +8023,10 @@ def phase_parallel(model_dir: str) -> dict:
     BC's composed regimes (parallel_critic, parallel_moe, parallel_pipe,
     parallel_zero2, parallel_sharded, parallel_composed), MoE BC over
     expert x sequence and pose MAML on sharded parameters
-    (parallel_moe_sequence, parallel_maml_sharded); then JAX's dp_sp_pp on
-    8 ranks in a second world (parallel_3d). Returns the launches of every
-    rank's main-path calls."""
+    (parallel_moe_sequence, parallel_maml_sharded), and the sharding
+    planner's plan-driven steps and auto search (parallel_plan); then
+    JAX's dp_sp_pp on 8 ranks in a second world (parallel_3d). Returns the
+    launches of every rank's main-path calls."""
     import torch
 
     from tensor2robot_tpu_torch.parallel.launch import LocalWorld
@@ -7882,6 +8100,8 @@ def phase_parallel(model_dir: str) -> dict:
         for name, count in parallel_moe_sequence(world, spec).items():
             launches[name] += count
         parallel_maml_sharded(world, spec)
+        for name, count in parallel_plan(world, spec, model_dir).items():
+            launches[name] += count
     for name, count in parallel_3d(spec).items():
         launches[name] += count
     log(f"[parallel] phase wall {time.monotonic() - t0:.1f}s; launches over the ranks "

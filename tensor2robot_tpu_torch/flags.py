@@ -6,8 +6,8 @@ way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
 (the policy server, the trainer's infeed, the data stack, the max pool's
-backward, the Grasping44 stem and the ZeRO-2 gradient codecs) are
-declared here.
+backward, the Grasping44 stem, the ZeRO-2 gradient codecs and the
+sharding planner with its plan cache) are declared here.
 """
 
 from __future__ import annotations
@@ -222,6 +222,62 @@ _declare(
     "keeps serving. 0 = no watchdog (predict runs on the dispatcher "
     "thread).",
     _SERVER,
+    minimum=0,
+)
+
+_PLANNER = "tensor2robot_tpu_torch/parallel/planner.py"
+_declare(
+    "T2R_PLAN",
+    _STR,
+    "off",
+    "Sharding-planner gate (parallel/planner.py): 'off' (default) keeps "
+    "the trainer's explicit arguments; a preset name (e.g. dp_zero2_int8, "
+    "dp_sp_pp; planner.preset_names()) drives the trainer from that plan "
+    "with an entry-by-entry layout audit; 'auto' enumerates DP x SP x PP x "
+    "TP factorizations of the world's ranks and picks the winner (memory "
+    "fit first, then estimated wire bytes).",
+    _PLANNER,
+)
+_declare(
+    "T2R_PLAN_CACHE_DIR",
+    _STR,
+    None,
+    "Persistent plan-cache directory for T2R_PLAN=auto "
+    "(parallel/plan_cache.py): the search's winning plan and measured "
+    "table are stored keyed on (model fingerprint, topology, torch "
+    "version, planner schema); a later auto run on the same key reads "
+    "the winner and probes nothing. Rank 0 reads and writes it. Unset "
+    "(the default) disables the cache: every auto run searches afresh.",
+    "tensor2robot_tpu_torch/parallel/plan_cache.py",
+)
+_declare(
+    "T2R_PLAN_MEASURE",
+    _STR,
+    "off",
+    "Measured tier of the T2R_PLAN=auto search (parallel/planner.py): "
+    "'off' (default) ranks analytically only; 'shortlist-N' builds the "
+    "top N analytic candidates' trainers on every rank, times synced "
+    "train steps (the slowest rank's), reads the peak device memory, "
+    "and re-ranks on measured step time with memory fit as a hard gate.",
+    _PLANNER,
+)
+_declare(
+    "T2R_PLAN_MEASURE_STEPS",
+    _INT,
+    3,
+    "Timed post-warmup train steps per shortlisted candidate in the "
+    "measured plan search (the probe reports their median).",
+    _PLANNER,
+    minimum=1,
+)
+_declare(
+    "T2R_PLAN_MEM_BUDGET",
+    _INT,
+    0,
+    "Per-device memory budget in MB for T2R_PLAN=auto's factorization "
+    "search; candidates whose analytic estimate exceeds it are rejected "
+    "(with the estimate in the error when nothing fits). 0 = unbounded.",
+    _PLANNER,
     minimum=0,
 )
 

@@ -21,8 +21,10 @@ on their stage, as JAX's stage rule places them), with clipping by a
 global norm across shards and stages; experts under a sequence dim (each
 block's MoE gathers the episode's shards), MAML on sharded parameters
 (gathered whole before the inner loop), and decoding over a mesh whose
-sequence dim is 1. Not ported: splitting attention heads over the model
-dim (ROADMAP.md A9.4c, a layout choice) and the planner (A9.5).
+sequence dim is 1; the sharding planner (planner.py: its analytic and
+measured search, presets, plans driving the trainer and the audit of
+their layouts) with its plan cache (plan_cache.py). Not ported: splitting
+attention heads over the model dim (ROADMAP.md A9.4c, a layout choice).
 """
 
 from tensor2robot_tpu_torch.parallel.mesh import (

@@ -25,7 +25,8 @@ blocks, the entries that `pipe_stage_param_rule` names) and the expert
 dim's resident experts (ops/moe.py). `weight_update_sharding` is the
 ZeRO-2 rule of the trainer's shard_weight_update regime: which dim of a
 leaf's optimizer moments (and EMA) a rank of the replica group (the
-product of the weight-update dims) keeps its slice of. Both rules layer
+product of the weight-update dims) keeps its slice of, decided on the
+leaf's flax layout as JAX decides it (`weight_update_dim`). Both rules layer
 under `pipe_stage_param_rule`, as the JAX trainer's `place` layers them:
 over a pipe dim above 1 a stage entry is its stage's, whole on every rank
 of the stage, whatever the base rule says. Every dim composes with every
@@ -303,6 +304,36 @@ def _concatenate(parts):
     return np.concatenate(parts)
 
 
+def weight_update_dim(shape: Sequence[int], group_size: int,
+                      min_weight_size: int = MIN_WEIGHT_SIZE,
+                      name: Optional[str] = None) -> Optional[int]:
+    """The dim of a leaf of `shape` that the ZeRO-2 rule shards over a
+    replica group of `group_size`: the largest one the group's size
+    divides (the first of equal ones), or None for a leaf under
+    `min_weight_size` elements, a leaf no dim of which divides (nothing is
+    padded), and a group of 1. With the state-dict entry's `name` the rule
+    decides on the entry's flax layout (utils/jax_params.flax_dims), as
+    the JAX package decides it, and returns the torch dim that holds the
+    flax dim it picks: a square Linear weight [out, in] is sliced on `in`,
+    the flax kernel's first dim."""
+    shape = tuple(int(s) for s in shape)
+    if group_size == 1 or not shape or int(np.prod(shape)) < min_weight_size:
+        return None
+    dims = tuple(range(len(shape)))
+    if name is not None:
+        # Imported here: utils/jax_params imports this module.
+        from tensor2robot_tpu_torch.utils.jax_params import flax_dims
+
+        dims = flax_dims(name, len(shape))
+    flax_shape = [0] * len(shape)
+    for i, j in enumerate(dims):
+        flax_shape[j] = shape[i]
+    for dim in sorted(range(len(shape)), key=lambda i: flax_shape[i], reverse=True):
+        if flax_shape[dim] % group_size == 0:
+            return dims.index(dim)
+    return None
+
+
 def weight_update_sharding(
     mesh: Optional[DeviceMesh],
     min_weight_size: int = MIN_WEIGHT_SIZE,
@@ -312,21 +343,14 @@ def weight_update_sharding(
     2004.13336): parameters stay whole on every rank for the forward and
     backward, and each rank of the replica group (the product of `axes`)
     keeps the optimizer moments and the EMA of its slice of every leaf
-    the rule shards. rule(tensor) is the dim that shards over the group:
-    the largest one the group's size divides (the first of equal ones),
-    or None for a leaf under `min_weight_size` elements, a leaf no dim of
-    which divides (nothing is padded), and a group of 1."""
+    the rule shards. rule(tensor, name=None) is weight_update_dim of the
+    tensor's shape over the group (decided on the flax layout of the
+    state-dict entry `name` where it is given, as the trainer gives it)."""
     shape = mesh_shape(mesh)
     group_size = int(np.prod([shape[axis] for axis in axes]))
 
-    def rule(tensor) -> Optional[int]:
-        dims = tuple(tensor.shape)
-        if group_size == 1 or not dims or int(np.prod(dims)) < min_weight_size:
-            return None
-        for dim in sorted(range(len(dims)), key=lambda i: dims[i], reverse=True):
-            if dims[dim] % group_size == 0:
-                return dim
-        return None
+    def rule(tensor, name: Optional[str] = None) -> Optional[int]:
+        return weight_update_dim(tuple(tensor.shape), group_size, min_weight_size, name)
 
     return rule
 
@@ -336,9 +360,9 @@ def flax_param_spec(shape: Sequence[int], fsdp: int, model: int,
     """The JAX package's param_sharding on a leaf of the flax `shape`, as
     its PartitionSpec entries (the dim's axis name or None), one a dim; []
     for a leaf no dim of which is sharded. A leaf under `min_weight_size`
-    elements (JAX's default, as the trainer's rule always uses it; the
-    rule's tests pass JAX's smaller test sizes), or with fsdp and model
-    both 1, stays replicated. Otherwise the last dim
+    elements (the trainer's param_min_shard_size, JAX's default unless a
+    plan or the caller sets it), or with fsdp and model both 1, stays
+    replicated. Otherwise the last dim
     (a flax kernel's output dim) goes to `model` when the leaf has rank 2
     or more and model divides it; then the largest dim still unsharded
     that fsdp divides goes to `fsdp`, the first of equal ones (a stable
@@ -357,8 +381,8 @@ def flax_param_spec(shape: Sequence[int], fsdp: int, model: int,
     return spec if any(axis is not None for axis in spec) else []
 
 
-def param_dims(name: str, shape: Sequence[int], fsdp: int,
-               model: int) -> Tuple[Optional[int], Optional[int]]:
+def param_dims(name: str, shape: Sequence[int], fsdp: int, model: int,
+               min_weight_size: int = MIN_WEIGHT_SIZE) -> Tuple[Optional[int], Optional[int]]:
     """(the dim sharded over model, the dim sharded over fsdp) of the
     state-dict entry `name` of torch `shape`, each None when the leaf is
     whole over that dim: flax_param_spec decides on the entry's flax
@@ -374,24 +398,26 @@ def param_dims(name: str, shape: Sequence[int], fsdp: int,
     flax_shape = [0] * len(shape)
     for i, j in enumerate(dims):
         flax_shape[j] = int(shape[i])
-    spec = flax_param_spec(flax_shape, fsdp, model)
+    spec = flax_param_spec(flax_shape, fsdp, model, min_weight_size)
     if not spec:
         return None, None
     owner = {spec[j]: i for i, j in enumerate(dims) if spec[j] is not None}
     return owner.get(MODEL_AXIS), owner.get(FSDP_AXIS)
 
 
-def param_sharding(mesh: Optional[DeviceMesh]):
+def param_sharding(mesh: Optional[DeviceMesh], min_weight_size: int = MIN_WEIGHT_SIZE):
     """The parameter sharding rule of the trainer's sharded_params regime
     (the JAX package's param_sharding, per rank): rule(name, tensor) is
     param_dims of the state-dict entry on this mesh's fsdp and model
-    sizes, (None, None) for every entry without a mesh. Parameters, their
-    gradients, the optimizer's moments and the EMA share names and
-    shapes, so one rule places them all (parallel/sharded_params.py)."""
+    sizes, leaves under `min_weight_size` elements whole (JAX's
+    param_min_shard_size), (None, None) for every entry without a mesh.
+    Parameters, their gradients, the optimizer's moments and the EMA
+    share names and shapes, so one rule places them all
+    (parallel/sharded_params.py)."""
     shape = mesh_shape(mesh)
     fsdp, model = shape[FSDP_AXIS], shape[MODEL_AXIS]
 
     def rule(name: str, tensor) -> Tuple[Optional[int], Optional[int]]:
-        return param_dims(name, tuple(tensor.shape), fsdp, model)
+        return param_dims(name, tuple(tensor.shape), fsdp, model, min_weight_size)
 
     return rule

@@ -167,14 +167,17 @@ def _gather_on_use(module: nn.Module, mesh, leaves: Layout) -> None:
     module.register_forward_hook(release, always_call=True)
 
 
-def shard_network(network: nn.Module, mesh) -> Layout:
+def shard_network(network: nn.Module, mesh,
+                  min_weight_size: int = mesh_lib.MIN_WEIGHT_SIZE) -> Layout:
     """Shards `network` in place over the mesh's fsdp and model dims
-    (module docstring); returns the layout ({} on a mesh whose fsdp and
-    model dims are 1: the network is left as it is). Over a pipe dim above
+    (module docstring), leaves under `min_weight_size` elements whole (the
+    trainer's param_min_shard_size); returns the layout ({} on a mesh
+    whose fsdp and model dims are 1: the network is left as it is). Over a pipe dim above
     1 a stage entry stays whole (mesh.pipe_stage_param_rule: JAX places
     the stacked stage leaves over pipe and nothing else), so a pipeline
     stage's blocks run as on a mesh without fsdp or model."""
-    rule = mesh_lib.pipe_stage_param_rule(mesh, mesh_lib.param_sharding(mesh))
+    rule = mesh_lib.pipe_stage_param_rule(mesh,
+                                          mesh_lib.param_sharding(mesh, min_weight_size))
     layout: Layout = {}
     for name, p in network.named_parameters():
         dims = rule(name, p)

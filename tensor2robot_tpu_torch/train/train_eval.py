@@ -167,8 +167,19 @@ the quantized one, as optax's under GSPMD: where the optimizer steps
 shards (a sharded_params shard, a zero2 slice, a pipe stage's entries,
 the stage runs of the flat vector) each squared norm is summed over the
 mesh dims that cut it, once (models/optimizers.py's global_norm_squared).
-With quantized collectives it is refused, as JAX refuses it there. `plan`
-(the planner) raises NotImplementedError naming ROADMAP.md A9.5.
+With quantized collectives it is refused, as JAX refuses it there.
+
+A plan (parallel/planner.py's ShardingPlan; `Trainer(plan=...)`, or
+`train_eval_model` under T2R_PLAN) is the single source of the mesh and
+the regime, as for the JAX CompiledModel: the mesh comes from
+plan.build_mesh() where none is given (one that disagrees with the plan
+raises), the model must be built to match it (its mesh's dims and its
+pipeline stages), shard_weight_update, weight_update_axes, the codec and
+param_min_shard_size come from the plan (the env flags are not read),
+and init_state's placement is audited entry by entry against the plan's
+prediction (planner.audit_state_layout): a mismatch raises. Without a plan
+the trainer distills one from its arguments (`layout`), whose regime()
+is the regime, as JAX's CompiledModel does.
 """
 
 from __future__ import annotations
@@ -176,7 +187,6 @@ from __future__ import annotations
 import hashlib
 import itertools
 import logging
-import math
 import os
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
@@ -201,6 +211,7 @@ from tensor2robot_tpu_torch.models.tpu_model_wrapper import BFloat16ModelWrapper
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.parallel import pipeline as pipeline_lib
+from tensor2robot_tpu_torch.parallel import planner as planner_lib
 from tensor2robot_tpu_torch.parallel import sharded_params
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.train import durability, infeed
@@ -218,16 +229,19 @@ from tensor2robot_tpu_torch.utils.device import (
 )
 
 
-def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: bool,
+def _resolve_layout(mesh, shard_weight_update: bool, flatten_optimizer_update: bool,
                     collective_quant: Optional[str], collective_block: Optional[int],
-                    weight_update_axes: Sequence[str]) -> tuple:
-    """(regime, the quantized collective or None), as the JAX trainer
-    resolves them (ShardingPlan.regime(): quant_zero2 where a codec
-    engages, which is only with shard_weight_update on a pure data mesh
-    whose data dim is above 1; else sharded_params over an fsdp or model
-    dim above 1; else zero2 with shard_weight_update where the product of
-    the weight_update_axes dims is above 1; else replicated), after the
-    flat update's refusal (JAX's ValueError)."""
+                    weight_update_axes: Sequence[str], param_min_shard_size: int,
+                    name: str = "adhoc") -> tuple:
+    """(the plan this trainer runs, the quantized collective or None), as
+    the JAX CompiledModel distills its `_layout`: a ShardingPlan of the
+    mesh's dims and the resolved arguments, whose regime() is the
+    trainer's regime (quant_zero2 where a codec engages, which is only
+    with shard_weight_update on a pure data mesh whose data dim is above
+    1; else sharded_params over an fsdp or model dim above 1; else zero2
+    with shard_weight_update where the product of the weight_update_axes
+    dims is above 1; else replicated), after the flat update's refusal
+    (JAX's ValueError)."""
     shape = mesh_lib.mesh_shape(mesh)
     unknown = [axis for axis in weight_update_axes if axis not in mesh_lib.AXES]
     if unknown:
@@ -240,32 +254,34 @@ def _resolve_regime(mesh, shard_weight_update: bool, flatten_optimizer_update: b
             "replicated vector, which defeats fsdp/tensor-parallel parameter "
             "sharding and ZeRO-2 weight-update sharding; use it only in "
             "replicated-parameter regimes.")
-    name = collective_quant if collective_quant is not None else flags.get_enum(
+    quant = collective_quant if collective_quant is not None else flags.get_enum(
         "T2R_COLLECTIVE_QUANT")
     block = collective_block if collective_block is not None else flags.get_int(
         "T2R_COLLECTIVE_BLOCK")
     pure_data = all(shape[axis] == 1 for axis in mesh_lib.complement((mesh_lib.DATA_AXIS,)))
-    if (name != "none" and shard_weight_update and pure_data
+    collective = None
+    if (quant != "none" and shard_weight_update and pure_data
             and shape[mesh_lib.DATA_AXIS] > 1):
-        return "quant_zero2", collectives.get_collective(name, block)
-    if sharding:
-        return "sharded_params", None
-    group = math.prod(shape[axis] for axis in weight_update_axes)
-    if shard_weight_update and group > 1:
-        return "zero2", None
-    return "replicated", None
+        collective = collectives.get_collective(quant, block)
+    layout = planner_lib.ShardingPlan(
+        name=name, **shape, shard_weight_update=bool(shard_weight_update),
+        weight_update_axes=tuple(weight_update_axes),
+        collective_quant="none" if collective is None else collective.name,
+        collective_block=block if collective is None else collective.block,
+        param_min_shard_size=int(param_min_shard_size))
+    return layout, collective
 
 
-def _check_trainer_mesh(model, mesh) -> None:
-    """The trainer's mesh regimes: data x fsdp x sequence x pipe x expert,
-    and a model built with a mesh of the same sequence, pipe and expert
-    sizes as the trainer's (1 without one; the JAX trainer's
-    _validate_model_matches_plan: a mismatch would train silently without
-    sequence or expert parallelism or pipelining, or run the model's
-    collectives with no gradient reduction), and of the same data x fsdp
-    sizes where its loss spans the batch (else each shard would take its
-    own negatives)."""
-    shape = mesh_lib.mesh_shape(mesh)
+def _check_trainer_mesh(model, shape: Dict[str, int], plan=None) -> None:
+    """The trainer's mesh regimes on its dims `shape`: a model built with
+    a mesh of the same sequence, pipe and expert sizes (1 without one;
+    the JAX trainer's _validate_model_matches_plan: a mismatch would train
+    silently without sequence or expert parallelism or pipelining, or run
+    the model's collectives with no gradient reduction), and of the same
+    data x fsdp sizes where its loss spans the batch (else each shard
+    would take its own negatives); with a plan over a pipe dim, a model
+    built with the plan's pipeline stages (a plan cannot retrofit stages
+    onto a built model)."""
     candidates = [model, getattr(model, "_model", None)]
     model_mesh = next((getattr(m, "_mesh") for m in candidates
                        if getattr(m, "_mesh", None) is not None), None)
@@ -282,6 +298,15 @@ def _check_trainer_mesh(model, mesh) -> None:
                 f"the trainer's mesh shards the {axis} {want}-way but the "
                 f"model's mesh carries {axis} axis {got}; construct the model "
                 f"with the trainer's mesh so {what}"
+            )
+    if plan is not None and plan.pipe > 1:
+        stages = planner_lib.pipeline_stages(model)
+        if stages != plan.pipe:
+            raise ValueError(
+                f"plan {plan.name!r} runs {plan.pipe} pipeline stages but "
+                f"the model was built with pipeline_stages={stages}; "
+                "construct the model with plan.model_kwargs() (and the "
+                "plan's mesh)"
             )
 
 
@@ -391,8 +416,12 @@ class Trainer:
     collective_block are the JAX CompiledModel's weight-update regimes
     (module docstring). The zero2 regime shards, over the product of the
     weight_update_axes dims (None: ("data",)), the leaves
-    mesh.weight_update_sharding shards, those of mesh.MIN_WEIGHT_SIZE
-    elements or more outside a pipeline's stages."""
+    mesh.weight_update_sharding shards, and sharded_params the leaves
+    mesh.param_sharding shards, those of param_min_shard_size elements or
+    more (JAX's, mesh.MIN_WEIGHT_SIZE by default) outside a pipeline's
+    stages. `plan` (a planner.ShardingPlan) sets the mesh where none is
+    given and the regime's arguments, and audits init_state's placement
+    (module docstring)."""
 
     def __init__(
         self,
@@ -400,7 +429,7 @@ class Trainer:
         device: Union[str, torch.device] = DEFAULT_DEVICE,
         seed: int = 0,
         mesh=None,
-        plan=None,
+        plan: Optional[planner_lib.ShardingPlan] = None,
         remat: bool = False,
         grad_accum_steps: int = 1,
         shard_weight_update: bool = False,
@@ -408,24 +437,44 @@ class Trainer:
         collective_quant: Optional[str] = None,
         collective_block: Optional[int] = None,
         weight_update_axes: Optional[Sequence[str]] = None,
+        param_min_shard_size: int = mesh_lib.MIN_WEIGHT_SIZE,
     ):
-        if plan is not None:
-            raise NotImplementedError(
-                "plan (the sharding planner) is not ported yet (ROADMAP.md A9.5)")
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
-        _check_trainer_mesh(model, mesh)
+        if plan is not None:
+            if not isinstance(plan, planner_lib.ShardingPlan):
+                raise TypeError("plan must be a parallel.planner.ShardingPlan, got "
+                                f"{type(plan).__name__}")
+            if mesh is None:
+                mesh = plan.build_mesh()
+            elif not plan.matches_mesh(mesh):
+                raise ValueError(f"mesh axes {mesh_lib.mesh_shape(mesh)} disagree with plan "
+                                 f"{plan.name!r} axes {plan.axes_dict()}")
+            shard_weight_update = plan.shard_weight_update
+            weight_update_axes = plan.weight_update_axes
+            collective_quant = plan.collective_quant
+            collective_block = plan.collective_block
+            param_min_shard_size = plan.param_min_shard_size
+        _check_trainer_mesh(model, mesh_lib.mesh_shape(mesh), plan)
+        self.plan = plan
         self.weight_update_axes = tuple(
             (mesh_lib.DATA_AXIS,) if weight_update_axes is None else weight_update_axes)
-        self.regime, self.collective = _resolve_regime(
+        self.param_min_shard_size = int(param_min_shard_size)
+        # The plan this trainer runs (the given one's name), whose regime
+        # is the trainer's.
+        self.layout, self.collective = _resolve_layout(
             mesh, shard_weight_update, flatten_optimizer_update, collective_quant,
-            collective_block, self.weight_update_axes)
+            collective_block, self.weight_update_axes, self.param_min_shard_size,
+            name="adhoc" if plan is None else plan.name)
+        self.regime = self.layout.regime()
         self.flatten_optimizer_update = bool(flatten_optimizer_update)
         # zero2's rule (name, tensor) -> the dim sliced over the replica
-        # group, or PIPE_AXIS for a stage entry (whole on its stage).
-        wu_rule = mesh_lib.weight_update_sharding(mesh, axes=self.weight_update_axes)
-        self.weight_update_rule = mesh_lib.pipe_stage_param_rule(
-            mesh, lambda name, tensor: wu_rule(tensor))
+        # group (decided on the flax layout), or PIPE_AXIS for a stage
+        # entry (whole on its stage).
+        wu_rule = mesh_lib.weight_update_sharding(mesh, self.param_min_shard_size,
+                                                  axes=self.weight_update_axes)
+        self.weight_update_rule = mesh_lib.pipe_stage_param_rule(mesh, lambda name, tensor:
+                                                                 wu_rule(tensor, name))
         # The dims over whose ranks a whole leaf's gradient (outside a
         # pipeline's stages) and the metrics are averaged: every dim but
         # model in the sharded_params regime (model ranks hold the same
@@ -492,7 +541,8 @@ class Trainer:
             network, None if self.regime == "quant_zero2" else self.mesh)
         update = None
         if self.regime == "sharded_params":
-            self.param_layout = sharded_params.shard_network(network, self.mesh)
+            self.param_layout = sharded_params.shard_network(network, self.mesh,
+                                                             self.param_min_shard_size)
             update = _ShardedParams(network, self.param_layout, self.mesh)
         elif self.regime == "quant_zero2":
             update = _QuantizedUpdate(network, self.collective, self.mesh)
@@ -520,11 +570,19 @@ class Trainer:
         ema = None
         if self.model.use_avg_model_params:
             ema = init_ema(network) if update is None else update.init_ema()
-        return TrainState(
+        state = TrainState(
             step=0, network=network, optimizer=optimizer, ema_params=ema,
             collective_residual=(update.init_residual()
                                  if self.regime == "quant_zero2" else None),
             weight_update=update)
+        if self.plan is not None:
+            audit = planner_lib.audit_state_layout(self.layout, self.mesh, state)
+            if audit["mismatches"]:
+                raise RuntimeError(
+                    f"plan {self.plan.name!r} layout audit failed on "
+                    f"{len(audit['mismatches'])} of {audit['leaves']} entries: "
+                    f"{audit['mismatches'][:5]}")
+        return state
 
     def _sum_norms_over_shards(self, optimizer, named, sliced, flat_segments=None) -> None:
         """Points clip_by_global_norm at the global gradient where the
@@ -891,7 +949,8 @@ class Trainer:
         if self._ema_network is None:
             self._ema_network = self.model.create_network().to(self.device)
             if self.regime == "sharded_params":  # sharded as the live network
-                sharded_params.shard_network(self._ema_network, self.mesh)
+                sharded_params.shard_network(self._ema_network, self.mesh,
+                                             self.param_min_shard_size)
         if self.regime == "sharded_params":
             self._ema_network.load_state_dict(state.export_state_dict(use_ema=True))
         elif self.regime in _ZERO2_REGIMES:  # the EMA is sharded: gather it
@@ -1408,6 +1467,89 @@ def restore_or_init_state(
     return state
 
 
+# -- the measured plan-search probe (planner.measured_rerank's tier 2) --------------
+
+#: Probes measure_plan_candidate has run (planner.last_search()'s
+#: 'probe_compiles', JAX's key: the port compiles nothing).
+_PLAN_PROBES = 0
+
+
+def plan_probe_count() -> int:
+    return _PLAN_PROBES
+
+
+def _max_over_ranks(values: Sequence[float]) -> List[float]:
+    """Each value's maximum over the world's ranks (as it is without a
+    process group)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return list(values)
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    t = torch.tensor(list(values), dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def measure_plan_candidate(
+    model,
+    plan: planner_lib.ShardingPlan,
+    example_batch,
+    *,
+    steps: int = 3,
+    warmup: int = 1,
+    device: Union[str, torch.device] = DEFAULT_DEVICE,
+) -> Dict[str, Any]:
+    """Measure probe for ONE shortlisted plan, on every rank of the world:
+    builds the plan's mesh and Trainer(plan=...) on `device`, and times
+    `steps` synced train steps (every rank starts each together) after
+    `warmup`. The step time is the slowest rank's median, and the memory
+    the largest peak of torch.cuda.max_memory_allocated over the probe
+    (after a reset; None on the CPU), so every rank ranks alike. A plan
+    the model cannot run, or a probe that fails, comes back as
+    {'skipped': reason}: the search goes on."""
+    global _PLAN_PROBES
+    record: Dict[str, Any] = {"name": plan.name}
+    try:
+        _check_trainer_mesh(model, plan.axes_dict(), plan)
+    except ValueError as err:
+        record["skipped"] = str(err)
+        return record
+    error, times, peak = None, [], 0
+    try:
+        trainer = Trainer(model, device=device, mesh=plan.build_mesh(), plan=plan)
+        cuda = trainer.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(trainer.device)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        batch = infeed.to_device(mesh_lib.shard_batch(example_batch, trainer.mesh),
+                                 trainer.device)
+        _PLAN_PROBES += 1
+        for i in range(warmup + max(steps, 1)):
+            if cuda:
+                torch.cuda.synchronize(trainer.device)
+            _barrier(trainer)
+            start = time.perf_counter()
+            trainer.train_step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(trainer.device)
+            if i >= warmup:
+                times.append((time.perf_counter() - start) * 1e3)
+        peak = torch.cuda.max_memory_allocated(trainer.device) if cuda else 0
+    except Exception as err:  # noqa: BLE001 - recorded, the search goes on
+        error = f"{type(err).__name__}: {err}"
+    times.sort()
+    # Every rank takes the same verdict: a failure on any rank skips the plan.
+    step_ms, peak, failed = _max_over_ranks(
+        [times[len(times) // 2] if times else 0.0, peak, float(error is not None)])
+    if failed:
+        record["skipped"] = error or "the probe failed on another rank"
+        return record
+    record["step_time_ms"] = step_ms
+    record["steps_timed"] = len(times)
+    record["memory_per_device_bytes"] = int(peak) if cuda else None
+    return record
+
+
 # -- evaluation -------------------------------------------------------------------
 
 
@@ -1554,11 +1696,21 @@ def train_eval_model(
     model's use_summaries) reaches the train metrics writer as in the JAX
     package, which writes metrics.jsonl alone here (train/metrics.py). With
     a mesh every rank of the world calls this with the same arguments
-    (module docstring)."""
+    (module docstring). `plan` (a planner.ShardingPlan) drives the trainer
+    as Trainer(plan=...) does; without one the T2R_PLAN flag is resolved
+    (planner.resolve_plan_from_flag: 'off' keeps the arguments, a preset
+    names its plan, 'auto' searches with a first batch of the train
+    generator, drawn from a stream of its own)."""
     if input_generator_train is None:
         raise ValueError("train_eval_model requires input_generator_train.")
     eval_generators = normalize_eval_generators(input_generator_eval)
     model = maybe_wrap_for_tpu(t2r_model)
+    input_generator_train.set_specification_from_model(model, MODE_TRAIN)
+    if plan is None:
+        example = None
+        if flags.get_str("T2R_PLAN") == "auto":
+            example = next(iter(input_generator_train.create_dataset(MODE_TRAIN)))
+        plan = planner_lib.resolve_plan_from_flag(model, example, device=device)
     trainer = Trainer(
         model, device=device, seed=seed, mesh=mesh, plan=plan,
         remat=remat, grad_accum_steps=grad_accum_steps,
@@ -1577,7 +1729,7 @@ def train_eval_model(
     if use_ema_for_eval is None:
         use_ema_for_eval = model.use_avg_model_params
 
-    input_generator_train.set_specification_from_model(model, MODE_TRAIN)
+    mesh = trainer.mesh
     shard_inputs([input_generator_train, *eval_generators.values()], mesh)
     host_batches = iter(input_generator_train.create_dataset(MODE_TRAIN))
     for generator in eval_generators.values():

@@ -441,7 +441,11 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     device, and served), MoE BC on 2 expert x 2 sequence ranks (its
     checked step, its eval, the control, 2 + 2 timed steps), pose MAML of
     4 tasks on 1 data x 2 fsdp x 2 model ranks (second and first order,
-    each with 2 + 1 timed steps; no flash kernel), and dp_sp_pp on 8 more
+    each with 2 + 1 timed steps; no flash kernel), the planner (dp_pp_zero2
+    built by its plan against the hand-wired trainer, global batch 8, one
+    gate step each; a cold T2R_PLAN=auto search measuring shortlist-2 with
+    1 timed step, a warm one from the cache, the winner's step), and
+    dp_sp_pp on 8 more
     ranks (its step, its twin's, 2 + 1 timed steps). The ranks import
     chip_smoke afresh and take their sizes and device from the phase's
     spec, and count the plain versions' calls as launches themselves."""
@@ -495,7 +499,10 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     # the flat update's checked step, and the trainer run's 2 steps and
     # one ring eval; the served batch's B2 in this process. MoE x sequence:
     # per rank the checked step, its eval's B1 and 2 + 2 timed steps, 2
-    # layers x 2 hops each time. Sharded MAML and dp_sp_pp none.
+    # layers x 2 hops each time. The planner: per rank the preset's two
+    # gate steps (1 block x 4 microbatches), the probe's 1 + 1 steps and
+    # the winner's step on 4 data ranks (2 layers each). Sharded MAML and
+    # dp_sp_pp none.
     steps = 1 + 4 + 2
     moe = 4 * (1 + 4) * 2
     pipe = 4 * (1 + 4 + 2 + 2 * 2)
@@ -503,15 +510,16 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
     sharded = 4 * (1 + 4 + 2) * 2
     composed = 4 * (3 * 4 * (1 + 4) + 2 * 2 * (1 + 4) + 2 * 1)
     moe_sequence = 4 * 4 * (1 + 4)
+    plan = 4 * (2 * 4 + 2 * 2 + 2)
     assert launches == {
         "flash_fwd": 4 * 2 + 2 + 4 * (1 + 2) + 2 + 4 * 2 * 2 + 2 + 4 * (2 + 2) + 2 + 2,
         "flash_fwd_tile": (4 * ((steps + 1) * 8 + steps * 2 + (steps + 1) * 6 + 4 * 6)
                            + moe + pipe + zero2 + sharded + composed + 4 * 4 * (2 + 1)
-                           + moe_sequence + 4 * 4),
+                           + moe_sequence + 4 * 4 + plan),
         "flash_bwd_dq": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
-                         + composed + 4 * 4 * 2 + moe_sequence),
+                         + composed + 4 * 4 * 2 + moe_sequence + plan),
         "flash_bwd_dkv": (4 * (steps * (8 + 2 + 6) + 4 * 4) + moe + pipe + zero2 + sharded
-                          + composed + 4 * 4 * 2 + moe_sequence),
+                          + composed + 4 * 4 * 2 + moe_sequence + plan),
     }
     out = capsys.readouterr().out
     for line in ("[parallel] 4 gloo ranks on cpu up in", "[parallel] ring (sequence 4",
@@ -571,6 +579,14 @@ def test_parallel_phase(chip_smoke, tmp_path, capsys, monkeypatch):
                  "(5: ", "control (an fsdp-cut leaf's gradient not reduced over fsdp)",
                  "[parallel_maml_sharded] pose MAML first order",
                  "[parallel_maml_sharded] sub-phase",
+                 "[parallel_plan] (a) preset dp_pp_zero2 on CPU rehearsal", "audit clean over ",
+                 "every parameter and optimizer state tensor bit for bit on every rank; "
+                 "B1/B3/B4 4 each a rank a step, the hand-wired step's",
+                 "[parallel_plan] (b) analytic table: dp4_sp1_pp1 memory",
+                 "[parallel_plan] (b) probe dp4_sp1_pp1 on CPU rehearsal: step",
+                 " skipped: the trainer's mesh shards the sequence 2-way but the model's",
+                 "cold measured with 1 probe(s)", "warm cache with 0 probes",
+                 "to_json() byte-identical on every rank", "[parallel_plan] sub-phase",
                  "[parallel_3d] dp_sp_pp: 8 gloo ranks on cpu up in",
                  "no flash launch", "[parallel_3d] sub-phase"):
         assert line in out, out

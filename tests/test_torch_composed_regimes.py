@@ -9,7 +9,7 @@ so that its kernels, embed and second conv reach mesh.MIN_WEIGHT_SIZE and
 shard; use_flash, the kernels' plain versions here, JAX's Pallas in
 interpret mode):
 
-  * the regime: train_eval._resolve_regime against JAX's CompiledModel
+  * the regime: train_eval._resolve_layout against JAX's CompiledModel
     (ShardingPlan.regime()) for the mesh and flag combinations it covers,
     data 1 x sequence 2 over ("sequence",) among them;
   * one step on each composed mesh against JAX's step on the same mesh
@@ -272,24 +272,27 @@ def _check_step(out: dict, want: dict) -> list:
 ], ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) and isinstance(x[0], int)
    else str(x))
 def test_regime_resolves_as_jaxs(monkeypatch, shape, swu, axes, quant):
-    """_resolve_regime is JAX's ShardingPlan.regime() as CompiledModel
-    builds it: quant_zero2 only on a pure data mesh, sharded_params over
-    fsdp or model whatever else, zero2 where the weight-update group is
-    above 1 (a data 1 x sequence 2 mesh over ("sequence",) included)."""
+    """_resolve_layout distills JAX's ShardingPlan as CompiledModel builds
+    it (the same plan document), and its regime() is JAX's: quant_zero2
+    only on a pure data mesh, sharded_params over fsdp or model whatever
+    else, zero2 where the weight-update group is above 1 (a data 1 x
+    sequence 2 mesh over ("sequence",) included)."""
     compiled = CompiledModel(JaxMock(device_type="cpu"), mesh=_jax_mesh(shape),
                              donate_state=False, shard_weight_update=swu,
                              weight_update_axes=axes, collective_quant=quant)
     sizes = dict(zip(mesh_lib.AXES, shape))
     monkeypatch.setattr(mesh_lib, "mesh_shape", lambda mesh: sizes)
-    regime, _ = train_eval._resolve_regime(
+    layout, _ = train_eval._resolve_layout(
         object(), swu, False, quant, None,
-        (mesh_lib.DATA_AXIS,) if axes is None else axes)
-    assert regime == compiled._layout.regime()
+        (mesh_lib.DATA_AXIS,) if axes is None else axes, mesh_lib.MIN_WEIGHT_SIZE)
+    assert layout.regime() == compiled._layout.regime()
+    assert layout.to_json() == compiled._layout.to_json()
 
 
 def test_unknown_weight_update_axes_raise():
     with pytest.raises(ValueError, match="weight_update_axes"):
-        train_eval._resolve_regime(None, True, False, "none", None, ("replica",))
+        train_eval._resolve_layout(None, True, False, "none", None, ("replica",),
+                                   mesh_lib.MIN_WEIGHT_SIZE)
 
 
 # -- one step on each composed mesh against JAX's --------------------------------------

@@ -17,10 +17,10 @@ C-ref8.
 
 No MAML family of either package has a leaf of mesh.MIN_WEIGHT_SIZE
 (2^14) elements, so both sides shard leaves of 2^13 or more here (JAX's
-CompiledModel param_min_shard_size; the port's rule under
-tests/torch_moe_maml_ranks.min_shard_size): pose MAML's conv3-6 kernels
-and pose_fc1, and VRGripper MAML's conv3-6 kernels, pose_fc0 and
-pose_fc1, each cut over model (its output dim) and fsdp.
+CompiledModel's and the port's Trainer's param_min_shard_size): pose
+MAML's conv3-6 kernels and pose_fc1, and VRGripper MAML's conv3-6
+kernels, pose_fc0 and pose_fc1, each cut over model (its output dim) and
+fsdp.
 
 Cases: pose MAML (PoseEnvRegressionModelMAML, 4 tasks x (2 + 2) raw
 64x64 uint8 samples; its reward-weighted loss's sums span the shards)

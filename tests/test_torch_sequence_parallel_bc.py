@@ -160,9 +160,12 @@ def pins(world):
 
 # The pins A9.4c part 1 lifted: a model dim composed with a pipe dim, and
 # shard_weight_update on a pipe mesh (tests/test_torch_composed_regimes.py
-# holds the composed steps to JAX's); and A9's decode over a mesh whose
-# sequence dim is 1 (tests/test_torch_mesh_decode.py holds it to JAX's).
-LIFTED = ("model_dim", "trainer_shard_weight_update", "decode_over_a_data_mesh")
+# holds the composed steps to JAX's); A9's decode over a mesh whose
+# sequence dim is 1 (tests/test_torch_mesh_decode.py holds it to JAX's);
+# and A9.5's plan, here the sequence x pipe mesh's own
+# (tests/test_torch_planner.py holds the planner to JAX's).
+LIFTED = ("model_dim", "trainer_shard_weight_update", "decode_over_a_data_mesh",
+          "trainer_plan")
 # JAX's own refusals, kept as its ValueErrors.
 JAXS = {"decode_over_a_mesh": "decode mode is single-device"}
 
@@ -171,22 +174,18 @@ JAXS = {"decode_over_a_mesh": "decode mode is single-device"}
                                   "trainer_shard_weight_update",
                                   "decode_over_a_data_mesh"])
 def test_what_a_real_mesh_still_refuses_names_a9(pins, case):
-    """What A9 still holds open (the plan, here on a pipe mesh, naming
-    ROADMAP.md A9.5) raises on every rank of a real mesh; decoding over a
-    sequence dim keeps JAX's ValueError (JAXS); the model dim,
-    shard_weight_update on a pipe mesh and decoding over a data mesh, once
-    refused here, now build (LIFTED). Experts under a sequence dim:
+    """Decoding over a sequence dim keeps JAX's ValueError (JAXS) on every
+    rank of a real mesh; the model dim, shard_weight_update on a pipe
+    mesh, decoding over a data mesh and a plan on the pipe mesh (A9.5),
+    once refused here, now build (LIFTED), so nothing raises naming an
+    item of A9 any more. Experts under a sequence dim:
     tests/test_torch_moe_sequence.py."""
     for rank_pins in pins:
         if case in LIFTED:
             assert rank_pins[case] == ""
-            continue
-        if case in JAXS:
+        else:
             assert rank_pins[case].startswith("ValueError: ")
             assert JAXS[case] in rank_pins[case]
-            continue
-        assert rank_pins[case].startswith("NotImplementedError: ")
-        assert "ROADMAP.md A9.5" in rank_pins[case]
 
 
 def test_pipelining_builds_on_a_real_mesh_and_refuses_moe(pins):

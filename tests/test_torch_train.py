@@ -343,9 +343,10 @@ class TestUnportedArguments:
     @pytest.mark.parametrize(
         "kw,item",
         [
-            # A mesh is ported (A9 part 1); an object that is not the
-            # port's DeviceMesh raises TypeError naming the type it wants.
-            # The planner names A9.5.
+            # A mesh is ported (A9 part 1) and so is the planner (A9.5):
+            # an object that is not the port's DeviceMesh, or not its
+            # ShardingPlan ("A9", the item that ported it), raises
+            # TypeError naming the type it wants.
             (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
             (dict(create_exporters_fn=lambda m: create_default_exporters(
                 m, serve_quant=("int8",))), "A10"),
@@ -356,6 +357,8 @@ class TestUnportedArguments:
         train, _ = _generators()
         if item == "TypeError":
             error, item = TypeError, r"torch\.distributed\.device_mesh\.DeviceMesh"
+        elif item == "A9":
+            error, item = TypeError, r"parallel\.planner\.ShardingPlan"
         else:
             error = NotImplementedError
         with pytest.raises(error, match=item) as raised:
@@ -365,7 +368,7 @@ class TestUnportedArguments:
             )
         assert not os.path.exists(tmp_path / "checkpoints")
         if "plan" in kw:
-            assert "ROADMAP.md A9.5" in str(raised.value)
+            assert "got object" in str(raised.value)
 
     @pytest.mark.parametrize(
         "kw",

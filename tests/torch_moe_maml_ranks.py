@@ -10,7 +10,6 @@ sequence, pipe, expert).
 """
 
 import contextlib
-import functools
 import types
 
 import numpy as np
@@ -65,19 +64,6 @@ def unreduced_over_fsdp():
         yield
     finally:
         collectives.all_gather = saved
-
-
-@contextlib.contextmanager
-def min_shard_size(size: int):
-    """The sharding rule with leaves of `size` elements or more cut (JAX's
-    CompiledModel param_min_shard_size): no MAML family of either package
-    has a leaf of mesh.MIN_WEIGHT_SIZE elements."""
-    saved = mesh_lib.flax_param_spec
-    mesh_lib.flax_param_spec = functools.partial(saved, min_weight_size=size)
-    try:
-        yield
-    finally:
-        mesh_lib.flax_param_spec = saved
 
 
 def moe_sequence_step(shape, model_kwargs: dict, weights: dict, batch: dict,
@@ -144,9 +130,8 @@ def maml_step(shape, family: str, second_order: bool, base_kwargs: dict, weights
     if family == "pose":
         base_kwargs = dict(base_kwargs, mesh=m)
     trainer = train_eval.Trainer(maml_model(family, second_order, **base_kwargs),
-                                 device="cpu", mesh=m)
-    with min_shard_size(min_size):
-        state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in weights.items()})
+                                 device="cpu", mesh=m, param_min_shard_size=min_size)
+    state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in weights.items()})
     features, labels = trainer.preprocess_train(_struct(mesh_lib.shard_batch(batch, m)))
     with unreduced_over_fsdp() if control else contextlib.nullcontext():
         loss, metrics = trainer.backward(state.network, features, labels)
@@ -185,11 +170,10 @@ def maml_bf16_step(shape, weights: dict, batch: dict, min_size: int) -> dict:
 
     out = {}
     m = mesh(shape)
-    for name, trainer in (("mesh", train_eval.Trainer(model(m), device="cpu", mesh=m)),
+    for name, trainer in (("mesh", train_eval.Trainer(model(m), device="cpu", mesh=m,
+                                                      param_min_shard_size=min_size)),
                           ("one", train_eval.Trainer(model(), device="cpu"))):
-        with min_shard_size(min_size):
-            state = trainer.init_state(params={k: torch.from_numpy(v)
-                                               for k, v in weights.items()})
+        state = trainer.init_state(params={k: torch.from_numpy(v) for k, v in weights.items()})
         part = batch if name == "one" else mesh_lib.shard_batch(batch, m)
         features, labels = trainer.preprocess_train(_struct(part))
         loss, metrics = trainer.backward(state.network, features, labels)

@@ -193,14 +193,15 @@ def bc_train_eval(shape, model_kwargs: dict, model_dir: str, steps: int, every: 
 
 def unported_pins() -> dict:
     """What a real mesh refuses, each case's error as "<type>: <message>"
-    ("" when nothing was raised): the plan (NotImplementedError naming
-    ROADMAP.md A9.5), decoding over a sequence dim and MoE inside a
-    pipeline (JAX's ValueErrors). The pipelined encoder builds
+    ("" when nothing was raised): decoding over a sequence dim and MoE
+    inside a pipeline (JAX's ValueErrors). The pipelined encoder builds
     ("pipeline_stages"), and so do a model dim composed with a pipe dim,
-    shard_weight_update over data on a pipe mesh and decoding over a data
+    shard_weight_update over data on a pipe mesh, decoding over a data
+    mesh and a trainer on the sequence x pipe mesh with the plan of that
     mesh, once refused."""
     from tensor2robot_tpu_torch.layers.transformer import TransformerEncoder
     from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.parallel.planner import ShardingPlan
     from tensor2robot_tpu_torch.train.train_eval import Trainer
 
     pipe = mesh_lib.make_mesh(sequence=2, pipe=2)
@@ -222,7 +223,8 @@ def unported_pins() -> dict:
                                                          decode=True),
         "decode_over_a_data_mesh": lambda: TransformerEncoder(
             32, 2, 4, 8, mesh=mesh(4, 1), decode=True),
-        "trainer_plan": lambda: Trainer(piped(), device="cpu", mesh=pipe, plan=object()),
+        "trainer_plan": lambda: Trainer(piped(), device="cpu", mesh=pipe, plan=ShardingPlan(
+            name="sp2_pp2", sequence=2, pipe=2)),
         "trainer_shard_weight_update": lambda: Trainer(
             piped(data_pipe), device="cpu", mesh=data_pipe, shard_weight_update=True),
         "moe_in_a_pipeline": lambda: TransformerEncoder(32, 2, 4, 8, mesh=pipe,
