@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port (tensor2robot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper,maml_export,stem_s2d,png,parallel]
+    python3 chip_smoke.py [--phases build,kernels,training,serving,critic,export,serve_quant,policy,data,cli,meta,stream,moe,grasp2vec,vrgripper,maml_export,stem_s2d,png,parallel]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -82,6 +82,27 @@ Phases, each fatal on failure (exit code 1, no result line):
                 critic phase's step-20 EMA weights exported at full width
                 and served for 8 requests within 1e-5 of
                 CheckpointPredictor, launching no kernel.
+  6b. serve_quant — low-precision serving exports (export/serve_quant.py)
+                with T2R_SERVE_CALIB=static: (a) one Exporter export of
+                the training phase's step-20 full-width BC (flash heads)
+                in fp16, int8, fp8_e4m3 and fp8_e5m2, each regime through
+                its own parity gate, its payload MB, fired layers (20 in
+                int8/fp8), dot audit (every fired contraction in the
+                regime's contracted dtype: i8, f8e4m3, f16 for e5m2 on
+                the card) and reduce audit (no activation-quant reduce but
+                the layers the calibration demoted); (b) each regime
+                served through ExportedSavedModelPredictor(quant_regime=)
+                and PolicyServer to 4 clients x 2 episodes, every reply
+                within the regime's parity tolerance of the f32 export, B2
+                exactly 4 a batch, the snapshot's regime, layers and
+                calibration; (c) the int8 program on the card against the
+                CPU on 2 episodes, and a regime an export lacks raising;
+                (d) einsum heads: the int8 QK^T and PV measured at T = 1024
+                against f32, then an int8 export at T = 32 (the first 32
+                positions of the same weights) firing every attention
+                module, audited int8, no flash launch; (e) the critic's
+                EMA at full width in int8, its convs fired and audited,
+                8 requests within int8's tolerance, no flash launch.
   7. policy   — robot-side action selection. (a) The full-width critic
                 (the critic phase's step-20 EMA weights when it ran, else
                 seed 0) exported with action_batch_size 64 through the
@@ -105,7 +126,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 PoseEnvContinuousMCModel export. No flash kernel runs.
   8. data     — the data stack: builds the native TFRecord codec and the
                 JPEG codec (libjpeg where the host has jpeglib.h, else
-                nvJPEG; the line names it) with g++, writes 256 train
+                nvJPEG; the line names it) with g++, writes 128 train
                 records in 4 shards and 64 eval records of the critic's
                 in-spec (512x640 q95 JPEGs of seeded camera-like frames),
                 holds FastSpecParser against SpecParser bit for bit (the
@@ -182,7 +203,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 the routing picks that differ between the two counted (one
                 under a top-2 margin of 1e-5 takes its episode out of the
                 comparison; any other fails); B1, B3, B4 exactly 4 a step;
-                the synced step (median of 10), steps/s, peak memory, a
+                the synced step (median of TIMED_STEPS), steps/s, peak memory, a
                 profile, beside the dense step; loss/moe_aux finite and
                 no aux in eval outputs or the checkpoint.
  13. grasp2vec — Grasp2VecModel at its defaults (ResNet-50, 472x472 crops
@@ -190,7 +211,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 a batch of 2 through the same seeded weights on the card
                 and the CPU (embeddings, loss and batch-norm statistics
                 1e-4 of their max; gradients under the critic's f32
-                limit), 96 JPEG records, 20 steps through
+                limit), 48 JPEG records, 20 steps through
                 train_eval_model from them (nvJPEG decode on the card),
                 the synced step's time, TFLOP/s against an analytic flop
                 count, peak memory and profile, the checkpoint's
@@ -390,9 +411,9 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "training", "serving", "critic", "export", "policy",
-          "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
-          "stem_s2d", "png", "parallel")
+PHASES = ("build", "kernels", "training", "serving", "critic", "export",
+          "serve_quant", "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec",
+          "vrgripper", "maml_export", "stem_s2d", "png", "parallel")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
 DEVICE = "cuda"
@@ -445,7 +466,7 @@ TRAIN_STEPS = 20
 SAVE_EVERY = 10
 EVAL_STEPS = 2
 LOG_EVERY = 5
-TIMED_STEPS = 10
+TIMED_STEPS = 5
 # The critic phase: the flagship configuration in float32 (the shape of
 # bench.py's qtopt_critic_train_mfu_bs64_472px cell, which runs the
 # forward in bf16 through the model wrapper; this phase does not) and the
@@ -469,8 +490,8 @@ CRITIC_EVAL_STEPS = 1
 # The data phase: full-width JPEG records of the critic's in-spec (train
 # records, train shards, eval records), timed batches of RecordDataset
 # alone, and the steps profiled when fed from records.
-DATA_RECORDS = (256, 4, 64)
-DATA_BATCHES = 32
+DATA_RECORDS = (128, 4, 64)
+DATA_BATCHES = 16
 PROFILED_FED_STEPS = 5
 GOLDEN_RECORDS = os.path.join(ROOT, "tests", "golden", "qtopt_train.tfrecord")
 # A codec's q95 round trip of ROUNDTRIP_FRAMES seeded 512x640 frames
@@ -1797,6 +1818,7 @@ def phase_export(model_dir: str) -> int:
                 f"B2 launches {served} != {NUM_LAYERS} x {batches} batches, or "
                 f"other kernels launched: {launches}")
         total += served
+        MEASURED["export_f32"] = (len(replies) / wall, p50_ms([r[2] for r in replies]))
         log(f"[export] served from the export on {card_line()}: "
             f"{len(replies)} episodes in {wall:.3f}s = {len(replies) / wall:.3f} "
             f"episodes/s; client p50 {p50_ms([r[2] for r in replies]):.1f} ms; "
@@ -1932,6 +1954,384 @@ def phase_export(model_dir: str) -> int:
         f"{critic_load_s:.2f}s; {CRITIC_REQUESTS} requests on {card_line()}: "
         f"max |exported - CheckpointPredictor(EMA)| {worst:.3e} (limit "
         f"{CRITIC_SERVE_TOL} abs + rel); flash launches {launches}")
+    return total
+
+
+# The serve_quant phase: low-precision serving exports of the training
+# phase's step-20 BC weights (and the critic phase's EMA), one program per
+# regime (export/serve_quant.py), each held to its own parity gate.
+SERVE_QUANT_REGIMES = ("fp16", "int8", "fp8_e4m3", "fp8_e5m2")
+SERVE_QUANT_EPISODES = 2  # a client's episodes per regime
+SERVE_QUANT_CPU_EPISODES = 2
+SERVE_QUANT_RECKONED_S = 130
+# (d)'s einsum-head export: at T = 1024 the JAX package's int8 PV (probs
+# on a fixed 1/127 step) misses the gate, so its export demotes; a short
+# episode keeps it within.
+SERVE_QUANT_EINSUM_SEQ = 32
+# The warmup ladder (calibration and gate corpus) of (e)'s critic export.
+SERVE_QUANT_SHORT_LADDER = (1, 2)
+
+
+def bc_native_layers(num_layers: int) -> list:
+    """The kernels full-width BC contracts natively (JAX's default
+    eligibility: every dense and conv kernel of 16 rows or more)."""
+    layers = ["params/Conv_0/kernel", "params/Conv_1/kernel", "params/embed/kernel",
+              "params/action_head/kernel"]
+    for block in range(num_layers):
+        for name in ("attention/qkv", "attention/out", "mlp_in", "mlp_out"):
+            layers.append(f"params/encoder/block_{block}/{name}/kernel")
+    return sorted(layers)
+
+
+def contracted_dtype(regime: str) -> str:
+    """The dtype the program contracts a regime's fired layers in, as
+    serve_quant.audit_dot_dtypes names it: e5m2 runs as f16 on the card
+    (cuBLASLt multiplies no two e5m2 matrices), as e5m2 on the CPU."""
+    if regime == "fp8_e5m2":
+        return "f16" if DEVICE.startswith("cuda") else "f8e5m2"
+    return {"fp16": "f32", "int8": "i8", "fp8_e4m3": "f8e4m3"}[regime]
+
+
+def _quant_export(model, model_dir: str, name: str, regimes, ladder=BUCKETS) -> tuple:
+    """One Exporter(serve_quant=regimes) export of `model_dir`'s newest
+    checkpoint; returns (path, its serve_quant metadata, seconds, kernel
+    launches during the export)."""
+    import torch
+
+    from tensor2robot_tpu_torch.export import Exporter
+    from tensor2robot_tpu_torch.export.saved_model import read_metadata
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    trainer = Trainer(model, device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"{model_dir} state at step {state.step}")
+    reset_launches()
+    t0 = time.monotonic()
+    path = Exporter(name, warmup_batch_sizes=ladder, serve_quant=regimes).maybe_export(
+        step=TRAIN_STEPS, state=state, eval_metrics={}, compiled=trainer,
+        model_dir=model_dir)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = read_launches()
+    del state, trainer
+    torch.cuda.empty_cache()
+    return path, read_metadata(path)["serve_quant"], seconds, launches
+
+
+def _check_regime_record(meta: dict, regime: str, layers: list, attention: list,
+                         others: int = 0) -> str:
+    """Raises unless the export's record of `regime` says every eligible
+    layer (and attention module) fired, none unlowered or demoted, the
+    dot audit counts each fired contraction once in the regime's
+    contracted dtype and `others` (the layers too shallow to be eligible)
+    in f32, and the program quantizes no activation per call but the
+    layers the static calibration demoted; returns a summary."""
+    from tensor2robot_tpu_torch.export import serve_quant as sq
+
+    native, calib = meta["native"][regime], meta["calib"][regime]
+    dot, reduce = meta["dot_audit"][regime], meta["reduce_audit"][regime]
+    want_layers = layers if regime in sq.NATIVE_DOT_REGIMES else []
+    want_attention = attention if regime in sq.NATIVE_DOT_REGIMES else []
+    if (sorted(native["layers"]) != want_layers or native.get("unlowered")
+            or native["attention"] != want_attention or native["demoted"]):
+        raise AssertionError(f"{regime} native record {native}")
+    contractions = len(layers) + 2 * len(attention)
+    want_dot = {contracted_dtype(regime): contractions}
+    if regime == "fp16":
+        want_dot = {"f32": len(layers)}
+    if others:
+        want_dot["f32"] = want_dot.get("f32", 0) + others
+    want_dot["total"] = sum(want_dot.values())
+    if dot != want_dot:
+        raise AssertionError(f"{regime} dot audit {dot} != {want_dot}")
+    fired = set(want_layers) | set(want_attention)
+    demoted = [k for k in calib["demoted_to_dynamic"]
+               if (k.rsplit(":", 1)[0] if k.startswith("attn/") else k) in fired]
+    if regime in sq.NATIVE_DOT_REGIMES and (
+            calib["mode"] != "static"
+            or reduce["activation_quant_reduces"] != len(demoted)):
+        raise AssertionError(f"{regime} calib {calib['mode']}, reduce audit {reduce}, "
+                             f"demoted {demoted}")
+    parity = meta["parity"][regime]
+    return (f"gate {max(parity['max_divergence'].values()):.4e} <= "
+            f"{parity['tolerance']}; fired {len(native['layers'])} layers + "
+            f"{len(native['attention'])} attention; dot audit {dot}; activation-quant "
+            f"reduces {reduce['activation_quant_reduces']} (static, {len(demoted)} "
+            f"demoted to dynamic)")
+
+
+def _serve_regime(root: str, regime: str, requests, expected, tol: float) -> dict:
+    """Serves `regime` of the export under `root` through
+    ExportedSavedModelPredictor and PolicyServer to CLIENTS clients of
+    SERVE_QUANT_EPISODES episodes each; every reply within `tol` of the f32
+    export's action for its episode, B2 exactly NUM_LAYERS a batch (and
+    a prewarmed bucket). Returns rates, launches and the snapshot."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.serving import PolicyServer
+
+    predictor = ExportedSavedModelPredictor(export_dir=root, device=DEVICE,
+                                            quant_regime=regime)
+    if not predictor.restore():
+        raise AssertionError(f"{regime}: no export to restore")
+    with PolicyServer(predictor, max_wait_ms=20, default_deadline_ms=120_000) as server:
+        reset_launches()
+        server.start()
+        prewarm = read_launches()
+        reset_launches()
+        before = server.snapshot()["counters"]["batches"]
+        t0 = time.monotonic()
+        replies = run_clients(server, requests,
+                              lambda i, mine: mine < SERVE_QUANT_EPISODES)
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        snap = server.snapshot()
+    predictor.close()
+    batches = snap["counters"]["batches"] - before
+    served = launches.pop("flash_fwd")
+    if (served != NUM_LAYERS * batches or any(launches.values())
+            or prewarm["flash_fwd"] != NUM_LAYERS * len(BUCKETS)):
+        raise AssertionError(f"{regime}: B2 {served} for {batches} batches, others "
+                             f"{launches}, prewarm {prewarm}")
+    worst = 0.0
+    for _, episode, _, _, response in replies:
+        action = response.outputs["action"]
+        err = np.abs(action - expected[episode])
+        if not np.isfinite(action).all() or not err.max() <= tol:
+            raise AssertionError(f"{regime} reply {err.max()} from the f32 export's")
+        worst = max(worst, float(err.max()))
+    return dict(episodes=len(replies), rate=len(replies) / wall,
+                p50=p50_ms([r[2] for r in replies]), batches=batches,
+                b2=served + prewarm["flash_fwd"], worst=worst, snap=snap)
+
+
+def phase_serve_quant(model_dir: str) -> int:
+    """Low-precision serving exports (export/serve_quant.py) of the
+    training phase's step-20 BC weights and the critic phase's EMA, with
+    static activation calibration. Returns the B2 launches of the BC export
+    and of the served programs."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import ExportedModel
+    from tensor2robot_tpu_torch.export import serve_quant as sq
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+
+    t_phase = time.monotonic()
+    saved_calib = os.environ.get("T2R_SERVE_CALIB")
+    os.environ["T2R_SERVE_CALIB"] = "static"
+    try:
+        total = _serve_quant_bc(model_dir)
+        # (d) einsum heads: the same weights with use_flash=False.
+        _serve_quant_einsum(model_dir)
+        # (e) the critic's EMA at full width.
+        critic_dir = os.path.join(model_dir, "critic")
+        path, meta, seconds, launches = _quant_export(
+            critic_model(), critic_dir, "serve_quant", ("int8",),
+            ladder=SERVE_QUANT_SHORT_LADDER)
+        layers = sorted(meta["native"]["int8"]["layers"])
+        convs = [k for k in layers if "conv" in k]
+        dense = sum(isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))
+                    for m in critic_model().create_network().modules())
+        summary = _check_regime_record(meta, "int8", layers, [], others=dense - len(layers))
+        predictor = ExportedSavedModelPredictor(
+            export_dir=os.path.dirname(path), device=DEVICE, quant_regime="int8")
+        predictor.restore()
+        batch = make_random_numpy(predictor.get_feature_specification(),
+                                  batch_size=CRITIC_REQUESTS, seed=3)
+        reset_launches()
+        got = predictor.predict(batch)
+        want = ExportedModel(path, device=DEVICE, quant_regime="none").predict(batch)
+        after = read_launches()
+        predictor.close()
+        worst = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        if (not convs or any(launches.values()) or any(after.values())
+                or not worst <= sq.DEFAULT_PARITY_TOL["int8"]):
+            raise AssertionError(f"critic int8: {worst}, convs {convs}, launches "
+                                 f"{launches} / {after}")
+        log(f"[serve_quant] (e) critic (EMA of step {TRAIN_STEPS}, {CRITIC['image_size']}) "
+            f"int8 export on {card_line()} in {seconds:.1f}s: {summary} ({len(convs)} "
+            f"convs; {dense - len(layers)} shallow dense layers stay f32, as in the JAX "
+            f"package); {CRITIC_REQUESTS} requests within {worst:.4e} of its f32 program "
+            f"(limit {sq.DEFAULT_PARITY_TOL['int8']}); no flash launch")
+    finally:
+        if saved_calib is None:
+            os.environ.pop("T2R_SERVE_CALIB", None)
+        else:
+            os.environ["T2R_SERVE_CALIB"] = saved_calib
+    log(f"[serve_quant] phase {time.monotonic() - t_phase:.1f}s (reckoned "
+        f"{SERVE_QUANT_RECKONED_S} s)")
+    return total
+
+
+def _serve_quant_einsum(model_dir: str) -> None:
+    """(d) of the serve_quant phase: full-width BC with einsum heads. At
+    T = 1024 the regime's int8 QK^T and PV (the JAX package's: the softmax
+    probs on a fixed 1/127 step) are measured against the f32 forward over
+    the warmup corpus, as the exporter's native pre-gate measures them; at
+    T = SERVE_QUANT_EINSUM_SEQ the int8 serving module fires every
+    attention module within the gate, and its program audits int8. No
+    flash launch."""
+    import torch
+
+    from tensor2robot_tpu_torch.export import serve_quant as sq
+    from tensor2robot_tpu_torch.export.export_generators import DefaultExportGenerator
+    from tensor2robot_tpu_torch.export.saved_model import run_batch, export_quant_program
+    from tensor2robot_tpu_torch.models.transformer_models import TransformerBCModel
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    tol = sq.DEFAULT_PARITY_TOL["int8"]
+    model = full_width_model(False)
+    trainer = Trainer(model, device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    variables = state.export_state_dict(use_ema=False)
+    generator = DefaultExportGenerator()
+    generator.set_specification_from_model(model)
+    warmup = generator.generate_warmup_batches(BUCKETS)
+    reset_launches()
+    f32 = generator.create_serving_fn(variables, device=trainer.device)
+    quant = generator.create_quant_serving_fn(
+        variables, "int8", calibration=sq.calibrate_activations(warmup),
+        device=trainer.device)
+    divergence = sq.measure_parity(
+        [run_batch(f32, batch, trainer.device) for batch in warmup],
+        [run_batch(quant, batch, trainer.device, quant.quant_payload) for batch in warmup])
+    fired = sorted(k for k in quant.quant_native_fired if k.startswith("attn/"))
+    del f32, quant, state, trainer
+    attention = [f"attn/encoder/block_{i}/attention" for i in range(NUM_LAYERS)]
+    if fired != attention or any(read_launches().values()):
+        raise AssertionError(f"einsum heads lowered {fired}, launched {read_launches()}")
+    log(f"[serve_quant] (d) einsum heads at T = {SLICE['seq']} on {card_line()}: int8 "
+        f"with QK^T and PV lowered, {len(warmup)} warmup batches: max |int8 - f32| "
+        f"{max(divergence.values()):.4e} (gate {tol}: the exporter "
+        f"{'keeps it native' if max(divergence.values()) <= tol else 'demotes it to the dequant path'})")
+
+    # The first `seq` steps of the same model: attention is causal, so
+    # the position table's first `seq` rows are all a short episode reads.
+    seq = min(SERVE_QUANT_EINSUM_SEQ, SLICE["seq"])
+    short = TransformerBCModel(**dict(bc_model_kwargs(False), episode_length=seq))
+    params = dict(variables)
+    params["encoder.pos_embedding"] = variables["encoder.pos_embedding"][:seq]
+    generator = DefaultExportGenerator()
+    generator.set_specification_from_model(short)
+    warmup = generator.generate_warmup_batches(BUCKETS)
+    device = torch.device(DEVICE)
+    f32 = generator.create_serving_fn(params, device=device)
+    quant = generator.create_quant_serving_fn(
+        params, "int8", calibration=sq.calibrate_activations(warmup), device=device)
+    t0 = time.monotonic()
+    divergence = max(sq.measure_parity(
+        [run_batch(f32, batch, device) for batch in warmup],
+        [run_batch(quant, batch, device, quant.quant_payload) for batch in warmup],
+    ).values())
+    program = export_quant_program(quant, generator.create_example_features())
+    dot = sq.audit_dot_dtypes(program)
+    seconds = time.monotonic() - t0
+    fired = sorted(quant.quant_native_fired)
+    want = sorted(bc_native_layers(NUM_LAYERS) + attention)
+    contractions = len(bc_native_layers(NUM_LAYERS)) + 2 * NUM_LAYERS
+    launches = read_launches()
+    if (fired != want or dot != {"i8": contractions, "total": contractions}
+            or not divergence <= tol or any(launches.values())):
+        raise AssertionError(f"einsum int8 at T = {seq}: fired {fired}, dot {dot}, "
+                             f"divergence {divergence}, launches {launches}")
+    log(f"[serve_quant] (d) einsum heads at T = {seq} (the first {seq} positions of the "
+        f"same weights) on {card_line()}: int8 within {divergence:.4e} of f32 over "
+        f"{len(warmup)} warmup batches (gate {tol}); fired {len(fired) - NUM_LAYERS} "
+        f"layers + {NUM_LAYERS} attention; its program (traced in "
+        f"{seconds:.1f}s with the gate) audits {dot}; no flash launch")
+
+
+def _serve_quant_bc(model_dir: str) -> int:
+    """(a)-(c) of the serve_quant phase on full-width BC with flash heads;
+    returns the B2 launches of the export (its gates run every regime's
+    module) and of the served programs."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import ExportedModel, list_export_dirs
+    from tensor2robot_tpu_torch.export import saved_model
+    from tensor2robot_tpu_torch.export import serve_quant as sq
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+
+    # (a) one export carrying every regime.
+    path, meta, seconds, export_launches = _quant_export(
+        full_width_model(True), model_dir, "serve_quant", SERVE_QUANT_REGIMES)
+    layers = bc_native_layers(NUM_LAYERS)
+    f32_mb = os.path.getsize(os.path.join(path, saved_model.VARIABLES_FILENAME)) / 1e6
+    for regime in SERVE_QUANT_REGIMES:
+        summary = _check_regime_record(meta, regime, layers, [])
+        sizes = {k: v / 1e6 for k, v in meta["payload_bytes"][regime].items()}
+        file_mb = os.path.getsize(os.path.join(
+            path, saved_model.quant_payload_relpath(regime))) / 1e6
+        log(f"[serve_quant] (a) {regime}: payload {file_mb:.3f} MB (values "
+            f"{sizes['values']:.3f}, scales {sizes['scales']:.3f}, passthrough "
+            f"{sizes['passthrough']:.3f}) beside the f32 variables {f32_mb:.3f} MB; "
+            f"{summary}")
+    log(f"[serve_quant] (a) full-width BC (flash heads) exported in {seconds:.1f}s on "
+        f"{card_line()}: regimes {list(meta['regimes'])}, static calibration over the "
+        f"warmup ladder {BUCKETS}; B2 launches in the export {export_launches['flash_fwd']}")
+
+    # (b) each regime served, beside the f32 program.
+    root = os.path.dirname(path)
+    f32 = ExportedModel(path, device=DEVICE, quant_regime="none")
+    spec = f32.feature_spec
+    episodes = make_random_numpy(spec, batch_size=DISTINCT_EPISODES, seed=11)
+    expected = f32.predict(episodes)["action"]
+    del f32
+    requests = [{k: v[i] for k, v in episodes.items()} for i in range(DISTINCT_EPISODES)]
+    total = export_launches["flash_fwd"]
+    f32_rate = ("the export phase's f32 program: {:.3f} episodes/s, p50 {:.1f} ms".format(
+        *MEASURED["export_f32"]) if "export_f32" in MEASURED
+        else "the f32 program's rate: not measured in this run")
+    for regime in SERVE_QUANT_REGIMES:
+        tol = sq.DEFAULT_PARITY_TOL[regime]
+        run = _serve_regime(root, regime, requests, expected, tol)
+        snap = run.pop("snap")
+        native = regime in sq.NATIVE_DOT_REGIMES
+        if (snap["serve_quant"] != regime
+                or snap["serve_quant_native_layers"] != (layers if native else [])
+                or snap.get("serve_quant_calib") != ("static" if native else None)):
+            raise AssertionError(f"{regime} snapshot {snap}")
+        total += run["b2"]
+        log(f"[serve_quant] (b) {regime} served on {card_line()}: {run['episodes']} "
+            f"episodes ({CLIENTS} clients x {SERVE_QUANT_EPISODES}) within "
+            f"{run['worst']:.4e} of the f32 export (limit {tol}); {run['rate']:.3f} "
+            f"episodes/s, client p50 {run['p50']:.1f} ms ({f32_rate}); batches "
+            f"{run['batches']}, B2 {run['b2']} with the prewarm; snapshot regime "
+            f"{snap['serve_quant']}, calib {snap.get('serve_quant_calib')}, "
+            f"{len(snap.get('serve_quant_native_layers', []))} native layers")
+
+    # (c) the int8 program on the card and on the CPU, the same payload.
+    sub = {k: v[:SERVE_QUANT_CPU_EPISODES] for k, v in episodes.items()}
+    reset_launches()
+    card = ExportedModel(path, device=DEVICE, quant_regime="int8").predict(sub)["action"]
+    total += read_launches()["flash_fwd"]
+    t0 = time.monotonic()
+    cpu = ExportedModel(path, device="cpu", quant_regime="int8").predict(sub)["action"]
+    cpu_s = time.monotonic() - t0
+    gap = float(np.abs(card - cpu).max())
+    if not gap <= sq.DEFAULT_PARITY_TOL["int8"]:
+        raise AssertionError(f"int8 card vs CPU {gap}")
+    plain = list_export_dirs(os.path.join(model_dir, "export", "latest"))[-1]
+    os.environ["T2R_SERVE_QUANT"] = "int8"
+    try:
+        ExportedModel(plain, device=DEVICE)
+    except ValueError as err:
+        if "T2R_SERVE_QUANT" not in str(err):
+            raise
+    else:
+        raise AssertionError("a regime the export lacks did not raise")
+    finally:
+        os.environ.pop("T2R_SERVE_QUANT", None)
+    log(f"[serve_quant] (c) int8 program on {card_line()} vs the CPU (same payload, "
+        f"{SERVE_QUANT_CPU_EPISODES} episodes, {cpu_s:.1f}s on the CPU): max |card - cpu| "
+        f"{gap:.4e} (limit {sq.DEFAULT_PARITY_TOL['int8']}); T2R_SERVE_QUANT=int8 on a "
+        "plain export raises naming the flag")
+    torch.cuda.empty_cache()
     return total
 
 
@@ -3321,7 +3721,7 @@ def phase_cli(model_dir: str) -> dict:
 # them, and run_meta_env over the trained checkpoint.
 META_TASKS = 8
 META_SAMPLES = 3  # make_random_numpy's sequence_length
-META_TIMED_STEPS = 10
+META_TIMED_STEPS = 5
 META_CLI = dict(steps=40, eval_steps=1)
 META_CONFIG = os.path.join(ROOT, "tensor2robot_tpu_torch", "research", "pose_env",
                            "configs", "run_train_reg_maml.gin")
@@ -3983,7 +4383,7 @@ def phase_moe(model_dir: str) -> dict:
 G2V_MODEL = dict(scene_size=(472, 472), goal_size=(472, 472), resnet_size=50)
 G2V_BATCH = 8
 G2V_CHECK_BATCH = 2
-G2V_RECORDS = (96, 2, 16)
+G2V_RECORDS = (48, 2, 16)
 G2V_SOURCE = (512, 640)
 # Card vs CPU at full width (TF32 off), a batch of 2: the card's float32
 # embeddings, loss and batch-norm statistics within G2V_TOL of their max
@@ -4902,8 +5302,9 @@ PARALLEL_REGIMES = {
     "ring_window300": ("ring", 300, NUM_LAYERS * 3),
 }
 # Timed steps of each sequence regime and of the pipelined step (3 since
-# the planner's sub-phase, parallel_plan, joined the run).
-PARALLEL_TIMED_STEPS = 3
+# the planner's sub-phase, parallel_plan, joined the run; 2 since the
+# serve_quant phase did).
+PARALLEL_TIMED_STEPS = 2
 # train_eval_model on a 2 x 2 data x sequence mesh: steps, checkpoint
 # interval and eval batches (4 steps hold the whole run near 750 s).
 PARALLEL_TRAIN = dict(steps=4, save_every=2, eval_steps=1)
@@ -7429,7 +7830,7 @@ def parallel_3d(spec: dict) -> dict:
 # k = 2, batch 8 (every rank holds the whole batch: expert and sequence
 # ranks share it), 2 resident experts a rank, each block's MoE gathering
 # the episode's 2 shards before routing; `timed` synced steps.
-PARALLEL_MOE_SEQUENCE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=3)
+PARALLEL_MOE_SEQUENCE = dict(experts=MOE_EXPERTS, mesh=(2, 2), timed=2)
 # Each control must miss its gate by this factor or more.
 CONTROL_MARGIN = 100
 
@@ -8170,6 +8571,12 @@ def main() -> int:
                     raise ValueError(
                         "export serves the training and critic phases' weights")
                 launches["flash_fwd"] += timed_phase("export", phase_export, model_dir)
+            if "serve_quant" in phases:
+                if "training" not in phases or "critic" not in phases:
+                    raise ValueError(
+                        "serve_quant exports the training and critic phases' weights")
+                launches["flash_fwd"] += timed_phase("serve_quant", phase_serve_quant,
+                                                     model_dir)
             if "policy" in phases:
                 timed_phase("policy", phase_policy, model_dir)
             if "data" in phases:

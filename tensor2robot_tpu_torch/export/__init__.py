@@ -4,6 +4,7 @@ the train-time export policies."""
 from tensor2robot_tpu_torch.export.export_generators import (
     AbstractExportGenerator,
     DefaultExportGenerator,
+    QuantServingModule,
 )
 from tensor2robot_tpu_torch.export.exporters import (
     BestExporter,
@@ -17,6 +18,10 @@ from tensor2robot_tpu_torch.export.exporters import (
 from tensor2robot_tpu_torch.export.quantization import (
     dequantize_variables,
     quantize_variables,
+)
+from tensor2robot_tpu_torch.export.serve_quant import (
+    SERVE_QUANT_REGIMES,
+    QuantParityError,
 )
 from tensor2robot_tpu_torch.export.saved_model import (
     ExportedModel,

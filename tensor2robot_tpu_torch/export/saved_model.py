@@ -1,7 +1,7 @@
 """The export directory: what a learner publishes and a robot serves.
 
-Port of tensor2robot_tpu/export/saved_model.py (without its serve-quant
-regimes and AOT executables, ROADMAP.md A10), in the port's own format:
+Port of tensor2robot_tpu/export/saved_model.py (without its AOT
+executables, ROADMAP.md A10), in the port's own format:
 
     <export_root>/<unix_seconds>/
         t2r_metadata.json              global step, exporter, eval metrics,
@@ -18,6 +18,11 @@ regimes and AOT executables, ROADMAP.md A10), in the port's own format:
                                        gradients (MAML), one program per
                                        static batch N (`program_batches`)
         warmup/warmup_requests.tfrecord  (exporters) one batch per bucket
+        quant/params_<regime>.pt       a low-precision regime's payload
+                                       (export/serve_quant.py; torch.save)
+        program/predict_fn_<regime>.pt2  its program: (payload, features)
+                                       -> outputs, the batch dim dynamic,
+                                       no weights inside
 
 A version is written under `temp-<ts>` and renamed, so pollers never see
 a partial export. The program is best-effort as in the JAX package: a
@@ -34,6 +39,12 @@ load (torch.export.passes.move_to_device_pass). Python-side state read in
 `T2R_*` flag (T2R_STEM_S2D is read when the critic's network is built,
 T2R_POOL_BACKWARD only by gradients).
 
+A regime passes its parity gate against the f32 serving module over the
+warmup corpus before any directory exists, or the export raises
+QuantParityError and writes nothing. `ExportedModel(quant_regime=)` serves
+a regime (None reads T2R_SERVE_QUANT; "none" is the f32 path): its
+program and its payload, loaded onto the device once.
+
 A MAML forward adapts the weights with an inner gradient
 (`torch.func.grad` under `torch.func.vmap` over tasks), which
 `torch.export` cannot trace: it refuses `autograd.grad`, and vmap's
@@ -49,6 +60,7 @@ cut back.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import threading
@@ -58,7 +70,9 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import flags
 from tensor2robot_tpu_torch.export import quantization
+from tensor2robot_tpu_torch.export import serve_quant as sq
 from tensor2robot_tpu_torch.specs import (
     ExtendedTensorSpec,
     TensorSpecStruct,
@@ -80,6 +94,17 @@ EXAMPLE_BATCH = 2
 DEFAULT_MAX_BATCH = 64
 #: The batches of a static program set when the exporter names none.
 STATIC_BATCHES = (1, 2, 4, 8)
+QUANT_DIR = "quant"
+
+
+def quant_payload_relpath(regime: str) -> str:
+    """Export-relative path of a regime's payload."""
+    return os.path.join(QUANT_DIR, f"params_{regime}.pt")
+
+
+def quant_program_relpath(regime: str) -> str:
+    """Export-relative path of a regime's program (payload as argument)."""
+    return os.path.join(PROGRAM_DIR, f"predict_fn_{regime}.pt2")
 
 
 def program_path(export_dir: str) -> str:
@@ -202,6 +227,125 @@ def export_static_program(
         return torch.export.export(graph, (examples,))
 
 
+def export_quant_program(
+    module: torch.nn.Module,
+    example_features: Mapping[str, Any],
+    max_batch: int = DEFAULT_MAX_BATCH,
+) -> torch.export.ExportedProgram:
+    """torch.export of a QuantServingModule's `(payload, features) ->
+    outputs`, the payload an argument (so the program holds no weights)
+    and the leading dim of every feature one dynamic `batch`."""
+    if getattr(module, "takes_gradients", False):
+        raise ValueError(
+            "a serve-quant program of a forward that takes gradients (MAML) "
+            "is not exported: its static program set has no payload argument")
+    device = module.device
+    examples = {
+        key: torch.as_tensor(np.asarray(value)).to(device)
+        for key, value in example_features.items()
+    }
+    payload = module.quant_payload
+    batch = torch.export.Dim("batch", min=1, max=max(max_batch, EXAMPLE_BATCH))
+    dynamic = (torch.utils._pytree.tree_map(lambda _: None, payload),
+               {key: {0: batch} for key in examples})
+    with TRACE_LOCK, torch.no_grad():
+        return torch.export.export(module, (payload, examples),
+                                   dynamic_shapes=dynamic)
+
+
+def run_batch(module: torch.nn.Module, batch: Mapping[str, Any], device,
+               payload=None) -> Dict[str, np.ndarray]:
+    """One eager call of a serving module on a host batch; host outputs."""
+    inputs = {key: torch.as_tensor(np.asarray(value)).to(device)
+              for key, value in batch.items()}
+    with torch.no_grad():
+        out = module(inputs) if payload is None else module(payload, inputs)
+    return {key: value.detach().cpu().numpy() for key, value in out.items()}
+
+
+def _serve_quant_record(serve_quant_fns, fp32_run, calibration_batches,
+                        quant_parity_tol) -> Dict[str, Any]:
+    """Runs every regime's parity gate (QuantParityError on the first that
+    fails, before anything is written) and returns the metadata's
+    serve_quant block, in the JAX package's keys."""
+    tolerance = dict(sq.DEFAULT_PARITY_TOL)
+    tolerance.update(dict(quant_parity_tol or {}))
+    fp32_outputs = None
+    meta: Dict[str, Any] = {
+        "regimes": sorted(serve_quant_fns), "block": {}, "calibration": {},
+        "layout": {}, "parity": {}, "payload_bytes": {}, "stablehlo": {},
+        "native": {}, "granularity": {}, "calib": {},
+    }
+    for regime in sorted(serve_quant_fns):
+        fn = serve_quant_fns[regime]
+        divergence = getattr(fn, "quant_measured_divergence", None)
+        if divergence is None:
+            if fp32_outputs is None:
+                fp32_outputs = [fp32_run(batch) for batch in calibration_batches]
+            quant_outputs = [run_batch(fn, batch, fn.device, fn.quant_payload)
+                             for batch in calibration_batches]
+            divergence = sq.measure_parity(fp32_outputs, quant_outputs)
+        sq.check_parity(regime, divergence, tolerance[regime])
+        meta["block"][regime] = int(fn.quant_block)
+        meta["calibration"][regime] = {k: float(v) for k, v in fn.quant_calibration.items()}
+        meta["layout"][regime] = fn.quant_layout
+        meta["parity"][regime] = {
+            "tolerance": float(tolerance[regime]),
+            "max_divergence": {k: float(v) for k, v in sorted(divergence.items())},
+        }
+        meta["payload_bytes"][regime] = sq.payload_nbytes(fn.quant_payload)
+        # Claimed vs fired: what the program executes natively, and the
+        # claimed kernels the lowering never ran, apart.
+        claimed = list(fn.quant_native or ())
+        fired = set(fn.quant_native_fired or ())
+        attn_spec = fn.quant_attn
+        native_entry = {
+            "layers": [path for path in claimed if path in fired],
+            "demoted": bool(getattr(fn, "quant_native_demoted", False)),
+            "attention": sorted(key for key in fired if key.startswith("attn/")),
+            "attention_eligibility": "auto" if attn_spec == "auto" else list(attn_spec),
+        }
+        unlowered = [path for path in claimed if path not in fired]
+        if unlowered:
+            logging.warning(
+                "export: serve-quant %s eligibility claimed %d layer(s) the "
+                "native lowering never ran (%s); they serve on the dequant path",
+                regime, len(unlowered), ", ".join(unlowered))
+            native_entry["unlowered"] = unlowered
+        meta["native"][regime] = native_entry
+        granularity = {"channel": 0, "block": 0}
+        for entry in fn.quant_layout.values():
+            granularity[entry.get("granularity", "block")] += 1
+        meta["granularity"][regime] = granularity
+        # The recorded clips and mode are those the program consumes.
+        fired_scales = {
+            key: float(value)
+            for key, value in sorted((fn.quant_static_scales or {}).items())
+            if (key.rsplit(":", 1)[0] in fired if key.startswith("attn/")
+                else key in fired)
+        }
+        if not (native_entry["layers"] or native_entry["attention"]):
+            fired_mode = None
+        else:
+            fired_mode = "static" if fired_scales else "dynamic"
+        meta["calib"][regime] = {
+            "mode": fired_mode,
+            "static_scales": fired_scales,
+            "demoted_to_dynamic": {
+                key: float(value) for key, value in sorted(
+                    (getattr(fn, "quant_static_demoted", None) or {}).items())
+            },
+        }
+        layer_calibration = getattr(fn, "quant_layer_calibration", None)
+        if layer_calibration and "layer_calibration" not in meta:
+            meta["layer_calibration"] = {
+                key: {stat: int(value) if stat == "samples" else float(value)
+                      for stat, value in entry.items()}
+                for key, entry in sorted(layer_calibration.items())
+            }
+    return meta
+
+
 def save_exported_model(
     export_root: str,
     variables: Mapping[str, torch.Tensor],
@@ -216,6 +360,9 @@ def save_exported_model(
     quantize_bits: int = 8,
     max_batch: int = DEFAULT_MAX_BATCH,
     program_batches: Optional[Sequence[int]] = None,
+    serve_quant_fns: Optional[Mapping[str, torch.nn.Module]] = None,
+    quant_parity_tol: Optional[Mapping[str, float]] = None,
+    calibration_batches: Optional[Sequence[Mapping[str, Any]]] = None,
 ) -> str:
     """Writes one export version; returns its final path.
 
@@ -240,9 +387,37 @@ def save_exported_model(
       max_batch: the program's largest batch.
       program_batches: the static batches of a serving module that takes
         gradients (STATIC_BATCHES when None); ignored otherwise.
+      serve_quant_fns: {regime: QuantServingModule}
+        (export_generators.create_quant_serving_fn). Each regime must pass
+        its parity gate against `serving_module` over
+        `calibration_batches`, or this call raises QuantParityError and
+        writes nothing; each adds quant/params_<regime>.pt and its program.
+      quant_parity_tol: per-regime gate overrides of
+        serve_quant.DEFAULT_PARITY_TOL.
+      calibration_batches: the warmup corpus (flat numpy batches) the
+        gates replay; required with serve_quant_fns.
     """
     quantization.check_bits(quantize_bits)
     in_module = getattr(serving_module, "quantized_variables", None)
+    serve_quant_meta = None
+    if serve_quant_fns:
+        if in_module is not None or quantize_weights:
+            raise ValueError(
+                "serve_quant_fns cannot combine with quantize_weights: the "
+                "parity gate needs the fp32 forward as its baseline.")
+        if serving_module is None:
+            raise ValueError(
+                "serve-quant export requires serving_module (the fp32 forward "
+                "is the parity baseline).")
+        if not calibration_batches:
+            raise ValueError(
+                "serve-quant export requires calibration_batches: the "
+                "artifact's own warmup corpus is the calibration and parity "
+                "contract (the exporter's warmup_batch_sizes).")
+        f32_device = module_device(serving_module)
+        serve_quant_meta = _serve_quant_record(
+            serve_quant_fns, lambda batch: run_batch(serving_module, batch, f32_device),
+            calibration_batches, quant_parity_tol)
     if in_module is not None:
         stored = in_module
         quantize_weights = True
@@ -267,6 +442,7 @@ def save_exported_model(
     torch.save(_host_variables(stored), os.path.join(tmp_path, VARIABLES_FILENAME))
 
     program_ok, program_error, traced_on, static = False, None, None, None
+    programs: Dict[Optional[int], torch.export.ExportedProgram] = {}
     if export_program_file and serving_module is not None and example_features is not None:
         try:
             os.makedirs(os.path.join(tmp_path, PROGRAM_DIR))
@@ -288,6 +464,11 @@ def save_exported_model(
         except Exception as err:  # noqa: BLE001 — the program is best-effort;
             # variables + assets always land, so record why and move on.
             program_error = f"{type(err).__name__}: {err}"
+    if serve_quant_meta is not None:
+        baseline = programs.get(None) if program_ok else None
+        _write_serve_quant(tmp_path, serve_quant_fns, serve_quant_meta,
+                           example_features if export_program_file else None,
+                           max_batch, baseline)
 
     meta = {
         "global_step": int(global_step),
@@ -301,12 +482,42 @@ def save_exported_model(
         "format_version": FORMAT_VERSION,
         "torch_version": torch.__version__,
     }
+    if serve_quant_meta is not None:
+        meta["serve_quant"] = serve_quant_meta
     if metadata:
         meta.update(metadata)
     with open(os.path.join(tmp_path, METADATA_FILENAME), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
     os.replace(tmp_path, final_path)
     return final_path
+
+
+def _write_serve_quant(tmp_path, serve_quant_fns, meta, example_features,
+                       max_batch, baseline) -> None:
+    """Each regime's payload, and its program with the dot and reduce
+    audits of its graph (best-effort like the f32 program: a failure is
+    recorded under stablehlo_error, the version still lands)."""
+    os.makedirs(os.path.join(tmp_path, QUANT_DIR), exist_ok=True)
+    for regime in sorted(serve_quant_fns):
+        fn = serve_quant_fns[regime]
+        sq.save_payload(fn.quant_payload,
+                        os.path.join(tmp_path, quant_payload_relpath(regime)))
+        if example_features is None:
+            meta["stablehlo"][regime] = False
+            continue
+        try:
+            program = export_quant_program(fn, example_features, max_batch)
+            program.example_inputs = None
+            os.makedirs(os.path.join(tmp_path, PROGRAM_DIR), exist_ok=True)
+            torch.export.save(program, os.path.join(tmp_path, quant_program_relpath(regime)))
+        except Exception as err:  # noqa: BLE001 — best-effort, recorded
+            meta["stablehlo"][regime] = False
+            meta.setdefault("stablehlo_error", {})[regime] = f"{type(err).__name__}: {err}"
+            continue
+        meta["stablehlo"][regime] = True
+        meta.setdefault("dot_audit", {})[regime] = sq.audit_dot_dtypes(program)
+        meta.setdefault("reduce_audit", {})[regime] = sq.audit_quant_reduces(
+            program, baseline=baseline)
 
 
 def read_metadata(export_dir: str) -> Dict[str, Any]:
@@ -316,9 +527,16 @@ def read_metadata(export_dir: str) -> Dict[str, Any]:
 
 class ExportedModel:
     """A loaded export version: specs, metadata, variables and, when the
-    export has one, its program moved to `device` (the card by default)."""
+    export has one, its program moved to `device` (the card by default).
 
-    def __init__(self, export_dir: str, device: Union[str, torch.device] = DEFAULT_DEVICE):
+    quant_regime selects the serving regime: "fp16", "int8", "fp8_e4m3" or
+    "fp8_e5m2" load that regime's program and payload (the payload onto
+    `device` once); None reads T2R_SERVE_QUANT; "none" is the f32 loader.
+    A regime the export was not made with raises, naming the flag: a fleet
+    never falls back to f32 silently."""
+
+    def __init__(self, export_dir: str, device: Union[str, torch.device] = DEFAULT_DEVICE,
+                 quant_regime: Optional[str] = None):
         self.export_dir = export_dir
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -332,9 +550,28 @@ class ExportedModel:
             for key, spec in flatten_spec_structure(self.feature_spec).items()
             if isinstance(spec, ExtendedTensorSpec) and not spec.is_optional
         ]
+        if quant_regime is None:
+            quant_regime = flags.get_enum("T2R_SERVE_QUANT")
+        self.quant_regime = quant_regime
         #: {None: the dynamic-batch program} or {batch: static program}.
         self._modules: Dict[Optional[int], torch.nn.Module] = {}
-        if self.metadata.get("program"):
+        #: The regime's payload on `device` (None for "none").
+        self._payload = None
+        if quant_regime != "none":
+            quant_meta = self.metadata.get("serve_quant") or {}
+            if quant_regime not in (quant_meta.get("regimes") or ()):
+                raise ValueError(
+                    f"T2R_SERVE_QUANT={quant_regime} but export {export_dir} "
+                    f"carries regimes {quant_meta.get('regimes') or []}; re-export "
+                    f"with serve_quant=({quant_regime!r},) or serve it with "
+                    "T2R_SERVE_QUANT=none.")
+            if (quant_meta.get("stablehlo") or {}).get(quant_regime):
+                self._modules = {None: self._load_program(
+                    os.path.join(export_dir, quant_program_relpath(quant_regime)))}
+                self._payload = sq.load_payload(
+                    os.path.join(export_dir, quant_payload_relpath(quant_regime)),
+                    self.device)
+        elif self.metadata.get("program"):
             batches = self.metadata.get("program_batches")
             paths = ({None: program_path(export_dir)} if not batches else
                      {int(b): static_program_path(export_dir, b) for b in batches})
@@ -354,6 +591,35 @@ class ExportedModel:
     @property
     def has_program(self) -> bool:
         return bool(self._modules)
+
+    def _quant_entry(self, block: str) -> Dict[str, Any]:
+        if self.quant_regime == "none":
+            return {}
+        entries = (self.metadata.get("serve_quant") or {}).get(block) or {}
+        return entries.get(self.quant_regime) or {}
+
+    @property
+    def native_dot_layers(self) -> tuple:
+        """Flat kernel paths the loaded regime's program contracts natively
+        in the storage dtype (empty for "none", fp16, or a demoted map)."""
+        return tuple(self._quant_entry("native").get("layers") or ())
+
+    @property
+    def native_attention(self) -> tuple:
+        """Attention modules whose QK^T and PV the loaded regime's program
+        runs on quantized operands (empty for flash heads)."""
+        return tuple(self._quant_entry("native").get("attention") or ())
+
+    @property
+    def calib_mode(self) -> Optional[str]:
+        """'static', 'dynamic' or None (no native contraction)."""
+        return self._quant_entry("calib").get("mode")
+
+    @property
+    def quant_reduce_audit(self) -> Optional[Dict[str, Any]]:
+        """The export's reduce audit of the loaded regime's program;
+        activation_quant_reduces == 0 proves static calibration."""
+        return self._quant_entry("reduce_audit") or None
 
     @property
     def program_batches(self) -> Optional[List[int]]:
@@ -378,12 +644,19 @@ class ExportedModel:
         """The program on tensors already on `device` (no host copies), so
         a caller can keep a loop on the card."""
         if not self._modules:
+            if self.quant_regime != "none":
+                errors = (self.metadata.get("serve_quant") or {}).get("stablehlo_error")
+                raise RuntimeError(
+                    f"Export {self.export_dir} has no program for quant regime "
+                    f"{self.quant_regime!r} ({(errors or {}).get(self.quant_regime)}).")
             raise RuntimeError(
                 f"Export {self.export_dir} has no program; serving it needs "
                 f"model code ({self.metadata.get('program_error')})."
             )
         inputs = {key: features[key] for key, _ in self._inputs}
         with torch.no_grad():
+            if self._payload is not None:
+                return dict(self._modules[None](self._payload, inputs))
             if None in self._modules:
                 return dict(self._modules[None](inputs))
             return self._run_static(inputs)

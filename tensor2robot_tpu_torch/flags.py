@@ -6,8 +6,9 @@ way everywhere, failing fast with the flag name in the message. Names,
 defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
 (the policy server, the trainer's infeed, the data stack, the max pool's
-backward, the Grasping44 stem, the ZeRO-2 gradient codecs and the
-sharding planner with its plan cache) are declared here.
+backward, the Grasping44 stem, the ZeRO-2 gradient codecs, the sharding
+planner with its plan cache and the low-precision serving regimes) are
+declared here.
 """
 
 from __future__ import annotations
@@ -178,6 +179,23 @@ _declare(
     "the constructor passes none (unset = (1,)).",
     "tensor2robot_tpu_torch/serving/buckets.py",
 )
+_SERVE_QUANT = "tensor2robot_tpu_torch/export/serve_quant.py"
+_declare(
+    "T2R_SERVE_CALIB",
+    _ENUM,
+    "static",
+    "Activation-calibration mode for NATIVE low-precision serving "
+    "exports (export/serve_quant.py): 'static' (default) bakes "
+    "export-time per-layer 99.9th-percentile activation clips into the "
+    "serving program as constants — zero per-dispatch activation-quant "
+    "reductions (audit_quant_reduces), with per-layer demotion back to "
+    "dynamic when the warmup overshoot exceeds the gate; 'dynamic' "
+    "keeps the per-row max-abs quant op for op (conv/attention lowering "
+    "is map-driven, not calib-driven: disable it via "
+    "T2R_SERVE_NATIVE_LAYERS/T2R_SERVE_NATIVE_ATTN).",
+    _SERVE_QUANT,
+    choices=("static", "dynamic"),
+)
 _declare(
     "T2R_SERVE_DEADLINE_MS",
     _INT,
@@ -223,6 +241,49 @@ _declare(
     "thread).",
     _SERVER,
     minimum=0,
+)
+
+_declare(
+    "T2R_SERVE_NATIVE_ATTN",
+    _STR,
+    None,
+    "Attention-head eligibility for NATIVE low-precision QK^T/PV "
+    "contractions in quantized serving exports (export/serve_quant.py): "
+    "unset or 'auto' = every attention module on the materialized-"
+    "logits einsum path quantizes both contraction operands (per-row "
+    "or static scales on the accumulator; flash/ring/ulysses heads "
+    "never lower); 'none' = attention stays on the f32 einsum path; "
+    "anything else = comma-separated fnmatch globs over attention "
+    "module paths selecting WHICH heads lower.",
+    _SERVE_QUANT,
+)
+_declare(
+    "T2R_SERVE_NATIVE_LAYERS",
+    _STR,
+    None,
+    "Per-layer eligibility override for NATIVE low-precision matmuls in "
+    "quantized serving exports (export/serve_quant.py): unset or 'auto' "
+    "= the default map (dense and conv '.../kernel' leaves contract on "
+    "int8/fp8 operands with the scales applied to the accumulator); "
+    "'none' = disable native lowering (every layer dequantizes before "
+    "the matmul); anything else = comma-separated fnmatch globs over "
+    "flat param paths selecting WHICH structurally-eligible layers "
+    "lower natively (parity-fragile layers stay on the dequant path).",
+    _SERVE_QUANT,
+)
+_declare(
+    "T2R_SERVE_QUANT",
+    _ENUM,
+    "none",
+    "Low-precision serving regime for exported-artifact predictors: "
+    "fp16/int8/fp8_e4m3/fp8_e5m2 serve the export's blockwise-scaled "
+    "quantized payload (export/serve_quant.py) with the dequant inside "
+    "the regime's serving program — and, for int8/fp8 regimes, eligible "
+    "dense and conv contractions executed NATIVELY on the quantized "
+    "operands (T2R_SERVE_NATIVE_LAYERS); none is the unquantized "
+    "serving path byte for byte.",
+    "tensor2robot_tpu_torch/export/saved_model.py",
+    choices=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
 )
 
 _PLANNER = "tensor2robot_tpu_torch/parallel/planner.py"

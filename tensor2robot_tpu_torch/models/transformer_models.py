@@ -67,6 +67,18 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+class _SameConv(nn.Conv2d):
+    """A 3x3 stride-2 conv with XLA 'SAME' padding applied inside it (flax
+    nn.Conv's default), so the module's input is the unpadded map, as the
+    JAX package's conv sees it."""
+
+    def __init__(self, in_channels: int, filters: int):
+        super().__init__(in_channels, filters, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(_pad_same(x, 3, 2))
+
+
 class _TransformerBCNet(nn.Module):
     """Per-step conv embed -> causal transformer over time -> action head.
     Features are {'image': [B, T, H, W, 3], 'gripper_pose': [B, T, P]}.
@@ -98,9 +110,7 @@ class _TransformerBCNet(nn.Module):
         super().__init__()
         in_channels = 3
         for i, filters in enumerate(_CONV_FILTERS):
-            self.add_module(
-                f"Conv_{i}", nn.Conv2d(in_channels, filters, 3, stride=2)
-            )
+            self.add_module(f"Conv_{i}", _SameConv(in_channels, filters))
             in_channels = filters
         self.embed = nn.Linear(2 * in_channels + pose_size, d_model)
         self.encoder = TransformerEncoder(
@@ -119,7 +129,7 @@ class _TransformerBCNet(nn.Module):
         # NHWC at the module boundary (as the JAX package); NCHW for conv.
         x = frames.permute(0, 3, 1, 2)
         for i in range(len(_CONV_FILTERS)):
-            x = F.relu(getattr(self, f"Conv_{i}")(_pad_same(x, 3, 2)))
+            x = F.relu(getattr(self, f"Conv_{i}")(x))
         points, _ = spatial_softmax(x.permute(0, 2, 3, 1))
         return points
 

@@ -3,7 +3,9 @@
 Functions of one contract, each kernel beside its plain PyTorch version:
 
   * `reference_attention` — materialized-logits attention, the numerics
-    oracle and the einsum path of MultiHeadAttention(use_flash=False).
+    oracle and the einsum path of MultiHeadAttention(use_flash=False);
+    its two contractions are the override point of the low-precision
+    serving exports (`attention_contraction_override`).
   * `flash_attention_plain` / `flash_fwd_kernel` (B2, csrc/flash_fwd.cu,
     port of the Pallas `_flash_kernel`) — the normalized forward: the same
     k-tile bounds, per-element masks, f32 online softmax with the finite
@@ -44,6 +46,8 @@ package behaves the same).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -57,6 +61,31 @@ from typing import Optional, Tuple, Union
 import torch
 
 _NEG_INF = -1e30
+
+# The contraction override (export/serve_quant.py's attention lowering):
+# inside `attention_contraction_override(impl)`, `reference_attention`
+# takes its logits from `impl.qk(q, k, scale)` and its mixed output from
+# `impl.pv(probs, v)`; masks, softmax and dtypes are unchanged. Only the
+# einsum path consults it: the flash path suppresses it (the kernel B2 and
+# its plain version have no materialized contraction to swap), as do
+# Ulysses' einsum tiles, so a flash-configured head computes what the
+# kernel computes, in f32, on every host.
+_CONTRACTION_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
+    "t2r_torch_attention_contraction_override", default=None
+)
+
+
+@contextlib.contextmanager
+def attention_contraction_override(impl):
+    """Installs `impl` (with .qk(q, k, scale) and .pv(probs, v)) as
+    reference_attention's contractions for the context; None suppresses
+    an outer one."""
+    token = _CONTRACTION_OVERRIDE.set(impl)
+    try:
+        yield
+    finally:
+        _CONTRACTION_OVERRIDE.reset(token)
+
 
 # Auto-dispatch crossover of MultiHeadAttention(use_flash=None): below this
 # sequence length the einsum path is taken. The value is the JAX package's,
@@ -225,12 +254,18 @@ def reference_attention(
     step can be graph-captured or traced)."""
     _check_window(window, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    override = _CONTRACTION_OVERRIDE.get()
+    if override is not None:
+        logits = override.qk(q, k, scale)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
         k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
         logits = logits.masked_fill(~_visible(q_pos, k_pos, window), _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    if override is not None:
+        return override.pv(probs, v).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
@@ -843,10 +878,13 @@ def flash_attention(
     version for CPU tensors."""
     _check_window(window, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _on_cuda(q)
-        return FlashAttentionFunction.apply(
-            q, k, v, causal, scale, q_offset, k_offset, window
-        )
-    _on_cuda(q)  # refuses a head dim past MAX_HEAD_DIM before a trace does
-    return flash_fwd_op(q, k, v, causal, scale, q_offset, k_offset, window)
+    # A flash head never lowers: the serving contraction override is
+    # suppressed for the kernel and its plain version alike.
+    with attention_contraction_override(None):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            _on_cuda(q)
+            return FlashAttentionFunction.apply(
+                q, k, v, causal, scale, q_offset, k_offset, window
+            )
+        _on_cuda(q)  # refuses a head dim past MAX_HEAD_DIM before a trace does
+        return flash_fwd_op(q, k, v, causal, scale, q_offset, k_offset, window)

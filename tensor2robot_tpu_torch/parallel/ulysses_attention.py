@@ -43,8 +43,11 @@ def _ulysses_local(q, k, v, *, mesh, axis_name, causal, scale, use_flash,
 
     q_local, k_local, v_local = scatter_heads(q), scatter_heads(k), scatter_heads(v)
     attend = flash_lib.flash_attention if use_flash else flash_lib.reference_attention
-    out = attend(q_local, k_local, v_local, causal=causal, scale=scale,
-                 window=window)
+    # The einsum tiles never take the serving contraction override
+    # (export/serve_quant.py): only a single-device head lowers.
+    with flash_lib.attention_contraction_override(None):
+        out = attend(q_local, k_local, v_local, causal=causal, scale=scale,
+                     window=window)
     return gather_heads(out)
 
 

@@ -1,7 +1,7 @@
 """Predictor over exported model dirs: serve the newest export version.
 
 Port of tensor2robot_tpu/predictors/exported_savedmodel_predictor.py
-(without the serve-quant regimes and the compile cache, ROADMAP.md A10).
+(without the compile cache, ROADMAP.md A10).
 It loads the newest timestamped export under a root and rebuilds the input
 contract from assets.extra/t2r_assets.pbtxt, so it needs no model code
 when the export carries a program (export/saved_model.py). It serves the
@@ -16,10 +16,15 @@ program on `device` (the card by default) and keeps the fleet behaviours:
     readies every bucket on the incoming version before the swap, and a
     failed prewarm keeps the old version;
   * action-tile-aware input expansion: a critic exported with an action
-    population dim accepts un-tiled inputs, broadcast up on the host.
+    population dim accepts un-tiled inputs, broadcast up on the host;
+  * a low-precision serving regime (`quant_regime`, None reads
+    T2R_SERVE_QUANT at every restore): every version it swaps in serves
+    that regime's program and payload, and a version that lacks it fails
+    the restore.
 
 An export without a program is served from model code (`t2r_model`) and
-the export's variables.
+the export's variables, under no regime: model code would serve f32
+where a regime was asked for, so that raises.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ class ExportedSavedModelPredictor(AbstractPredictor):
         timeout: float = 600,
         tile_batch_for_action: bool = True,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
+        quant_regime: Optional[str] = None,
     ):
         """Args:
         export_dir: root holding timestamped export versions.
@@ -69,8 +75,11 @@ class ExportedSavedModelPredictor(AbstractPredictor):
         tile_batch_for_action: expand inputs that miss the exported
           action-population dim (CEM critics).
         device: where the program runs; 'cuda' raises without a card.
+        quant_regime: the serving regime ("none", "fp16", "int8",
+          "fp8_e4m3", "fp8_e5m2"); None reads T2R_SERVE_QUANT at restore.
         """
         self._export_dir = export_dir
+        self._quant_regime = quant_regime
         self._t2r_model = t2r_model
         self._timeout = timeout
         self._tile = tile_batch_for_action
@@ -135,7 +144,8 @@ class ExportedSavedModelPredictor(AbstractPredictor):
                 if current is not None and current.export_dir == path:
                     return True
                 try:
-                    loaded = ExportedModel(path, device=self._device)
+                    loaded = ExportedModel(path, device=self._device,
+                                           quant_regime=self._quant_regime)
                 except OSError:
                     # Raced the version GC deleting this dir between
                     # listing and reading: not yet available, poll again.
@@ -166,6 +176,15 @@ class ExportedSavedModelPredictor(AbstractPredictor):
     def _build_predict_fn(self, loaded: ExportedModel) -> Callable:
         if loaded.has_program:
             return loaded.predict
+        if loaded.quant_regime != "none":
+            # Model code rebuilds the f32 forward: under a regime that would
+            # serve full precision where the operator asked for less.
+            errors = (loaded.metadata.get("serve_quant") or {}).get("stablehlo_error")
+            raise ValueError(
+                f"Export {loaded.export_dir} has no serving program for "
+                f"quant regime {loaded.quant_regime!r} "
+                f"({(errors or {}).get(loaded.quant_regime)}); re-export it or "
+                "serve with T2R_SERVE_QUANT=none.")
         if self._t2r_model is None:
             raise ValueError(
                 f"Export {loaded.export_dir} has no program "
@@ -266,6 +285,34 @@ class ExportedSavedModelPredictor(AbstractPredictor):
     @property
     def model_path(self) -> Optional[str]:
         return None if self._loaded is None else self._loaded.export_dir
+
+    @property
+    def quant_regime(self) -> str:
+        """The serving regime of the loaded version ('none' before restore
+        or when serving f32): what the server's snapshot reports."""
+        loaded = self.loaded_model
+        return getattr(loaded, "quant_regime", "none") if loaded else "none"
+
+    @property
+    def native_dot_layers(self) -> tuple:
+        """The loaded version's natively contracted layers
+        (ExportedModel.native_dot_layers); empty before restore."""
+        return tuple(getattr(self.loaded_model, "native_dot_layers", ()) or ())
+
+    @property
+    def native_attention(self) -> tuple:
+        """The loaded version's lowered attention modules."""
+        return tuple(getattr(self.loaded_model, "native_attention", ()) or ())
+
+    @property
+    def calib_mode(self) -> Optional[str]:
+        """The loaded regime's activation-calibration mode, or None."""
+        return getattr(self.loaded_model, "calib_mode", None)
+
+    @property
+    def quant_reduce_audit(self) -> Optional[Dict[str, Any]]:
+        """The loaded regime's reduce audit, or None."""
+        return getattr(self.loaded_model, "quant_reduce_audit", None)
 
     @property
     def restore_thread_leaked(self) -> bool:

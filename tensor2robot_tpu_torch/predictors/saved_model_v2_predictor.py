@@ -97,9 +97,12 @@ class SavedModelPredictorBase(AbstractPredictor):
     """Loading and introspection over one export version."""
 
     def __init__(self, saved_model_path: str,
-                 device: Union[str, torch.device] = DEFAULT_DEVICE):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE,
+                 quant_regime: Optional[str] = None):
         self._saved_model_path = saved_model_path
         self._device = resolve_device(device)
+        # The serving regime; None reads T2R_SERVE_QUANT at restore.
+        self._quant_regime = quant_regime
         self._loaded = None
         self._predict_fn: Optional[Callable] = None
 
@@ -111,7 +114,8 @@ class SavedModelPredictorBase(AbstractPredictor):
         path = _resolve_export_dir(self._saved_model_path)
         if path is None:
             return False
-        loaded = ExportedModel(path, device=self._device)
+        loaded = ExportedModel(path, device=self._device,
+                               quant_regime=self._quant_regime)
         self._predict_fn = self._build_predict_fn(loaded)
         self._loaded = loaded
         return True
@@ -148,17 +152,30 @@ class SavedModelPredictorBase(AbstractPredictor):
     def model_path(self) -> Optional[str]:
         return None if self._loaded is None else self._loaded.export_dir
 
+    @property
+    def quant_regime(self) -> str:
+        """The loaded version's serving regime ('none' before restore)."""
+        return getattr(self._loaded, "quant_regime", "none") if self._loaded else "none"
+
 
 class SavedModelCodePredictor(SavedModelPredictorBase):
     """Model-object serving: the export's variables in `t2r_model`'s
     network."""
 
     def __init__(self, saved_model_path: str, t2r_model,
-                 device: Union[str, torch.device] = DEFAULT_DEVICE):
-        super().__init__(saved_model_path, device=device)
+                 device: Union[str, torch.device] = DEFAULT_DEVICE,
+                 quant_regime: Optional[str] = None):
+        super().__init__(saved_model_path, device=device, quant_regime=quant_regime)
         self._t2r_model = t2r_model
 
     def _build_predict_fn(self, loaded: ExportedModel) -> Callable:
+        if loaded.quant_regime != "none":
+            # Model code serves the f32 variables: it cannot honor a regime.
+            raise ValueError(
+                f"SavedModelCodePredictor serves fp32 model code and cannot "
+                f"honor quant regime {loaded.quant_regime!r}; serve the "
+                "export's quantized program with ExportedSavedModelPredictor or "
+                "SavedModelSignaturePredictor, or set T2R_SERVE_QUANT=none.")
         predict_fn, _ = build_model_code_serving_fn(
             self._t2r_model, loaded, device=self._device
         )

@@ -230,11 +230,16 @@ class Grasping44(nn.Module):
             net = F.relu(getattr(self, f"bn_fc{i}")(net, is_training))
 
         # The logit head computes and emits (at least) float32, under any
-        # autocast.
+        # autocast (its parameters are float32: autocast casts none). It is
+        # called as a module, so a serving export can lower it as the JAX
+        # package's Dense. Outside autocast there is no region to leave (an
+        # exported program would carry it as a subgraph).
         head = torch.promote_types(net.dtype, torch.float32)
-        with torch.autocast(device_type=net.device.type, enabled=False):
-            logits = F.linear(net.to(head), self.logit.weight.to(head),
-                              self.logit.bias.to(head))
+        if torch.is_autocast_enabled(net.device.type):
+            with torch.autocast(device_type=net.device.type, enabled=False):
+                logits = self.logit(net.to(head))
+        else:
+            logits = self.logit(net.to(head))
         end_points["logits"] = logits
         predictions = (torch.softmax(logits, dim=-1) if softmax
                        else torch.sigmoid(logits))

@@ -465,6 +465,24 @@ class PolicyServer:
         snap["max_queue"] = self._max_queue
         snap["max_wait_ms"] = self._max_wait_s * 1e3
         snap["model_version"] = self._predictor.model_version
+        # The loaded version's serving regime, so a fleet can verify a mixed
+        # rollout replica by replica: its native layers and attention, its
+        # calibration mode and the reduce audit of its program.
+        regime = getattr(self._predictor, "quant_regime", None)
+        if regime is not None:
+            snap["serve_quant"] = regime
+            if regime != "none":
+                snap["serve_quant_native_layers"] = list(
+                    getattr(self._predictor, "native_dot_layers", ()) or ())
+                attention = getattr(self._predictor, "native_attention", ()) or ()
+                if attention:
+                    snap["serve_quant_native_attention"] = list(attention)
+                calib = getattr(self._predictor, "calib_mode", None)
+                if calib is not None:
+                    snap["serve_quant_calib"] = calib
+                audit = getattr(self._predictor, "quant_reduce_audit", None)
+                if audit is not None:
+                    snap["serve_quant_reduce_audit"] = dict(audit)
         snap["warmup_source"] = self._warmup_source
         snap["prewarmed"] = dict(list(self._prewarmed.items()))
         return snap

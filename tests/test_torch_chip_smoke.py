@@ -111,9 +111,9 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
-        "build", "kernels", "training", "serving", "critic", "export", "policy",
-        "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper", "maml_export",
-        "stem_s2d", "png", "parallel")
+        "build", "kernels", "training", "serving", "critic", "export", "serve_quant",
+        "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper",
+        "maml_export", "stem_s2d", "png", "parallel")
 
 
 def test_policy_phase(chip_smoke, tmp_path, monkeypatch, capsys):
@@ -170,6 +170,16 @@ def test_export_phase(chip_smoke, tmp_path, monkeypatch, capsys):
 def test_export_needs_training_and_critic(chip_smoke, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr("sys.argv", ["chip_smoke.py", "--phases", "critic,export"])
+    monkeypatch.setattr(chip_smoke, "phase_critic", lambda model_dir: None)
+    assert chip_smoke.main() == 1
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_serve_quant_needs_training_and_critic(chip_smoke, monkeypatch, capsys):
+    """The serve_quant phase exports the training and critic phases'
+    weights: asked for without them, the run fails with no result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr("sys.argv", ["chip_smoke.py", "--phases", "critic,serve_quant"])
     monkeypatch.setattr(chip_smoke, "phase_critic", lambda model_dir: None)
     assert chip_smoke.main() == 1
     assert '"ok"' not in capsys.readouterr().out

@@ -348,8 +348,9 @@ class TestUnportedArguments:
             # ShardingPlan ("A9", the item that ported it), raises
             # TypeError naming the type it wants.
             (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
+            # serve_quant is ported (A10.1); AOT executables are not (A10.2).
             (dict(create_exporters_fn=lambda m: create_default_exporters(
-                m, serve_quant=("int8",))), "A10"),
+                m, aot_executables=True)), "A10"),
         ],
         ids=lambda x: x if isinstance(x, str) else next(iter(x)),
     )
