@@ -412,7 +412,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "training", "serving", "critic", "export",
-          "serve_quant", "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec",
+          "serve_quant", "aot", "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec",
           "vrgripper", "maml_export", "stem_s2d", "png", "parallel")
 # Where the training and serving phases run: always the card when the
 # script runs (a test may point them at the CPU with the plain kernels).
@@ -2332,6 +2332,389 @@ def _serve_quant_bc(model_dir: str) -> int:
         f"{gap:.4e} (limit {sq.DEFAULT_PARITY_TOL['int8']}); T2R_SERVE_QUANT=int8 on a "
         "plain export raises naming the flag")
     torch.cuda.empty_cache()
+    return total
+
+
+# The aot phase: AOTInductor packages of full-width BC (export/aot.py), one
+# a (regime, warmup bucket), built at export and served with no eager
+# program; then the fallbacks and the artifact store. The f32 ladder only:
+# int8's four builds would double the phase's, so its packages are built in
+# the CPU tests (tests/test_torch_aot.py). On the card they diverged from
+# the int8 eager program past the package gate (aot.PACKAGE_PARITY_TOL),
+# which refuses such a regime at export (ROADMAP.md A10.2-int8).
+AOT_REGIMES = ()
+AOT_EPISODES = 2  # a client's episodes each way
+AOT_RECKONED_S = 130
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Sets (or, with None, unsets) environment variables for a block."""
+    saved = {name: os.environ.get(name) for name in values}
+    for name, value in values.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def _aot_boot(root: str, regime: str, requests, expected, aot: bool) -> dict:
+    """Restores the export under `root` in `regime` with T2R_SERVE_AOT on
+    (and T2R_AOT_REQUIRE) or off, prewarms every bucket under PolicyServer
+    and serves CLIENTS clients of AOT_EPISODES episodes each; every reply
+    within SERVE_TOL (abs + rel) of `expected`, B2 exactly NUM_LAYERS a
+    batch and a prewarmed bucket. Returns the restore and serving numbers
+    and the snapshot."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.serving import PolicyServer
+
+    with _env(T2R_SERVE_AOT="1" if aot else "0", T2R_AOT_REQUIRE="1" if aot else None):
+        predictor = ExportedSavedModelPredictor(export_dir=root, device=DEVICE,
+                                                quant_regime=regime)
+        t0 = time.monotonic()
+        if not predictor.restore():
+            raise AssertionError(f"{regime}: no export to restore under {root}")
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+    loaded = predictor.loaded_model
+    with PolicyServer(predictor, max_wait_ms=20, default_deadline_ms=120_000) as server:
+        reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        torch.cuda.synchronize()
+        prewarm_s = time.monotonic() - t0
+        prewarm = read_launches()
+        reset_launches()
+        before = server.snapshot()["counters"]["batches"]
+        t0 = time.monotonic()
+        replies = run_clients(server, requests, lambda i, mine: mine < AOT_EPISODES)
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        snap = server.snapshot()
+    predictor.close()
+    batches = snap["counters"]["batches"] - before
+    served = launches.pop("flash_fwd")
+    if (served != NUM_LAYERS * batches or any(launches.values())
+            or prewarm["flash_fwd"] != NUM_LAYERS * len(BUCKETS)):
+        raise AssertionError(f"{regime} aot={aot}: B2 {served} for {batches} batches, "
+                             f"others {launches}, prewarm {prewarm}")
+    sources = {str(b): "aot" if aot else "compile" for b in BUCKETS}
+    hits = len(BUCKETS) if aot else 0
+    if (snap["prewarm_source"] != sources or snap["counters"]["aot_hits"] != hits
+            or snap["counters"]["aot_misses"] or "aot_fallbacks" in snap
+            or (loaded.fresh_trace_calls != 0) != (not aot)):
+        raise AssertionError(f"{regime} aot={aot}: snapshot {snap}, fresh calls "
+                             f"{loaded.fresh_trace_calls}")
+    worst = 0.0
+    for _, episode, _, _, response in replies:
+        action = response.outputs["action"]
+        want = expected[episode]
+        err = np.abs(action - want)
+        if not np.isfinite(action).all() or (err > SERVE_TOL + SERVE_TOL * np.abs(want)).any():
+            raise AssertionError(f"{regime} aot={aot} reply {err.max()} from the eager "
+                                 "program's")
+        worst = max(worst, float(err.max()))
+    return dict(load_s=load_s, prewarm_s=prewarm_s, episodes=len(replies),
+                rate=len(replies) / wall, p50=p50_ms([r[2] for r in replies]),
+                batches=batches, b2=served + prewarm["flash_fwd"], worst=worst, snap=snap)
+
+
+def _eager_expected(path: str, regime: str, episodes) -> "np.ndarray":
+    """The export's eager program on `episodes` (T2R_SERVE_AOT=0)."""
+    from tensor2robot_tpu_torch.export import ExportedModel
+
+    with _env(T2R_SERVE_AOT="0", T2R_AOT_REQUIRE=None):
+        loaded = ExportedModel(path, device=DEVICE, quant_regime=regime)
+        return loaded.predict(episodes)["action"]
+
+
+def _copy_version(path: str, root: str) -> str:
+    """A private copy of the export version `path` under `root`."""
+    import shutil
+
+    dest = os.path.join(root, os.path.basename(path))
+    shutil.copytree(path, dest)
+    return dest
+
+
+def _edit_metadata(path: str, edit) -> None:
+    meta_path = os.path.join(path, "t2r_metadata.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    edit(meta)
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+
+
+def _aot_fallbacks(model_dir: str, path: str, episodes, expected) -> int:
+    """(c) on copies: a bitflipped bucket file, a forged topology and a
+    transplanted aot/ dir, each a typed, counted fallback whose batches
+    the eager program serves within SERVE_TOL. Returns the B2 launches."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import ExportedModel, list_export_dirs
+    from tensor2robot_tpu_torch.export import aot as aot_lib
+    from tensor2robot_tpu_torch.predictors import ExportedSavedModelPredictor
+    from tensor2robot_tpu_torch.serving import PolicyServer
+
+    def close(got, want, label):
+        err = np.abs(got - want)
+        if not np.isfinite(got).all() or (err > SERVE_TOL + SERVE_TOL * np.abs(want)).any():
+            raise AssertionError(f"{label}: {err.max()} from the eager program")
+        return float(err.max())
+
+    total = 0
+    big = max(BUCKETS)
+    batch = {k: np.concatenate([v] * (big // len(v) + 1))[:big] for k, v in episodes.items()}
+    want_big = np.concatenate([expected] * (big // len(expected) + 1))[:big]
+    with tempfile.TemporaryDirectory(prefix="aot_fallbacks_") as scratch:
+        # A bitflipped package: its bucket falls back, the rest serve.
+        root = os.path.join(scratch, "bitflip")
+        copy = _copy_version(path, root)
+        target = os.path.join(copy, aot_lib.aot_relpath("none", big))
+        with open(target, "r+b") as f:
+            f.seek(os.path.getsize(target) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x10]))
+        predictor = ExportedSavedModelPredictor(export_dir=root, device=DEVICE)
+        with _env(T2R_SERVE_AOT="1", T2R_AOT_REQUIRE=None):
+            predictor.restore()
+        with PolicyServer(predictor, max_wait_ms=20, default_deadline_ms=120_000) as server:
+            reset_launches()
+            server.start()
+            loaded = predictor.loaded_model
+            got = loaded.predict(batch)["action"]
+            launches = read_launches()["flash_fwd"]
+            snap = server.snapshot()
+        predictor.close()
+        if (loaded.aot_fallbacks != {big: "AOTCorrupt"}
+                or snap["aot_fallbacks"] != {str(big): "AOTCorrupt"}
+                or snap["counters"]["aot_misses"] != 1
+                or snap["prewarm_source"][str(big)] != "compile"
+                or loaded.fresh_trace_calls != 2
+                or launches != NUM_LAYERS * (len(BUCKETS) + 1)):
+            raise AssertionError(f"bitflip: {loaded.aot_fallbacks}, {snap}, fresh "
+                                 f"{loaded.fresh_trace_calls}, B2 {launches}")
+        total += launches
+        flip = close(got, want_big, "bitflipped bucket")
+        # A forged topology: every bucket falls back; T2R_AOT_REQUIRE raises.
+        copy = _copy_version(path, os.path.join(scratch, "topology"))
+        _edit_metadata(copy, lambda meta: meta["aot"]["topology"].update(
+            device_name="NVIDIA A100-SXM4-80GB", compute_capability="sm_80"))
+        with _env(T2R_SERVE_AOT="1", T2R_AOT_REQUIRE=None):
+            loaded = ExportedModel(copy, device=DEVICE)
+        if (loaded.aot_executables or loaded.aot_fallbacks
+                != {b: "topology_mismatch" for b in BUCKETS}):
+            raise AssertionError(f"forged topology: {loaded.aot_fallbacks}")
+        reset_launches()
+        topo = close(loaded.predict(batch)["action"], want_big, "forged topology")
+        total += read_launches()["flash_fwd"]
+        with _env(T2R_SERVE_AOT="1", T2R_AOT_REQUIRE="1"):
+            try:
+                ExportedModel(copy, device=DEVICE)
+            except aot_lib.AOTError as err:
+                if "T2R_AOT_REQUIRE" not in str(err):
+                    raise
+            else:
+                raise AssertionError("T2R_AOT_REQUIRE=1 booted a forged topology")
+        # aot/ transplanted (with its declaration) into the step-10 export.
+        step10 = list_export_dirs(os.path.join(model_dir, "export", "latest"))[0]
+        copy = _copy_version(step10, os.path.join(scratch, "transplant"))
+        import shutil
+
+        shutil.copytree(os.path.join(path, aot_lib.AOT_DIR),
+                        os.path.join(copy, aot_lib.AOT_DIR))
+        with open(os.path.join(path, "t2r_metadata.json")) as f:
+            block = json.load(f)["aot"]
+        _edit_metadata(copy, lambda meta: meta.update(aot=block))
+        with _env(T2R_SERVE_AOT="1", T2R_AOT_REQUIRE=None):
+            loaded = ExportedModel(copy, device=DEVICE)
+            reset_launches()
+            got = loaded.predict(batch)["action"]
+            total += read_launches()["flash_fwd"]
+        if (loaded.aot_executables or loaded.fresh_trace_calls != 1
+                or loaded.aot_fallbacks != {b: "AOTKeyMismatch" for b in BUCKETS}):
+            raise AssertionError(f"transplant: {loaded.aot_fallbacks}")
+        reset_launches()
+        transplant = close(got, _eager_expected(step10, "none", batch), "transplant")
+        total += read_launches()["flash_fwd"]
+        torch.cuda.empty_cache()
+    log(f"[aot] (c) fallbacks on copies, {card_line()}: a bitflipped bucket-{big} "
+        f"package AOTCorrupt, counted (aot_misses 1), its batch served by the eager "
+        f"program within {flip:.3e} of the eager reference; a forged topology "
+        f"(sm_80) every bucket topology_mismatch, served within {topo:.3e}, and "
+        f"T2R_AOT_REQUIRE=1 raises AOTError; aot/ transplanted into the step-"
+        f"{SAVE_EVERY} export every bucket AOTKeyMismatch (fingerprint), never served, "
+        f"that export's eager program within {transplant:.3e}")
+    return total
+
+
+def _aot_store(path: str, episodes, expected) -> int:
+    """(d) the export as a dense base in an ArtifactStore, booted by
+    exported_policy_loader with every bucket "aot", one batch a bucket
+    served within SERVE_TOL. Returns the B2 launches."""
+    import numpy as np
+
+    from tensor2robot_tpu_torch.export.artifact_store import ArtifactStore
+    from tensor2robot_tpu_torch.serving.server import exported_policy_loader
+
+    with tempfile.TemporaryDirectory(prefix="aot_store_") as scratch:
+        store = ArtifactStore(os.path.join(scratch, "store"))
+        t0 = time.monotonic()
+        manifest = store.put(path, "bc")
+        put_s = time.monotonic() - t0
+        loader, catalog = exported_policy_loader(
+            store.root, work_dir=os.path.join(scratch, "work"), max_wait_ms=20,
+            device=DEVICE)
+        with _env(T2R_SERVE_AOT="1", T2R_AOT_REQUIRE="1"):
+            reset_launches()
+            t0 = time.monotonic()
+            server = loader("bc")
+            boot_s = time.monotonic() - t0
+        try:
+            prewarm = read_launches()["flash_fwd"]
+            worst, batches = 0.0, 0
+            requests = [{k: v[i] for k, v in episodes.items()}
+                        for i in range(len(expected))]
+            for bucket in BUCKETS:
+                before = server.snapshot()["counters"]["batches"]
+                reset_launches()
+                futures = [server.submit(requests[i % len(requests)])
+                           for i in range(bucket)]
+                for i, future in enumerate(futures):
+                    action = future.result(300).outputs["action"]
+                    want = expected[i % len(requests)]
+                    err = np.abs(action - want)
+                    if (err > SERVE_TOL + SERVE_TOL * np.abs(want)).any():
+                        raise AssertionError(f"store bucket {bucket}: {err.max()}")
+                    worst = max(worst, float(err.max()))
+                launches = read_launches()["flash_fwd"]
+                formed = server.snapshot()["counters"]["batches"] - before
+                if launches != NUM_LAYERS * formed:
+                    raise AssertionError(f"store bucket {bucket}: B2 {launches} for "
+                                         f"{formed} batches")
+                batches += formed
+                prewarm += launches
+            snap = server.snapshot()
+        finally:
+            server.stop()
+        if (catalog != ["bc"] or snap["prewarm_source"] != {str(b): "aot" for b in BUCKETS}
+                or manifest["payload"]["kind"] != "dense"
+                or server.mem_bytes != manifest["payload"]["weights_nbytes"]):
+            raise AssertionError(f"store: {catalog}, {snap}, {manifest['payload']}")
+    log(f"[aot] (d) the export put into an ArtifactStore as a dense base in "
+        f"{put_s:.2f}s ({manifest['export_nbytes'] / 1e6:.1f} MB in "
+        f"{len(manifest['files'])} files); exported_policy_loader materialized and "
+        f"booted it with T2R_AOT_REQUIRE=1 in {boot_s:.2f}s on {card_line()}: every "
+        f"bucket aot; one batch a bucket ({batches} batches) within {worst:.3e} of the "
+        f"eager program (limit {SERVE_TOL} abs + rel)")
+    return prewarm
+
+
+def phase_aot(model_dir: str) -> int:
+    """AOTInductor packages (export/aot.py) of the training phase's step-20
+    BC weights: (a) exported with a package per regime of AOT_REGIMES and
+    f32 and per warmup bucket, built side by side; (b) booted strict (T2R_SERVE_AOT=1,
+    T2R_AOT_REQUIRE=1) under PolicyServer, every bucket "aot" and no
+    eager call, served within SERVE_TOL of the same export's eager
+    program, B2 exactly NUM_LAYERS a batch from inside the packages, and
+    the same served eagerly for its numbers; (c) fallbacks on copies; (d)
+    the artifact store. Returns the B2 launches."""
+    import numpy as np
+    import torch
+
+    from tensor2robot_tpu_torch.export import ExportedModel, LatestExporter
+    from tensor2robot_tpu_torch.export import aot as aot_lib
+    from tensor2robot_tpu_torch.export.saved_model import read_metadata
+    from tensor2robot_tpu_torch.specs import make_random_numpy
+    from tensor2robot_tpu_torch.train.train_eval import Trainer, restore_or_init_state
+
+    t_phase = time.monotonic()
+    # (a) the export, its packages built in spawned processes.
+    trainer = Trainer(full_width_model(True), device=DEVICE)
+    state = restore_or_init_state(model_dir, trainer)
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"{model_dir} state at step {state.step}")
+    reset_launches()
+    t0 = time.monotonic()
+    exporter = LatestExporter("aot", warmup_batch_sizes=BUCKETS, aot_executables=True,
+                              serve_quant=AOT_REGIMES)
+    path = exporter.maybe_export(step=TRAIN_STEPS, state=state, eval_metrics={},
+                                 compiled=trainer, model_dir=model_dir)
+    torch.cuda.synchronize()
+    export_s = time.monotonic() - t0
+    total = read_launches()["flash_fwd"]
+    del state, trainer
+    torch.cuda.empty_cache()
+    aot = read_metadata(path)["aot"]
+    regimes = ("none",) + AOT_REGIMES
+    if (aot.get("errors") or aot["topology"] != aot_lib.device_topology(DEVICE)
+            or aot["buckets"] != {r: list(BUCKETS) for r in regimes}):
+        raise AssertionError(f"aot block {aot}")
+    aot_dir = os.path.join(path, aot_lib.AOT_DIR)
+    aot_mb = sum(os.path.getsize(os.path.join(aot_dir, f))
+                 for f in os.listdir(aot_dir)) / 1e6
+    builds = "; ".join(
+        f"{regime} " + ", ".join(
+            f"b{b} {ms / 1e3:.1f}s (package vs program {aot['parity'][regime][b]:.2e})"
+            for b, ms in aot["compile_ms"][regime].items())
+        for regime in regimes)
+    log(f"[aot] (a) full-width BC (step {TRAIN_STEPS}, flash heads) exported with "
+        f"AOTInductor packages on {card_line()} in {export_s:.1f}s (gates, programs "
+        f"and {len(regimes) * len(BUCKETS)} package builds, at most "
+        f"{max(1, (os.cpu_count() or 2) - 1)} at once; the AOT pass "
+        f"{aot['wall_ms'] / 1e3:.1f}s with its loads and checks): aot block format "
+        f"{aot['format_version']}, topology {aot['topology']}, buckets "
+        f"{aot['buckets']}, fingerprints "
+        f"{ {r: f[:12] for r, f in aot['fingerprint'].items()} }; build s per bucket "
+        f"(export + compile in its process; the package's gate against its program, "
+        f"limit {aot_lib.PACKAGE_PARITY_TOL} abs + rel): {builds}; aot/ {aot_mb:.1f} MB")
+
+    # (b) strict AOT boots against the same export's eager programs.
+    root = os.path.dirname(path)
+    with _env(T2R_SERVE_AOT="0", T2R_AOT_REQUIRE=None):
+        feature_spec = ExportedModel(path, device=DEVICE).feature_spec
+    episodes = make_random_numpy(feature_spec, batch_size=DISTINCT_EPISODES, seed=13)
+    episodes = dict(episodes.items())
+    requests = [{k: v[i] for k, v in episodes.items()} for i in range(DISTINCT_EPISODES)]
+    for regime in ("none",) + AOT_REGIMES:
+        expected = _eager_expected(path, regime, episodes)
+        runs = {aot_on: _aot_boot(root, regime, requests, expected, aot_on)
+                for aot_on in (True, False)}
+        total += sum(run["b2"] for run in runs.values())
+        hit, eager = runs[True], runs[False]
+        log(f"[aot] (b) {regime} on {card_line()}: strict AOT boot (T2R_SERVE_AOT=1, "
+            f"T2R_AOT_REQUIRE=1) load {hit['load_s']:.2f}s, prewarm of {BUCKETS} "
+            f"{hit['prewarm_s']:.2f}s, every bucket aot (aot_hits "
+            f"{hit['snap']['counters']['aot_hits']}), fresh_trace_calls 0; "
+            f"{hit['episodes']} episodes ({CLIENTS} clients x {AOT_EPISODES}) within "
+            f"{hit['worst']:.3e} of the eager program (limit {SERVE_TOL} abs + rel), "
+            f"{hit['rate']:.3f} episodes/s, client p50 {hit['p50']:.1f} ms, B2 "
+            f"{hit['b2']} for {hit['batches']} batches + the prewarm; eager boot "
+            f"(T2R_SERVE_AOT=0) load {eager['load_s']:.2f}s, prewarm "
+            f"{eager['prewarm_s']:.2f}s, {eager['rate']:.3f} episodes/s, client p50 "
+            f"{eager['p50']:.1f} ms")
+        torch.cuda.empty_cache()
+
+    # (c) fallbacks on copies, (d) the store.
+    expected = _eager_expected(path, "none", episodes)
+    total += _aot_fallbacks(model_dir, path, episodes, expected)
+    total += _aot_store(path, episodes, expected)
+    torch.cuda.empty_cache()
+    log(f"[aot] phase {time.monotonic() - t_phase:.1f}s (reckoned {AOT_RECKONED_S} s)")
     return total
 
 
@@ -8517,6 +8900,21 @@ def timed_phase(name: str, fn, *args):
     return out
 
 
+def share_bytecode() -> None:
+    """One bytecode cache for the run and every process it starts, in
+    build/pycache (gitignored), when the port lies beside this script.
+    Where bytecode writing is off (PYTHONDONTWRITEBYTECODE) every process
+    compiles each module it imports from source again: torch, Inductor and the port are thousands of modules, and
+    the run starts dozens of processes (build workers, binaries, ranks)."""
+    if not os.path.isdir(os.path.join(ROOT, "tensor2robot_tpu_torch")):
+        return
+    prefix = os.path.join(ROOT, "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -8577,6 +8975,10 @@ def main() -> int:
                         "serve_quant exports the training and critic phases' weights")
                 launches["flash_fwd"] += timed_phase("serve_quant", phase_serve_quant,
                                                      model_dir)
+            if "aot" in phases:
+                if "training" not in phases:
+                    raise ValueError("aot exports the training phase's weights")
+                launches["flash_fwd"] += timed_phase("aot", phase_aot, model_dir)
             if "policy" in phases:
                 timed_phase("policy", phase_policy, model_dir)
             if "data" in phases:
@@ -8632,4 +9034,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    share_bytecode()
     sys.exit(main())

@@ -1,6 +1,12 @@
 """Export layer: the exported-model directory, its serving interfaces and
 the train-time export policies."""
 
+from tensor2robot_tpu_torch.export.aot import (
+    AOTCorrupt,
+    AOTError,
+    AOTKeyMismatch,
+    device_topology,
+)
 from tensor2robot_tpu_torch.export.export_generators import (
     AbstractExportGenerator,
     DefaultExportGenerator,

@@ -1,7 +1,6 @@
 """Train-time exporters: Latest and Best export policies and version GC.
 
-Port of tensor2robot_tpu/export/exporters.py (without its AOT
-executables, ROADMAP.md A10). LatestExporter writes every eval's weights;
+Port of tensor2robot_tpu/export/exporters.py. LatestExporter writes every eval's weights;
 BestExporter gates on a metric compare fn and persists its best value in
 `best_metrics.json`, so a resumed run keeps the gate. Old versions are
 collected oldest first. Exports land under
@@ -14,6 +13,11 @@ activation clips captured from the f32 forward over the same corpus
 (T2R_SERVE_CALIB), each regime's native contractions triaged against the
 f32 outputs (a regime that misses its tolerance natively is demoted
 wholesale to the dequant path) and then gated in save_exported_model.
+
+With `aot_executables` (None reads T2R_AOT_EXPORT at export time) each
+export also carries one AOTInductor package per regime and warmup bucket
+(export/aot.py); an explicit request needs the warmup ladder and the
+programs, checked here at config time as the JAX package does.
 
 The trainer calls `exporter.maybe_export(step=, state=, eval_metrics=,
 compiled=, model_dir=)` after each evaluation; `compiled` is the
@@ -132,10 +136,6 @@ class Exporter:
         name may be given, both only when they agree. The serve-quant
         keywords are the JAX package's and are checked here, at config
         time."""
-        if aot_executables:
-            raise NotImplementedError(
-                "aot_executables are not ported yet (ROADMAP.md A10)"
-            )
         if (export_program is not None and serialize_stablehlo is not None
                 and bool(export_program) != bool(serialize_stablehlo)):
             raise ValueError(
@@ -175,6 +175,20 @@ class Exporter:
         if serve_calib is not None:
             sq.resolve_calib_mode(serve_calib)
         self._serve_calib = serve_calib
+        # AOT packages per warmup bucket (export/aot.py): None defers to
+        # T2R_AOT_EXPORT at export time. An explicit request without a
+        # ladder or without programs has nothing to compile and fails here.
+        if aot_executables and not self._warmup_batch_sizes:
+            raise ValueError(
+                "aot_executables=True needs warmup_batch_sizes: the "
+                "warmup ladder is the set of batch shapes the AOT "
+                "packages are compiled for.")
+        if aot_executables and not self._export_program:
+            raise ValueError(
+                "aot_executables=True requires serialize_stablehlo=True "
+                "(export_program): each package is compiled from the saved "
+                "serving program.")
+        self._aot_executables = aot_executables
 
     def export_root(self, model_dir: str) -> str:
         return os.path.join(model_dir, "export", self.name)
@@ -238,6 +252,7 @@ class Exporter:
             serve_quant_fns=serve_quant_fns,
             quant_parity_tol=self._quant_parity_tol,
             calibration_batches=warmup_batches,
+            aot_executables=self._aot_executables,
         )
         if warmup_batches:
             generator.write_warmup_requests(warmup_batches, path)

@@ -1,7 +1,6 @@
 """The export directory: what a learner publishes and a robot serves.
 
-Port of tensor2robot_tpu/export/saved_model.py (without its AOT
-executables, ROADMAP.md A10), in the port's own format:
+Port of tensor2robot_tpu/export/saved_model.py, in the port's own format:
 
     <export_root>/<unix_seconds>/
         t2r_metadata.json              global step, exporter, eval metrics,
@@ -23,6 +22,9 @@ executables, ROADMAP.md A10), in the port's own format:
         program/predict_fn_<regime>.pt2  its program: (payload, features)
                                        -> outputs, the batch dim dynamic,
                                        no weights inside
+        aot/exec_<regime>_b<n>.bin     (aot_executables) one AOTInductor
+                                       package a (regime, warmup bucket),
+                                       in export/aot.py's keyed envelope
 
 A version is written under `temp-<ts>` and renamed, so pollers never see
 a partial export. The program is best-effort as in the JAX package: a
@@ -55,10 +57,25 @@ ladder, and each graph is saved as a program with no autograd left in it.
 A request is served by the program of its batch, or padded up to the
 next one (rows are independent: a MAML task adapts on its own data) and
 cut back.
+
+With `aot_executables` (None reads T2R_AOT_EXPORT, 0 by default) every
+program is also compiled per warmup bucket into an AOTInductor package
+(export/aot.py): the f32 program, each regime's program, and each static
+program at its own batch. `ExportedModel` serves a bucket from its
+package when T2R_SERVE_AOT is on and the package's integrity, artifact
+fingerprint, device topology and torch/CUDA versions all match; every
+other batch runs the exported program (`fresh_trace_calls` counts them),
+and every declared bucket that could not load is a logged fallback with
+its reason in `aot_fallbacks`. T2R_AOT_REQUIRE=1 makes such a restore
+raise AOTError. The metadata's `flax_variables` table maps each entry of
+variables.pt to its JAX flat path and layout, so tools without model code
+(export/artifact_store.py) see the weights as the JAX package does.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import logging
 import os
@@ -71,6 +88,7 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import flags
+from tensor2robot_tpu_torch.export import aot as aot_lib
 from tensor2robot_tpu_torch.export import quantization
 from tensor2robot_tpu_torch.export import serve_quant as sq
 from tensor2robot_tpu_torch.specs import (
@@ -255,10 +273,11 @@ def export_quant_program(
 
 def run_batch(module: torch.nn.Module, batch: Mapping[str, Any], device,
                payload=None) -> Dict[str, np.ndarray]:
-    """One eager call of a serving module on a host batch; host outputs."""
+    """One eager call of a serving module on a host batch; host outputs.
+    Under TRACE_LOCK: exports in other threads may be tracing."""
     inputs = {key: torch.as_tensor(np.asarray(value)).to(device)
               for key, value in batch.items()}
-    with torch.no_grad():
+    with TRACE_LOCK, torch.no_grad():
         out = module(inputs) if payload is None else module(payload, inputs)
     return {key: value.detach().cpu().numpy() for key, value in out.items()}
 
@@ -363,6 +382,7 @@ def save_exported_model(
     serve_quant_fns: Optional[Mapping[str, torch.nn.Module]] = None,
     quant_parity_tol: Optional[Mapping[str, float]] = None,
     calibration_batches: Optional[Sequence[Mapping[str, Any]]] = None,
+    aot_executables: Optional[bool] = None,
 ) -> str:
     """Writes one export version; returns its final path.
 
@@ -395,7 +415,11 @@ def save_exported_model(
       quant_parity_tol: per-regime gate overrides of
         serve_quant.DEFAULT_PARITY_TOL.
       calibration_batches: the warmup corpus (flat numpy batches) the
-        gates replay; required with serve_quant_fns.
+        gates replay; required with serve_quant_fns. With AOT packages
+        each batch is a bucket.
+      aot_executables: compile an AOTInductor package per (regime,
+        calibration batch) into aot/ (export/aot.py); None reads
+        T2R_AOT_EXPORT (0 by default).
     """
     quantization.check_bits(quantize_bits)
     in_module = getattr(serving_module, "quantized_variables", None)
@@ -470,6 +494,23 @@ def save_exported_model(
                            example_features if export_program_file else None,
                            max_batch, baseline)
 
+    if aot_executables is None:
+        aot_executables = flags.get_bool("T2R_AOT_EXPORT")
+    quant_programs = sorted(
+        regime for regime, ok in ((serve_quant_meta or {}).get("stablehlo") or {}).items()
+        if ok)
+    aot_meta = None
+    if aot_executables and calibration_batches and (program_ok or quant_programs):
+        # Every saved program gets its packages: a failed f32 program must
+        # not drop the regimes' (and vice versa); a skipped regime is
+        # recorded under the block's errors.
+        device = (module_device(serving_module) if serving_module is not None
+                  else next(iter(serve_quant_fns.values())).device)
+        aot_meta = _export_aot_executables(
+            tmp_path, feature_spec, program_ok=program_ok, static=static,
+            quant_programs=quant_programs, calibration_batches=calibration_batches,
+            device=device)
+
     meta = {
         "global_step": int(global_step),
         "timestamp": int(final_name),
@@ -482,14 +523,132 @@ def save_exported_model(
         "format_version": FORMAT_VERSION,
         "torch_version": torch.__version__,
     }
+    table = _flax_table(serving_module, stored)
+    if table:
+        meta["flax_variables"] = table
     if serve_quant_meta is not None:
         meta["serve_quant"] = serve_quant_meta
+    if aot_meta is not None:
+        meta["aot"] = aot_meta
     if metadata:
         meta.update(metadata)
     with open(os.path.join(tmp_path, METADATA_FILENAME), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
     os.replace(tmp_path, final_path)
     return final_path
+
+
+def _flax_table(serving_module, stored) -> Dict[str, List[Any]]:
+    """{state-dict name: [JAX flat path, dims]} of every tensor entry of
+    variables.pt the serving network names (the torch leaf is its flax
+    leaf permuted by dims), or {} without a network that maps."""
+    network = getattr(serving_module, "network", None)
+    if not isinstance(network, torch.nn.Module):
+        return {}
+    try:
+        entries = sq.variable_entries(network)
+    except Exception:  # noqa: BLE001 — a network the flax view cannot map
+        # leaves the table out; readers fall back to the torch layout.
+        return {}
+    return {name: [path, [int(d) for d in dims]] for name, path, dims in entries
+            if isinstance(stored.get(name), torch.Tensor)}
+
+
+def serving_inputs(feature_spec: TensorSpecStruct) -> List[Any]:
+    """(key, numpy dtype) of every input a program takes, in call order."""
+    return [
+        (key, numpy_dtype(spec.dtype))
+        for key, spec in flatten_spec_structure(feature_spec).items()
+        if isinstance(spec, ExtendedTensorSpec) and not spec.is_optional
+    ]
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _export_aot_executables(tmp_path: str, feature_spec: TensorSpecStruct, *,
+                            program_ok: bool, static: Optional[List[int]],
+                            quant_programs: Sequence[str],
+                            calibration_batches: Sequence[Mapping[str, Any]],
+                            device: torch.device) -> Optional[Dict[str, Any]]:
+    """Writes one AOTInductor package a (regime, warmup bucket) into
+    `<tmp>/aot/`, a regime's buckets built side by side; returns the
+    metadata block (None when nothing was attempted).
+
+    A static program set's buckets are its program batches that have a
+    warmup batch. A regime one of whose buckets fails to build, load or
+    agree with its program (aot.build_bucket_executables) writes no
+    package and records why under `errors`; the export still lands."""
+    start = time.monotonic()
+    inputs = serving_inputs(feature_spec)
+    # Each bucket's call as ExportedModel.predict makes it: the spec's
+    # inputs in its order, cast to its dtypes.
+    batches = [{key: np.asarray(batch[key], dtype) for key, dtype in inputs}
+               for batch in calibration_batches]
+    meta: Dict[str, Any] = {
+        "format_version": aot_lib.AOT_FORMAT_VERSION,
+        "topology": aot_lib.device_topology(device),
+        "fingerprint": {},
+        "buckets": {},
+        "nbytes": {},
+    }
+    regimes: Dict[str, Dict[str, Any]] = {}
+    if program_ok and static:
+        programs = {b: _read(static_program_path(tmp_path, b)) for b in static}
+        regimes["none"] = dict(
+            programs=programs, prefix=(),
+            digests=[aot_lib.digest(programs[b]) for b in sorted(programs)],
+            batches=[b for b in batches if aot_lib.bucket_of(b) in programs])
+    elif program_ok:
+        program = _read(program_path(tmp_path))
+        regimes["none"] = dict(programs=program, prefix=(),
+                               digests=[aot_lib.digest(program)], batches=batches)
+    else:
+        meta.setdefault("errors", {})["none"] = (
+            "no serving program (the program export failed; see program_error)")
+    for regime in quant_programs:
+        program = _read(os.path.join(tmp_path, quant_program_relpath(regime)))
+        payload = _read(os.path.join(tmp_path, quant_payload_relpath(regime)))
+        regimes[regime] = dict(
+            programs=program,
+            prefix=(torch.load(io.BytesIO(payload), map_location="cpu", weights_only=True),),
+            digests=[aot_lib.digest(program), aot_lib.digest(payload)], batches=batches)
+    for regime, entry in regimes.items():
+        fingerprint = aot_lib.artifact_fingerprint(regime, entry["digests"])
+        compile_ms: Dict[int, float] = {}
+        parity: Dict[int, float] = {}
+        try:
+            if not entry["batches"]:
+                raise aot_lib.AOTError("no warmup batch matches a program batch")
+            blobs = aot_lib.build_bucket_executables(
+                entry["programs"], entry["batches"], regime, fingerprint,
+                prefix_args=entry["prefix"], timings_ms=compile_ms, parity=parity,
+                device=device)
+        except Exception as err:  # noqa: BLE001 — best effort, recorded;
+            # the restore ladder handles the absence.
+            logging.warning("export: AOT packages for regime %r skipped (%s: %s)",
+                            regime, type(err).__name__, err)
+            meta.setdefault("errors", {})[regime] = f"{type(err).__name__}: {err}"
+            continue
+        os.makedirs(os.path.join(tmp_path, aot_lib.AOT_DIR), exist_ok=True)
+        for bucket, blob in sorted(blobs.items()):
+            with open(os.path.join(tmp_path, aot_lib.aot_relpath(regime, bucket)), "wb") as f:
+                f.write(blob)
+        meta["fingerprint"][regime] = fingerprint
+        meta["buckets"][regime] = sorted(blobs)
+        meta["nbytes"][regime] = int(sum(len(b) for b in blobs.values()))
+        # The builds overlap, so a regime's publish cost is ~ the max.
+        meta.setdefault("compile_ms", {})[regime] = {
+            str(bucket): compile_ms[bucket] for bucket in sorted(compile_ms)}
+        # Port-only: each package's largest |package - program| / (1 +
+        # |program|) on its warmup batch (aot.PACKAGE_PARITY_TOL).
+        meta.setdefault("parity", {})[regime] = {
+            str(bucket): parity[bucket] for bucket in sorted(parity)}
+    # Port-only: the pass's wall clock, builds, loads and checks included.
+    meta["wall_ms"] = round((time.monotonic() - start) * 1e3, 3)
+    return meta
 
 
 def _write_serve_quant(tmp_path, serve_quant_fns, meta, example_features,
@@ -533,7 +692,15 @@ class ExportedModel:
     "fp8_e5m2" load that regime's program and payload (the payload onto
     `device` once); None reads T2R_SERVE_QUANT; "none" is the f32 loader.
     A regime the export was not made with raises, naming the flag: a fleet
-    never falls back to f32 silently."""
+    never falls back to f32 silently.
+
+    AOT restore (T2R_SERVE_AOT, on by default): each bucket the metadata's
+    `aot` block declares for the regime is loaded from its package in
+    aot/ after the integrity, fingerprint, topology and version checks
+    (export/aot.py). A bucket that cannot load falls back LOUDLY to the
+    exported program: logged, its reason in `aot_fallbacks`, counted by
+    the policy server. With the flag off (or no aot/) this class serves
+    as it did before the packages existed."""
 
     def __init__(self, export_dir: str, device: Union[str, torch.device] = DEFAULT_DEVICE,
                  quant_regime: Optional[str] = None):
@@ -545,16 +712,14 @@ class ExportedModel:
         self.feature_spec, self.label_spec, self.global_step = read_t2r_assets(
             export_dir
         )
-        self._inputs = [
-            (key, numpy_dtype(spec.dtype))
-            for key, spec in flatten_spec_structure(self.feature_spec).items()
-            if isinstance(spec, ExtendedTensorSpec) and not spec.is_optional
-        ]
+        self._inputs = serving_inputs(self.feature_spec)
         if quant_regime is None:
             quant_regime = flags.get_enum("T2R_SERVE_QUANT")
         self.quant_regime = quant_regime
         #: {None: the dynamic-batch program} or {batch: static program}.
         self._modules: Dict[Optional[int], torch.nn.Module] = {}
+        #: sha256 of each loaded program file, keyed as _modules.
+        self._program_digests: Dict[Optional[int], bytes] = {}
         #: The regime's payload on `device` (None for "none").
         self._payload = None
         if quant_regime != "none":
@@ -575,18 +740,123 @@ class ExportedModel:
             batches = self.metadata.get("program_batches")
             paths = ({None: program_path(export_dir)} if not batches else
                      {int(b): static_program_path(export_dir, b) for b in batches})
-            self._modules = {b: self._load_program(path) for b, path in paths.items()}
+            self._modules = {b: self._load_program(path, b) for b, path in paths.items()}
+        # -- AOT packages (tier 1 of the restore ladder) ----------------------
+        self.aot_enabled = flags.get_bool("T2R_SERVE_AOT")
+        self.aot_executables: Dict[int, Any] = {}
+        self.aot_headers: Dict[int, Dict[str, Any]] = {}
+        self.aot_fallbacks: Dict[int, str] = {}
+        #: Batches the exported program ran because their bucket had no
+        #: package: an AOT-hit boot finishes its prewarm with 0 here.
+        self.fresh_trace_calls = 0
+        aot_meta = self.metadata.get("aot") or {}
+        declared = (aot_meta.get("buckets") or {}).get(self.quant_regime) or []
+        self.aot_declared = tuple(sorted(int(b) for b in declared))
+        if self.aot_enabled and self.aot_declared and self._modules:
+            self._load_aot(aot_meta)
+        if flags.get_bool("T2R_AOT_REQUIRE"):
+            if not self.aot_enabled:
+                # A contradictory flag pair names itself, not the artifact.
+                raise aot_lib.AOTError(
+                    "T2R_AOT_REQUIRE=1 conflicts with T2R_SERVE_AOT=0: "
+                    "strict AOT boots cannot be required while AOT "
+                    "restore is disabled; unset one of the two flags.")
+            if not self.aot_covered:
+                raise aot_lib.AOTError(
+                    f"T2R_AOT_REQUIRE=1 but export {export_dir} cannot "
+                    f"serve every warmup bucket from AOT packages for "
+                    f"regime {self.quant_regime!r}: "
+                    f"declared={list(self.aot_declared)}, "
+                    f"loaded={sorted(self.aot_executables)}, "
+                    f"fallbacks={self.aot_fallbacks}, "
+                    f"warmup={self.metadata.get('warmup_batch_sizes')}")
 
-    def _load_program(self, path: str) -> torch.nn.Module:
+    def _load_program(self, path: str, key: Optional[int] = None) -> torch.nn.Module:
         # Registers t2r_torch::flash_fwd, which the program may call.
         import torch.export.passes
 
         from tensor2robot_tpu_torch.ops import flash_attention  # noqa: F401
 
-        program = torch.export.load(path)
+        data = _read(path)
+        # The program's digest feeds the AOT fingerprint check.
+        self._program_digests[key] = hashlib.sha256(data).digest()
+        program = aot_lib.load_exported(io.BytesIO(data))
         if self.metadata.get("program_device") != str(self.device):
             program = torch.export.passes.move_to_device_pass(program, self.device)
         return program.module()
+
+    def _expected_aot_fingerprint(self) -> str:
+        """Recomputed from THIS artifact's own files: a transplanted or
+        stale aot/ can never pass it."""
+        digests = [self._program_digests[key] for key in sorted(
+            self._program_digests, key=lambda k: -1 if k is None else k)]
+        if self.quant_regime != "none":
+            digests.append(hashlib.sha256(_read(os.path.join(
+                self.export_dir, quant_payload_relpath(self.quant_regime)))).digest())
+        return aot_lib.artifact_fingerprint(self.quant_regime, digests)
+
+    def _load_aot(self, aot_meta: Mapping[str, Any]) -> None:
+        topology = aot_lib.device_topology(self.device)
+        recorded = aot_meta.get("topology") or {}
+        if dict(recorded) != topology:
+            # Built for another device: one loud line for the artifact,
+            # every bucket counted as a fallback, nothing loaded.
+            logging.warning(
+                "AOT restore: export %s was compiled for topology %s but "
+                "this host is %s; falling back to the exported program for "
+                "all %d buckets", self.export_dir, recorded, topology,
+                len(self.aot_declared))
+            for bucket in self.aot_declared:
+                self.aot_fallbacks[bucket] = "topology_mismatch"
+            return
+        expected = self._expected_aot_fingerprint()
+        for bucket in self.aot_declared:
+            path = os.path.join(self.export_dir, aot_lib.aot_relpath(self.quant_regime, bucket))
+            try:
+                blob = _read(path)
+            except OSError as err:
+                logging.warning("AOT restore: bucket %d package unreadable (%s); "
+                                "falling back", bucket, err)
+                self.aot_fallbacks[bucket] = "missing"
+                continue
+            try:
+                runner, header = aot_lib.load_executable(
+                    blob, expect_fingerprint=expected, expect_topology=topology)
+                if (int(header.get("bucket", -1)) != bucket
+                        or header.get("regime") != self.quant_regime):
+                    raise aot_lib.AOTKeyMismatch(
+                        f"file is keyed ({header.get('regime')!r}, "
+                        f"{header.get('bucket')}), wanted "
+                        f"({self.quant_regime!r}, {bucket})")
+            except aot_lib.AOTError as err:
+                logging.warning("AOT restore: bucket %d falls back to the exported "
+                                "program (%s: %s)", bucket, type(err).__name__, err)
+                self.aot_fallbacks[bucket] = type(err).__name__
+                continue
+            self.aot_executables[bucket] = runner
+            self.aot_headers[bucket] = header
+
+    @property
+    def aot_covered(self) -> bool:
+        """True when every warmup bucket of the artifact's ladder serves
+        from a loaded package: a boot that runs no eager program."""
+        sizes = self.metadata.get("warmup_batch_sizes") or []
+        return bool(sizes) and all(int(size) in self.aot_executables for size in sizes)
+
+    def _aot_runner(self, inputs: Dict[str, torch.Tensor]):
+        """The package for exactly this batch's signature, or None (a
+        novel shape or dtype is the exported program's, not an error)."""
+        if not self.aot_executables or not inputs:
+            return None
+        batch = int(next(iter(inputs.values())).shape[0])
+        runner = self.aot_executables.get(batch)
+        if runner is None:
+            return None
+        header = self.aot_headers[batch]
+        if list(inputs) != header.get("feature_keys") or aot_lib.feature_signature(
+                inputs) != header.get("features"):
+            return None
+        return runner
 
     @property
     def has_program(self) -> bool:
@@ -627,6 +897,17 @@ class ExportedModel:
         program or none)."""
         return sorted(self._modules) if self._modules and None not in self._modules else None
 
+    def _run(self, key: Optional[int], inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The bucket's package when one loaded for this signature, else
+        the exported program `key` (counted in fresh_trace_calls)."""
+        runner = self._aot_runner(inputs)
+        module = self._modules[key] if runner is None else runner
+        if runner is None:
+            self.fresh_trace_calls += 1
+        if self._payload is not None:
+            return dict(module(self._payload, inputs))
+        return dict(module(inputs))
+
     def _run_static(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         batch = next(iter(inputs.values())).shape[0]
         fits = [b for b in sorted(self._modules) if b >= batch]
@@ -637,12 +918,13 @@ class ExportedModel:
         if size != batch:
             inputs = {key: torch.cat([value] + [value[-1:]] * (size - batch))
                       for key, value in inputs.items()}
-        out = self._modules[size](inputs)
+        out = self._run(size, inputs)
         return {key: value[:batch] for key, value in out.items()}
 
     def traced_predict(self, features: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The program on tensors already on `device` (no host copies), so
-        a caller can keep a loop on the card."""
+        a caller can keep a loop on the card. A batch whose signature has a
+        loaded package runs the package; any other runs the program."""
         if not self._modules:
             if self.quant_regime != "none":
                 errors = (self.metadata.get("serve_quant") or {}).get("stablehlo_error")
@@ -655,10 +937,8 @@ class ExportedModel:
             )
         inputs = {key: features[key] for key, _ in self._inputs}
         with torch.no_grad():
-            if self._payload is not None:
-                return dict(self._modules[None](self._payload, inputs))
             if None in self._modules:
-                return dict(self._modules[None](inputs))
+                return self._run(None, inputs)
             return self._run_static(inputs)
 
     def predict(self, flat_features: Mapping[str, Any]) -> Dict[str, np.ndarray]:

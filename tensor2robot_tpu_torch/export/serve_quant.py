@@ -894,9 +894,11 @@ _DTYPE_NAMES = {
 def _program(program) -> torch.export.ExportedProgram:
     if isinstance(program, torch.export.ExportedProgram):
         return program
+    from tensor2robot_tpu_torch.export.aot import load_exported
+
     if isinstance(program, (bytes, bytearray)):
-        return torch.export.load(io.BytesIO(bytes(program)))
-    return torch.export.load(os.fspath(program))
+        return load_exported(io.BytesIO(bytes(program)))
+    return load_exported(os.fspath(program))
 
 
 def _call_nodes(program):

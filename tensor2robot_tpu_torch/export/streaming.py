@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch.export.aot import load_exported
 from tensor2robot_tpu_torch.export.saved_model import TRACE_LOCK
 from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -238,7 +239,7 @@ class StreamingExportedPolicy(StreamingStepRunner):
             os.path.join(export_dir, STREAM_CACHE_FILENAME),
             map_location="cpu", weights_only=True,
         )
-        program = torch.export.load(
+        program = load_exported(
             os.path.join(export_dir, STREAM_PROGRAM_DIR, STREAM_FN_FILENAME)
         )
         if self.metadata["program_device"] != str(device):

@@ -7,8 +7,10 @@ defaults and parsing match tensor2robot_tpu/flags.py, so one environment
 configures both packages alike; only the gates of the ported modules
 (the policy server, the trainer's infeed, the data stack, the max pool's
 backward, the Grasping44 stem, the ZeRO-2 gradient codecs, the sharding
-planner with its plan cache and the low-precision serving regimes) are
-declared here.
+planner with its plan cache, the low-precision serving regimes, the AOT
+serving packages with their compile-cache tier and the artifact store) are
+declared here. One default differs from the JAX package's:
+T2R_AOT_EXPORT is 0 here (its help text says why).
 """
 
 from __future__ import annotations
@@ -71,6 +73,32 @@ def _declare(name, kind, default, doc, owner, choices=None, minimum=None):
     _REGISTRY[name] = FlagSpec(name, kind, default, doc, owner, choices, minimum)
 
 
+_SAVED_MODEL = "tensor2robot_tpu_torch/export/saved_model.py"
+_STORE = "tensor2robot_tpu_torch/export/artifact_store.py"
+_declare(
+    "T2R_AOT_EXPORT",
+    _BOOL,
+    False,
+    "Export-side AOT packages: compile one AOTInductor package per "
+    "warmup bucket (per serve-quant regime too) into the export dir's "
+    "aot/, keyed on artifact fingerprint + device topology "
+    "(export/aot.py). 0 writes artifacts without aot/ (the pre-AOT "
+    "layout). The default is 0, where the JAX package's is 1: an "
+    "AOTInductor build takes tens of seconds a bucket, so every exporter "
+    "with a warmup ladder would pay it; aot_executables=True on the "
+    "exporter, or this flag set to 1, builds the packages.",
+    _SAVED_MODEL,
+)
+_declare(
+    "T2R_AOT_REQUIRE",
+    _BOOL,
+    False,
+    "Strict AOT boots: a restore that cannot load an AOT package for "
+    "EVERY warmup bucket fails loudly instead of falling back to the "
+    "compile tiers — for fleets where a deploy-time compile is an SLO "
+    "violation, not a slow path.",
+    _SAVED_MODEL,
+)
 _declare(
     "T2R_COLLECTIVE_BLOCK",
     _INT,
@@ -90,6 +118,16 @@ _declare(
     "residual.",
     _COLLECTIVES,
     choices=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
+)
+_declare(
+    "T2R_COMPILE_CACHE_DIR",
+    _STR,
+    None,
+    "Persistent compile-cache directory for serving processes "
+    "(serving/compile_cache.py): Inductor's and Triton's on-disk caches "
+    "point there, so a second build of the same program on the host "
+    "reads its kernels from disk. Unset = no persistent cache.",
+    "tensor2robot_tpu_torch/serving/compile_cache.py",
 )
 _declare(
     "T2R_DECODE_CACHE_MB",
@@ -284,6 +322,51 @@ _declare(
     "serving path byte for byte.",
     "tensor2robot_tpu_torch/export/saved_model.py",
     choices=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
+)
+
+_declare(
+    "T2R_SERVE_AOT",
+    _BOOL,
+    True,
+    "Restore-side AOT packages: serve each warmup bucket from the "
+    "artifact's aot/ dir (load instead of running the eager program) "
+    "with a LOUD, counted fallback to the exported program on any key "
+    "mismatch. 0 reproduces the pre-AOT restore path.",
+    _SAVED_MODEL,
+)
+_declare(
+    "T2R_POLICY_DELTA_BLOCK",
+    _INT,
+    512,
+    "Quantization block size (elements per scale) for delta-compressed "
+    "sibling payloads in the content-addressed artifact store "
+    "(export/artifact_store.py); each leaf's diff-vs-base is raveled "
+    "and zero-padded to a block multiple before encoding.",
+    _STORE,
+    minimum=1,
+)
+_declare(
+    "T2R_POLICY_DELTA_QUANT",
+    _ENUM,
+    "int8",
+    "Wire regime for delta-compressed sibling payloads in the artifact "
+    "store (export/artifact_store.py): per-leaf weight diffs vs the "
+    "named base artifact encode through the blockwise collective codec "
+    "(parallel/collectives.py). 'none' stores the diff dense-exact "
+    "(dedup still applies to program/AOT blobs).",
+    _STORE,
+    choices=("none", "fp16", "int8", "fp8_e4m3", "fp8_e5m2"),
+)
+_declare(
+    "T2R_POLICY_DELTA_TOL",
+    _STR,
+    "0.05",
+    "Per-leaf parity-gate tolerance for delta payloads "
+    "(export/artifact_store.py), parsed as a float: decode(delta)+base "
+    "must reconstruct the leaf within this relative L-inf bound or THAT "
+    "LEAF ships dense-exact (gate-fails-write-nothing — demotion is "
+    "per leaf and recorded in the manifest, never a partial policy).",
+    _STORE,
 )
 
 _PLANNER = "tensor2robot_tpu_torch/parallel/planner.py"

@@ -1,7 +1,6 @@
 """Predictor over exported model dirs: serve the newest export version.
 
-Port of tensor2robot_tpu/predictors/exported_savedmodel_predictor.py
-(without the compile cache, ROADMAP.md A10).
+Port of tensor2robot_tpu/predictors/exported_savedmodel_predictor.py.
 It loads the newest timestamped export under a root and rebuilds the input
 contract from assets.extra/t2r_assets.pbtxt, so it needs no model code
 when the export carries a program (export/saved_model.py). It serves the
@@ -20,7 +19,10 @@ program on `device` (the card by default) and keeps the fleet behaviours:
   * a low-precision serving regime (`quant_regime`, None reads
     T2R_SERVE_QUANT at every restore): every version it swaps in serves
     that regime's program and payload, and a version that lacks it fails
-    the restore.
+    the restore;
+  * the compile-cache tier (serving/compile_cache.py) engaged for each
+    incoming version before its prewarm, skipped when the version's AOT
+    packages cover its whole ladder.
 
 An export without a program is served from model code (`t2r_model`) and
 the export's variables, under no regime: model code would serve f32
@@ -151,6 +153,14 @@ class ExportedSavedModelPredictor(AbstractPredictor):
                     # listing and reading: not yet available, poll again.
                     loaded = None
                 if loaded is not None:
+                    # The compile-cache tier for the incoming version,
+                    # before its prewarm; skipped when AOT packages cover
+                    # every bucket of its ladder.
+                    from tensor2robot_tpu_torch.serving.compile_cache import (
+                        enable_compile_cache_for,
+                    )
+
+                    enable_compile_cache_for(loaded)
                     # A missing program without model code is permanent:
                     # raise instead of burning the timeout.
                     predict_fn = self._build_predict_fn(loaded)

@@ -67,6 +67,11 @@ class ServerMetrics:
             "deadline_dropped": 0,
             "hot_swaps": 0,
             "batches": 0,
+            # AOT restore accounting: buckets served from a loaded package
+            # vs buckets that fell back while AOT was requested, summed
+            # over the boot and every hot swap.
+            "aot_hits": 0,
+            "aot_misses": 0,
         }
         self._batch_slots = 0
         self._batch_real = 0

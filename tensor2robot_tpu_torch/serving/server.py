@@ -28,14 +28,19 @@ bucket-sized batches:
 
 Port of tensor2robot_tpu/serving/server.py. The predictor's `predict` is
 called only from the dispatcher (and from the prewarms): a predict on
-the submit path would serialize clients behind the model. AOT restore
-tiers, compile caches, quantized regimes and the multi-policy
-`exported_policy_loader` are not ported (ROADMAP.md A10).
+the submit path would serialize clients behind the model. The snapshot
+names each bucket's restore tier (`prewarm_source`: "aot" for a loaded
+AOT package, else "cache" or "compile", serving/compile_cache.py), the
+buckets that fell off the AOT tier and why, and the artifact's
+fingerprint; `exported_policy_loader` boots servers over the artifact
+store (export/artifact_store.py). `MultiPolicyServer` is not ported yet
+(ROADMAP.md A10.4).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import logging
 import os
 import threading
@@ -244,6 +249,9 @@ class PolicyServer:
         # {version: buckets prewarmed on it}, at start and per swap.
         self._prewarmed: Dict[str, List[int]] = {}
         self._warmup_source: Optional[str] = None  # "export" | "synthesized"
+        # Per-bucket restore tier of the SERVING version ("aot" | "cache" |
+        # "compile"), set at start and by each swap that lands.
+        self._prewarm_source: Dict[int, str] = {}
         self._metrics = ServerMetrics()
         self._queue: deque = deque()
         self._cond = threading.Condition()
@@ -284,6 +292,8 @@ class PolicyServer:
                 (key, dims, static, len(dims), numpy_dtype(leaf.dtype))
             )
         self._bucket_batches = self._build_bucket_batches(loaded, spec)
+        self._ensure_compile_tier(loaded)
+        self._record_prewarm_sources(loaded)
         if prewarm:
             self._prewarm()
         installer = getattr(self._predictor, "set_restore_prewarm", None)
@@ -333,10 +343,49 @@ class PolicyServer:
         every bucket runs on the incoming version while the old one keeps
         serving, so the swap never puts a first call in front of traffic.
         Raising aborts the swap."""
+        self._ensure_compile_tier(loaded)
         for bucket in self._buckets:
             serve(self._bucket_batches[bucket])
         version = os.path.basename(str(getattr(loaded, "export_dir", "")).rstrip("/"))
         self._prewarmed[version] = list(self._buckets)
+        # Recorded only once every bucket readied: an aborted swap keeps
+        # the serving version's record.
+        self._record_prewarm_sources(loaded)
+
+    def _ensure_compile_tier(self, loaded) -> None:
+        """Engages the compile-cache tier whenever THIS server's ladder has
+        a bucket the loaded version cannot serve from an AOT package (an
+        explicit `batch_buckets` ladder can be wider than the warmup
+        ladder the restore-time engagement sees). No-op when the cache
+        flag is unset."""
+        table = getattr(loaded, "aot_executables", None) or {}
+        if any(bucket not in table for bucket in self._buckets):
+            from tensor2robot_tpu_torch.serving.compile_cache import enable_compile_cache
+
+            enable_compile_cache()
+
+    def _record_prewarm_sources(self, loaded) -> None:
+        """Per-bucket restore tier of `loaded` and the aot_hits/aot_misses
+        counters. A miss is counted ONLY when AOT was requested (the loaded
+        model resolved T2R_SERVE_AOT=1) and the bucket still fell back."""
+        table = getattr(loaded, "aot_executables", None) or {}
+        aot_requested = bool(getattr(loaded, "aot_enabled", False))
+        cache_on = bool(t2r_flags.get_str("T2R_COMPILE_CACHE_DIR"))
+        sources: Dict[int, str] = {}
+        hits = misses = 0
+        for bucket in self._buckets:
+            if bucket in table:
+                sources[bucket] = "aot"
+                hits += 1
+            else:
+                sources[bucket] = "cache" if cache_on else "compile"
+                if aot_requested:
+                    misses += 1
+        self._prewarm_source = sources
+        if hits:
+            self._metrics.count("aot_hits", hits)
+        if misses:
+            self._metrics.count("aot_misses", misses)
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stops the dispatcher. drain=True serves everything already
@@ -358,6 +407,10 @@ class PolicyServer:
             self._cond.notify_all()
         if self._dispatcher is not None:
             self._dispatcher.join(timeout=timeout)
+        # The predictor may outlive this server; detach the prewarm hook.
+        installer = getattr(self._predictor, "set_restore_prewarm", None)
+        if installer is not None:
+            installer(None)
         self._started = False
 
     def __enter__(self) -> "PolicyServer":
@@ -485,6 +538,25 @@ class PolicyServer:
                     snap["serve_quant_reduce_audit"] = dict(audit)
         snap["warmup_source"] = self._warmup_source
         snap["prewarmed"] = dict(list(self._prewarmed.items()))
+        # Per-bucket restore tier of the serving version.
+        snap["prewarm_source"] = {
+            str(bucket): source for bucket, source in sorted(self._prewarm_source.items())
+        }
+        loaded = getattr(self._predictor, "loaded_model", None)
+        fallbacks = getattr(loaded, "aot_fallbacks", None)
+        if fallbacks:
+            # Why each declared bucket fell off the AOT tier.
+            snap["aot_fallbacks"] = {
+                str(bucket): reason for bucket, reason in sorted(fallbacks.items())
+            }
+        # The artifact's recorded AOT fingerprint of the active regime (the
+        # sha256 over program and payload bytes).
+        meta = getattr(loaded, "metadata", None)
+        if isinstance(meta, Mapping):
+            table = (meta.get("aot") or {}).get("fingerprint") or {}
+            fingerprint = table.get(getattr(loaded, "quant_regime", None) or "none")
+            if fingerprint:
+                snap["model_fingerprint"] = str(fingerprint)
         return snap
 
     def hot_swap(self, wait: bool = False) -> bool:
@@ -636,3 +708,73 @@ class PolicyServer:
             request.future._set_response(ServeResponse(row, version, millis))
             spans.append(millis)
         self._metrics.observe_replies(spans)
+
+
+# -- multi-policy loader -------------------------------------------------------
+
+
+def exported_policy_loader(
+    store_root: str,
+    policy_ids=None,
+    work_dir: Optional[str] = None,
+    batch_buckets=None,
+    max_wait_ms: Optional[int] = None,
+    predict_timeout_ms: Optional[int] = None,
+    restore_timeout_s: int = 120,
+    device=None,
+):
+    """(loader, catalog) over the artifact store, for a multi-policy server.
+
+    Each load MATERIALIZES the policy's export dir from the
+    content-addressed store (export/artifact_store.py: program and AOT
+    blobs shared with its base, a delta payload decoded and
+    hash-verified), then boots a PolicyServer over it with the SHARED
+    bucket ladder (`batch_buckets`, defaulting to each artifact's own
+    warmup ladder) and prewarms every bucket before the policy serves.
+    The started server's `mem_bytes` is the policy's dense weight
+    footprint from the manifest. `device` is the predictors' (None: the
+    card).
+    """
+    import tempfile
+
+    from tensor2robot_tpu_torch.export.artifact_store import ArtifactStore
+    from tensor2robot_tpu_torch.predictors.exported_savedmodel_predictor import (
+        ExportedSavedModelPredictor,
+    )
+    from tensor2robot_tpu_torch.utils.device import DEFAULT_DEVICE
+
+    store = ArtifactStore(store_root)
+    catalog = list(policy_ids) if policy_ids is not None else store.policies()
+    if not catalog:
+        raise ValueError(f"artifact store {store_root} holds no policies")
+    if work_dir is None:
+        work_dir = tempfile.mkdtemp(prefix="t2r-policies-")
+
+    def loader(policy_id: str):
+        # The predictor polls a root of timestamped versions: the policy
+        # lands as the one version under its own root, named by its
+        # export's timestamp (a "temp-" dir is no version until renamed).
+        root = os.path.join(work_dir, policy_id)
+        if not os.path.exists(root):
+            staged = store.materialize(policy_id, os.path.join(root, "temp-materialize"))
+            with open(os.path.join(staged, "t2r_metadata.json")) as f:
+                version = str(int(json.load(f).get("timestamp", 1)))
+            os.replace(staged, os.path.join(root, version))
+        predictor = ExportedSavedModelPredictor(
+            export_dir=root, timeout=restore_timeout_s,
+            device=DEFAULT_DEVICE if device is None else device)
+        if not predictor.restore():
+            raise RuntimeError(
+                f"policy {policy_id!r} predictor restore timed out under {root}")
+        server = PolicyServer(
+            predictor,
+            batch_buckets=batch_buckets,
+            max_wait_ms=max_wait_ms,
+            predict_timeout_ms=predict_timeout_ms,
+        )
+        server.start(prewarm=True)
+        server.mem_bytes = int(
+            store.manifest(policy_id)["payload"].get("weights_nbytes", 0))
+        return server
+
+    return loader, catalog

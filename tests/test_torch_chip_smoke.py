@@ -112,7 +112,7 @@ def test_critic_phase(chip_smoke, tmp_path, capsys):
 def test_phases_list_the_critic(chip_smoke):
     assert chip_smoke.PHASES == (
         "build", "kernels", "training", "serving", "critic", "export", "serve_quant",
-        "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper",
+        "aot", "policy", "data", "cli", "meta", "stream", "moe", "grasp2vec", "vrgripper",
         "maml_export", "stem_s2d", "png", "parallel")
 
 
@@ -183,6 +183,45 @@ def test_serve_quant_needs_training_and_critic(chip_smoke, monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_critic", lambda model_dir: None)
     assert chip_smoke.main() == 1
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_aot_needs_training(chip_smoke, monkeypatch, capsys):
+    """The aot phase exports the training phase's step-20 BC weights (and
+    transplants packages into its step-10 export): asked for without it,
+    the run fails with no result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr("sys.argv", ["chip_smoke.py", "--phases", "critic,aot"])
+    monkeypatch.setattr(chip_smoke, "phase_critic", lambda model_dir: None)
+    monkeypatch.setattr(chip_smoke, "phase_aot", lambda model_dir: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "CPU rehearsal")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert '"ok"' not in out.out
+    assert "aot exports the training phase's weights" in out.err
+
+
+def test_share_bytecode(chip_smoke, tmp_path, monkeypatch):
+    """The run's processes share one bytecode cache under build/ when the
+    port lies beside the script; a lone copy of the script leaves the
+    interpreter's settings alone."""
+    import os
+    import sys
+
+    monkeypatch.setenv("PYTHONDONTWRITEBYTECODE", "1")
+    monkeypatch.delenv("PYTHONPYCACHEPREFIX", raising=False)
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    chip_smoke.share_bytecode()
+    assert (sys.pycache_prefix, sys.dont_write_bytecode) == (None, True)
+    assert os.environ["PYTHONDONTWRITEBYTECODE"] == "1"
+    monkeypatch.setattr(chip_smoke, "ROOT", str(ROOT))
+    chip_smoke.share_bytecode()
+    prefix = str(ROOT / "build" / "pycache")
+    assert (sys.pycache_prefix, sys.dont_write_bytecode) == (prefix, False)
+    assert os.environ["PYTHONPYCACHEPREFIX"] == prefix
+    assert "PYTHONDONTWRITEBYTECODE" not in os.environ
 
 
 def test_data_phase(chip_smoke, tmp_path, monkeypatch, capsys):

@@ -293,8 +293,14 @@ class TestExporters:
     def test_create_default_exporters(self):
         exporters = create_default_exporters(TransformerBCModel(**BC))
         assert [e.name for e in exporters] == ["latest", "best"]
-        with pytest.raises(NotImplementedError, match="A10"):
+        # AOT packages are ported (A10.2): JAX's config-time checks.
+        with pytest.raises(ValueError, match="warmup_batch_sizes"):
             create_default_exporters(None, aot_executables=True)
+        with pytest.raises(ValueError, match="serialize_stablehlo"):
+            create_default_exporters(None, aot_executables=True,
+                                     warmup_batch_sizes=(1,), export_program=False)
+        assert len(create_default_exporters(None, aot_executables=True,
+                                            warmup_batch_sizes=(1, 2))) == 2
 
     def test_ema_weights_are_exported(self, tmp_path):
         model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(

@@ -246,3 +246,16 @@ def test_the_subprocess_import_covers_the_parallel_slice(module):
     path = ROOT / (module.replace(".", "/") + (
         "/__init__.py" if module.endswith("parallel") else ".py"))
     assert path in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.export.aot",
+    "tensor2robot_tpu_torch.export.artifact_store",
+    "tensor2robot_tpu_torch.serving.compile_cache",
+])
+def test_the_subprocess_import_covers_the_aot_slice(module):
+    """Every module of the AOT-package slice is among those the blocked-jax
+    subprocess imports and the import scans parse."""
+    assert module in set(_modules())
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in SOURCES

@@ -432,11 +432,13 @@ class TestBehaviour:
                 (dict(serve_quant=("int8",), warmup_batch_sizes=(1,),
                       serialize_stablehlo=False), "serialize_stablehlo"),
                 (dict(serve_calib="sometimes"), "T2R_SERVE_CALIB"),
-                (dict(export_program=True, serialize_stablehlo=False), "disagree")):
+                (dict(export_program=True, serialize_stablehlo=False), "disagree"),
+                # AOT packages are ported (A10.2): JAX's config-time checks.
+                (dict(aot_executables=True), "warmup_batch_sizes"),
+                (dict(aot_executables=True, warmup_batch_sizes=(1,),
+                      serialize_stablehlo=False), "serialize_stablehlo")):
             with pytest.raises(ValueError, match=match):
                 Exporter("x", **kwargs)
-        with pytest.raises(NotImplementedError, match="A10"):
-            Exporter("x", aot_executables=True)
 
     def test_metadata_and_served_regimes(self, quant_export):
         path, _ = quant_export

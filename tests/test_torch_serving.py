@@ -302,10 +302,15 @@ class TestBuckets:
 
 class TestFlags:
     def test_declarations_match_jax(self):
+        # The one stated divergence: the port builds no AOT packages unless
+        # asked (an AOTInductor build takes tens of seconds a bucket).
+        diverging = {"T2R_AOT_EXPORT": (False, True)}
         for spec in flags.all_flags():
             theirs = jax_flags.get_flag(spec.name)
-            assert (spec.kind, spec.default, spec.choices, spec.minimum) == (
-                theirs.kind, theirs.default, theirs.choices, theirs.minimum
+            expected = diverging.get(spec.name, (theirs.default, theirs.default))
+            assert (spec.default, theirs.default) == expected, spec.name
+            assert (spec.kind, spec.choices, spec.minimum) == (
+                theirs.kind, theirs.choices, theirs.minimum
             )
 
     def test_getters(self, monkeypatch):

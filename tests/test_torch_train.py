@@ -348,7 +348,9 @@ class TestUnportedArguments:
             # ShardingPlan ("A9", the item that ported it), raises
             # TypeError naming the type it wants.
             (dict(mesh=object()), "TypeError"), (dict(plan=object()), "A9"),
-            # serve_quant is ported (A10.1); AOT executables are not (A10.2).
+            # serve_quant (A10.1) and AOT packages (A10.2) are ported: an
+            # AOT request without a warmup ladder is JAX's config-time
+            # ValueError.
             (dict(create_exporters_fn=lambda m: create_default_exporters(
                 m, aot_executables=True)), "A10"),
         ],
@@ -361,7 +363,7 @@ class TestUnportedArguments:
         elif item == "A9":
             error, item = TypeError, r"parallel\.planner\.ShardingPlan"
         else:
-            error = NotImplementedError
+            error, item = ValueError, "aot_executables=True needs warmup_batch_sizes"
         with pytest.raises(error, match=item) as raised:
             train_eval.train_eval_model(
                 TransformerBCModel(**SMALL), train, model_dir=str(tmp_path),
